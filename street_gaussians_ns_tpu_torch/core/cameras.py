@@ -1,0 +1,91 @@
+"""Camera container + pose conventions (counterpart of
+street_gaussians_ns_tpu/core/cameras.py).
+
+Camera-to-world poses are in the OpenGL/nerfstudio convention (x right,
+y up, looking along -z); the rasterizer's view matrix flips y/z
+(`viewmat_from_c2w`), exactly as the JAX package does, so the same poses
+render the same images.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+# Camera model identifiers (the JAX package's PERSPECTIVE / FISHEYE /
+# FISHEYE624). FISHEYE624 frames are undistorted to pinhole by the data
+# layer, so the render path only sees PERSPECTIVE.
+PERSPECTIVE = 0
+FISHEYE = 1
+FISHEYE624 = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class Camera:
+    """A single pinhole camera with a timestamp.
+
+    fx, fy, cx, cy and time are 0-d float32 tensors (kept as tensors so
+    every derived quantity is computed in float32, as in the JAX package);
+    c2w is (3, 4) OpenGL camera-to-world; width/height are python ints.
+    """
+
+    fx: torch.Tensor
+    fy: torch.Tensor
+    cx: torch.Tensor
+    cy: torch.Tensor
+    c2w: torch.Tensor
+    time: torch.Tensor
+    width: int
+    height: int
+    model: int = PERSPECTIVE
+
+    @staticmethod
+    def make(fx, fy, cx, cy, c2w, width: int, height: int, time=0.0,
+             device="cuda", model: int = PERSPECTIVE) -> "Camera":
+        def f32(v):
+            return torch.as_tensor(v, dtype=torch.float32, device=device)
+
+        return Camera(fx=f32(fx), fy=f32(fy), cx=f32(cx), cy=f32(cy),
+                      c2w=f32(c2w)[:3, :4], time=f32(time),
+                      width=int(width), height=int(height), model=model)
+
+    @property
+    def device(self) -> torch.device:
+        return self.c2w.device
+
+
+def viewmat_from_c2w(c2w: torch.Tensor) -> torch.Tensor:
+    """OpenGL c2w (3, 4) -> world-to-camera (4, 4) in rasterizer
+    convention: R @ diag(1, -1, -1), then the analytic rigid inverse."""
+    R = c2w[:3, :3] * torch.tensor([1.0, -1.0, -1.0], dtype=c2w.dtype,
+                                   device=c2w.device)[None, :]
+    T = c2w[:3, 3:4]
+    R_inv = R.T
+    T_inv = -R_inv @ T
+    viewmat = torch.eye(4, dtype=c2w.dtype, device=c2w.device)
+    viewmat[:3, :3] = R_inv
+    viewmat[:3, 3:4] = T_inv
+    return viewmat
+
+
+def pixel_directions(camera: Camera) -> torch.Tensor:
+    """Per-pixel world ray directions (H, W, 3), normalized, through the
+    pixel centers (the eval rays of the sky model; the training-time
+    jitter belongs to the training slice).
+
+    Camera-frame rays ((u - cx)/fx, (v - cy)/fy, 1) are rotated by the raw
+    OpenGL c2w rotation, as the JAX package does."""
+    if camera.model != PERSPECTIVE:
+        raise NotImplementedError(
+            "only PERSPECTIVE cameras are ported; FISHEYE rays are a "
+            "queue item (ROADMAP.md)")
+    H, W = camera.height, camera.width
+    dev = camera.device
+    u = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
+    v = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
+    u = u + 0.5
+    v = v + 0.5
+    d = torch.stack([(u - camera.cx) / camera.fx, (v - camera.cy) / camera.fy,
+                     torch.ones_like(u)], dim=-1)
+    d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+    return torch.einsum("ij,hwj->hwi", camera.c2w[:3, :3], d)

@@ -1,0 +1,133 @@
+"""The public render op: project -> bin -> composite (counterpart of
+street_gaussians_ns_tpu/ops/render.py).
+
+`render` maps activated Gaussian attributes + a camera to
+{rgb, accumulation, depth}: EWA projection, the fused rasterizer with rgb
+and depth as one 4-channel colour, the sky composited as
+rgb*alpha + sky*(1-alpha), and the alpha-normalised depth with far fill.
+
+The port has one compositor, the fused kernel path (impl="fused"). The
+JAX package's portable compositors ("chunked", "scan"), the bf16 sort
+payloads and depth slices are not ported yet and raise (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Optional
+
+import torch
+
+from ..core.cameras import Camera, viewmat_from_c2w
+from ..core.projection import Projected, project
+from .composite import rasterize_tiles_fused
+from .tiles import TileBins
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Render-path configuration."""
+
+    tile_size: int = 16
+    max_pairs: int = 2 ** 18           # sorted (gaussian, tile) capacity
+    max_rowruns: Optional[int] = None  # (gaussian, tile-row) run capacity;
+    #                                    default max_pairs // 2
+    impl: str = "fused"
+    depth_far_fill: float = 10.0
+    precision: str = "f32"
+    depth_slices: int = 1
+
+    def __post_init__(self):
+        if self.impl != "fused":
+            raise NotImplementedError(
+                f"impl={self.impl!r}: only the fused rasterizer is ported; "
+                f"the portable compositors are a queue item (ROADMAP.md)")
+        if self.precision != "f32":
+            raise ValueError(f"precision={self.precision!r} is not ported "
+                             f"yet (ROADMAP.md); use 'f32'")
+        if self.depth_slices != 1:
+            raise ValueError(f"depth_slices={self.depth_slices} is not "
+                             f"ported yet (ROADMAP.md); use 1")
+
+    @property
+    def rowrun_capacity(self) -> int:
+        return (self.max_rowruns if self.max_rowruns is not None
+                else self.max_pairs // 2)
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderOutputs:
+    rgb: torch.Tensor           # (H, W, 3)
+    accumulation: torch.Tensor  # (H, W, 1)
+    depth: torch.Tensor         # (H, W, 1)
+    projected: Projected
+    bins: TileBins
+
+
+def rasterize(proj: Projected, colors: torch.Tensor, opacities: torch.Tensor,
+              camera: Camera, background: torch.Tensor, config: RenderConfig,
+              last_color_is_depth: bool = False):
+    """Bin + composite. Returns (img (H, W, C), alpha (H, W), bins).
+
+    Warns (RuntimeWarning) when the scene needs more pairs or runs than
+    the configured capacities: the overflow pairs are dropped from this
+    render. Reading the two counts waits for the device."""
+    img, alpha, bins = rasterize_tiles_fused(
+        proj, colors, opacities, camera.width, camera.height,
+        config.tile_size, background, config.max_pairs, config.max_rowruns,
+        last_color_is_depth=last_color_is_depth, precision=config.precision,
+        depth_slices=config.depth_slices)
+    num_pairs, num_rowruns = (int(v) for v in torch.stack(
+        [bins.num_pairs, bins.num_rowruns]).tolist())
+    if (num_pairs > config.max_pairs
+            or num_rowruns > config.rowrun_capacity):
+        warnings.warn(
+            f"render capacity overflow: {num_pairs} pairs for max_pairs="
+            f"{config.max_pairs}, {num_rowruns} row runs for max_rowruns="
+            f"{config.rowrun_capacity}; the overflow pairs are dropped",
+            RuntimeWarning, stacklevel=3)
+    return img, alpha, bins
+
+
+def render(
+    means: torch.Tensor,       # (N, 3) world-space
+    scales: torch.Tensor,      # (N, 3) linear (exp-activated)
+    quats: torch.Tensor,       # (N, 4) wxyz
+    opacities: torch.Tensor,   # (N,) in [0, 1]
+    rgbs: torch.Tensor,        # (N, 3) per-splat RGB
+    camera: Camera,
+    config: RenderConfig,
+    sky_rgb: Optional[torch.Tensor] = None,  # (H, W, 3)
+    training: bool = True,
+    active: Optional[torch.Tensor] = None,   # (N,) bool live gaussians
+) -> RenderOutputs:
+    """Forward render of one camera: rasterization background zeros, rgb
+    clamped to <= 1, the sky composited behind, alpha-normalised depth
+    with far fill, and rgb clamped to [0, 1] when not training."""
+    vm = viewmat_from_c2w(camera.c2w)
+    proj = project(means, scales, quats, vm, camera.fx, camera.fy,
+                   camera.cx, camera.cy, camera.width, camera.height,
+                   tile_size=config.tile_size, opacities=opacities)
+    if active is not None:
+        proj = dataclasses.replace(
+            proj,
+            radii=torch.where(active, proj.radii, 0),
+            num_tiles_hit=torch.where(active, proj.num_tiles_hit, 0),
+        )
+    colors4 = torch.cat([rgbs, proj.depths[:, None]], dim=-1)
+    background = torch.zeros((4,), dtype=torch.float32, device=means.device)
+    img, alpha, bins = rasterize(proj, colors4, opacities, camera,
+                                 background, config,
+                                 last_color_is_depth=True)
+
+    rgb = torch.clamp(img[..., :3], max=1.0)
+    alpha1 = alpha[..., None]
+    if sky_rgb is not None:
+        rgb = rgb * alpha1 + sky_rgb * (1.0 - alpha1)
+    if not training:
+        rgb = torch.clamp(rgb, 0.0, 1.0)
+    depth = torch.where(alpha1 > 1e-3,
+                        img[..., 3:4] / torch.clamp(alpha1, min=1e-3),
+                        torch.full_like(alpha1, config.depth_far_fill))
+    return RenderOutputs(rgb=rgb, accumulation=alpha1, depth=depth,
+                         projected=proj, bins=bins)
