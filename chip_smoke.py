@@ -10,7 +10,10 @@ Phases, each printing one JSON line:
   2. build      nvcc builds every kernel of csrc/ (one process per source,
                 all started together) into build/torch_kernels/;
   3. reference  a small scene graph rendered on the card agrees with the
-                same render on the CPU (the plain versions of every kernel);
+                same render on the CPU (the plain versions of every kernel),
+                and one training step and one refinement pass of it from the
+                same state, jitter and noise agree too (loss, every gradient,
+                the densification statistics, the refine pass's counts);
   4. main_path  the flagship scene graph at full width (1,048,576 background
                 gaussians in bench.py's street corridor, 4 vehicles x 65,536
                 gaussians with Fourier dim 5 on 3-frame tracks, SH degree 3,
@@ -23,10 +26,22 @@ Phases, each printing one JSON line:
   5. profile    one frame under torch.profiler: the device's busy share
                 and the ops that take its time;
   6. stages     device time of each stage of one render (CUDA events);
-  7. kernels    every kernel of the path, on the inputs captured from one
-                full-width render, against its plain version, with its time,
-                the plain version's time, a PyTorch library call's time where
-                one computes the same function, and its bound.
+  7. train_path the flagship scene graph as a train state (the same weights
+                through engine.checkpoints.train_state_from_numpy, one slot in
+                16 left free as a trainer's headroom, a target image and a
+                semantic map from --seed): 4 steps of
+                engine.scene_train_step.scene_train_step with
+                subset_accs=False, 1 step with subset_accs=True, from step
+                3600 (the SH degree has reached 3, so features_rest trains),
+                then one scene_refine_step at a step that densifies. Every launch
+                counter is set to 0 just before the steps and read just after;
+  8. train_profile / train_stages  one step under torch.profiler, and the
+                device time of the stages of one step (CUDA events);
+  9. kernels    every kernel of both paths, on the inputs captured from one
+                full-width render and one full-width backward, against its
+                plain version, with its time, the plain version's time, a
+                PyTorch library call's time where one computes the same
+                function, and its bound.
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
@@ -48,19 +63,23 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import torch  # noqa: E402
 
-from street_gaussians_ns_tpu_torch.core.cameras import Camera  # noqa: E402
+from street_gaussians_ns_tpu_torch.core.cameras import (  # noqa: E402
+    Camera, draw_pixel_jitter)
 from street_gaussians_ns_tpu_torch.core.cameras import viewmat_from_c2w  # noqa: E402
 from street_gaussians_ns_tpu_torch.core.projection import (  # noqa: E402
     coverage_q, project)
+from street_gaussians_ns_tpu_torch.engine import optimizers  # noqa: E402
+from street_gaussians_ns_tpu_torch.engine import scene_train_step as sts  # noqa: E402
 from street_gaussians_ns_tpu_torch.engine.checkpoints import (  # noqa: E402
-    store_from_numpy, tracks_from_numpy)
+    store_from_numpy, tracks_from_numpy, train_state_from_numpy)
+from street_gaussians_ns_tpu_torch.models import refinement  # noqa: E402
 from street_gaussians_ns_tpu_torch.models.scene_graph import (  # noqa: E402
-    SceneGraphConfig, compose, forward_scene)
+    SceneGraphConfig, compose, forward_scene, scene_loss_dict)
 from street_gaussians_ns_tpu_torch.models.splatfacto import (  # noqa: E402
     SplatfactoConfig, sh_colors, sky_color)
 from street_gaussians_ns_tpu_torch.ops import _cuda  # noqa: E402
 from street_gaussians_ns_tpu_torch.ops import (  # noqa: E402
-    composite, expand, scan, tiles)
+    composite, expand, scan, segreduce, tiles)
 from street_gaussians_ns_tpu_torch.ops.render import RenderConfig, render  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
@@ -68,6 +87,20 @@ FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 # Kernel D per evaluated (pixel, pair): 2 subtractions, 7 for sigma, the
 # exp, 4 for alpha (max, negate, multiply, clamp), 2 skip compares.
 D_OPS_PER_EVAL = 16
+# Kernel E per evaluated (pixel, pair): kernel D's 16, counted as D counts
+# them. Only an evaluation that contributes (passes both skip tests before
+# its pixel saturates) needs the rest: next_T and w (3), the colours'
+# gradient and g . colour (12 at 4 channels), the prefix and the suffix
+# (3), 1 - alpha and dL/dalpha (6), the opacity and sigma gradients (3),
+# the five geometry terms (14), and one add per gradient row for the sum
+# over the tile's pixels (10).
+E_OPS_PER_CONTRIB = 51
+# First step of the training phase: the SH degree has reached 3 (one degree
+# per 1,000 steps), so features_rest is live in the backward and in Adam as
+# in most of a 30k-step run; below stop_split_at, and the refinement pass
+# after the phase's steps densifies.
+TRAIN_STEP0 = 3600
+NUM_TRAIN_DATA = 100               # images of the (synthetic) clip
 SH_C0 = 0.28209479177387814
 REPO = Path(__file__).resolve().parent
 
@@ -88,6 +121,7 @@ class Size:
 
 FLAGSHIP = Size()
 REPS = 20                          # launches per kernel timing
+E_PLAIN_DEPTH = 3072               # deepest tile the plain backward replays
 
 
 def emit(phase: str, **fields) -> None:
@@ -194,6 +228,30 @@ def cameras(n: int, width: int, height: int, focal: float, device):
                                 width, height, time=times[i % len(times)],
                                 device=device))
     return cams
+
+
+def make_batch(seed: int, width: int, height: int, device):
+    """A training batch from the seed: a random target image and a
+    semantic map whose top third is sky."""
+    rng = np.random.default_rng(seed + 7)
+    semantic = np.zeros((height, width, 1), np.int32)
+    semantic[: height // 3] = 2
+    return {"image": torch.from_numpy(rng.random(
+                (height, width, 3), dtype=np.float32)).to(device),
+            "semantic": torch.from_numpy(semantic).to(device)}
+
+
+def train_arrays(store_np: dict, step: int, every: int = 16) -> dict:
+    """The scene's arrays under a train checkpoint's keys, with one slot
+    in `every` marked inactive: the headroom a trainer keeps for the
+    children of a refinement pass."""
+    arrays = {f"store/{k}": v for k, v in store_np.items()}
+    for part in ("background", "objects"):
+        active = store_np[f"{part}/active"].copy()
+        active[..., every - 1::every] = False
+        arrays[f"store/{part}/active"] = active
+    arrays["step"] = np.asarray(step, np.int32)
+    return arrays
 
 
 def size_capacity(store, tracks, cfg, cams, step: int = 8192):
@@ -346,6 +404,105 @@ def phase_reference(seed: int):
     emit("reference", size=[64, 48], max_err=errs)
 
 
+def _all_grads(grads: dict):
+    """(name, tensor) over every gradient of scene_loss_and_grads."""
+    for name, g in grads["gauss"].items():
+        for k, t in g.items():
+            yield f"{name}/{k}", t
+    for name, t in grads["bbox"].items():
+        yield f"bbox/{name}", t
+    yield "xys", grads["xys"]
+    if grads["env_map"] is not None:
+        yield "env_map", grads["env_map"]
+
+
+def phase_reference_train(seed: int, devices=("cpu", "cuda")):
+    """The training slice at a small size on the card against the CPU
+    (the plain versions), from the same state, sky jitter and split noise:
+    one step's loss and gradients with subset_accs=True past stop_split_at
+    (the entropy loss live), then one step below it (the statistics
+    accumulate) and one refinement pass. The loss at atol 2e-5, every
+    gradient at 1e-4 of its group's largest |g|, visibility counts,
+    screen sizes and every refine count exact, the accumulated gradient
+    norms at the gradient tolerance."""
+    store_np, tracks_np = make_scene(seed + 1, 600, 2, 80, 16, sh_degree=1)
+    cfg = scene_config(1, 16, 5)
+    rcfg = RenderConfig(max_pairs=1 << 14)
+    late = cfg.background.stop_split_at + 1
+    rng = np.random.default_rng(seed + 3)
+    jitter = rng.random((2, 48, 64), dtype=np.float32)
+    res = {}
+    for dev in devices:
+        tracks = tracks_from_numpy(tracks_np, device=dev)
+        cam = Camera.make(60.0, 60.0, 32.0, 24.0,
+                          np.eye(3, 4, dtype=np.float32), 64, 48, time=0.6,
+                          device=dev)
+        batch = make_batch(seed, 64, 48, dev)
+        jit = torch.from_numpy(jitter).to(dev)
+        state = train_state_from_numpy(train_arrays(store_np, late), cfg,
+                                       device=dev, seed=seed)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", RuntimeWarning)
+            total, _, _, _, grads = sts.scene_loss_and_grads(
+                state, tracks, cam, batch, cfg, rcfg, subset_accs=True,
+                jitter=jit)
+            state = dataclasses.replace(state, step=TRAIN_STEP0)
+            state, metrics = sts.scene_train_step(
+                state, tracks, cam, batch, cfg, rcfg, subset_accs=True,
+                jitter=jit)
+        noise = {"bg": refinement.draw_split_noise(
+                     cfg.background, state.store.background.capacity,
+                     torch.Generator().manual_seed(seed), "cpu").to(dev),
+                 "obj": torch.stack([refinement.draw_split_noise(
+                     cfg.object_template, state.store.objects.capacity,
+                     torch.Generator().manual_seed(seed + 1 + o), "cpu")
+                     for o in range(state.store.num_objects)]).to(dev)}
+        refined, info = sts.scene_refine_step(state, cfg, NUM_TRAIN_DATA, 64,
+                                              noise=noise)
+        res[dev] = dict(
+            loss=float(total), step_loss=float(metrics["loss"]),
+            grads={k: v.cpu() for k, v in _all_grads(grads)},
+            stats={f"{part}/{k}": getattr(getattr(state.store, part), k).cpu()
+                   for part in ("background", "objects")
+                   for k in ("xys_grad_norm", "vis_counts", "max_2dsize")},
+            info={k: int(v) for k, v in info.items()},
+            active=int(refined.store.background.active.sum()))
+    want = res[devices[0]]
+    got = res[devices[-1]]
+    errs = {"loss": abs(got["loss"] - want["loss"]),
+            "step_loss": abs(got["step_loss"] - want["step_loss"])}
+    if max(errs.values()) > 2e-5:
+        raise AssertionError(f"reference train: loss differs {errs}")
+    for k, w in want["grads"].items():
+        top = float(w.abs().max())
+        err = float((got["grads"][k] - w).abs().max())
+        if k.startswith("bbox/"):
+            if top != 0.0 or err != 0.0:
+                raise AssertionError(f"reference train: {k} must be zero")
+            continue
+        if not top > 0 or err > 1e-4 * top:
+            raise AssertionError(f"reference train: gradient {k} differs "
+                                 f"by {err} (largest |g| {top})")
+        errs[f"grad {k}"] = err / top
+    g_top = float(want["grads"]["xys"].abs().max())
+    for k, w in want["stats"].items():
+        err = float((got["stats"][k] - w).abs().max())
+        if err > (1e-4 * g_top if k.endswith("xys_grad_norm") else 0.0):
+            raise AssertionError(f"reference train: stat {k} differs by "
+                                 f"{err}")
+    if float(want["stats"]["background/vis_counts"].sum()) <= 0:
+        raise AssertionError("reference train: nothing visible")
+    if got["info"] != want["info"] or got["active"] != want["active"]:
+        raise AssertionError(f"reference train: refine counts differ: "
+                             f"{got['info']} vs {want['info']}")
+    if want["info"]["bg_refine_splits_count"] <= 0:
+        raise AssertionError("reference train: the refine pass split "
+                             "nothing")
+    emit("reference_train", size=[64, 48], tolerance="loss atol 2e-5; "
+         "gradients 1e-4 of the group's largest |g|; counts exact",
+         max_err=errs, refine=want["info"])
+
+
 def phase_main(seed: int, size: Size = FLAGSHIP, dev="cuda"):
     """The main path. dev="cpu" rehearses it on the plain versions (no
     launch counts there)."""
@@ -427,9 +584,244 @@ def phase_main(seed: int, size: Size = FLAGSHIP, dev="cuda"):
     return store, tracks, cfg, rcfg, cams[0], launches
 
 
-def phase_profile(store, tracks, cfg, rcfg, cam, top: int = 15):
-    """One eval frame under torch.profiler: device time by kernel, and the
-    device's busy share of the frame's wall time."""
+def phase_train(seed: int, tracks, cfg, rcfg, cam, size: Size = FLAGSHIP,
+                dev="cuda"):
+    """The training path: 4 steps with subset_accs=False, 1 step with
+    subset_accs=True, one refinement pass. dev="cpu" rehearses it on the
+    plain versions (no launch counts there)."""
+    t0 = time.perf_counter()
+    store_np, _ = make_scene(seed, size.bg, size.objects, size.per_object,
+                             size.env_res)
+    state = train_state_from_numpy(train_arrays(store_np, TRAIN_STEP0), cfg,
+                                   device=dev, seed=seed)
+    del store_np
+    batch = make_batch(seed, size.width, size.height, dev)
+    setup_s = time.perf_counter() - t0
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    first = state
+
+    def step(st, subset_accs):
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", RuntimeWarning)
+            return sts.scene_train_step(st, tracks, cam, batch, cfg, rcfg,
+                                        subset_accs=subset_accs)
+
+    # Warm-up (allocator, cub), and the gradients looked at directly.
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)
+        total, _, _, _, grads = sts.scene_loss_and_grads(
+            state, tracks, cam, batch, cfg, rcfg, subset_accs=False,
+            jitter=draw_pixel_jitter(cam, state.generator))
+    if not math.isfinite(float(total)):
+        raise AssertionError(f"train: loss {float(total)}")
+    has_grad = {}
+    for name, g in _all_grads(grads):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"train: gradient {name} is not finite")
+        has_grad[name] = bool(g.any())
+    sh_active = min(TRAIN_STEP0 // cfg.background.sh_degree_interval,
+                    cfg.background.sh_degree)
+    if sh_active != cfg.background.sh_degree:
+        raise AssertionError(f"train: SH degree {sh_active} at step "
+                             f"{TRAIN_STEP0}, the scene's is "
+                             f"{cfg.background.sh_degree}")
+    dead = [name for name in ("features_rest/bg", "features_rest/obj")
+            if not has_grad[name]]
+    if dead:
+        raise AssertionError(f"train: no gradient in {dead} at the full SH "
+                             f"degree")
+    grad_absmax = {name: float(g.abs().max())
+                   for name, g in _all_grads(grads)}
+    del grads
+    sync()
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    for k in _cuda.KERNELS:
+        k.launches = 0
+    times, losses, pairs = [], [], []
+    plan = [False, False, False, False, True]
+    for subset_accs in plan:
+        t = time.perf_counter()
+        state, metrics = step(state, subset_accs)
+        sync()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(metrics["loss"]))
+        pairs.append(int(metrics["num_pairs"]))
+        if not math.isfinite(losses[-1]):
+            raise AssertionError(f"train: loss {losses[-1]} at step "
+                                 f"{state.step - 1}")
+        if (pairs[-1] > rcfg.max_pairs
+                or int(metrics["num_rowruns"]) > rcfg.rowrun_capacity):
+            raise AssertionError("train: render capacity overflow")
+    t = time.perf_counter()
+    refined, info = sts.scene_refine_step(state, cfg, NUM_TRAIN_DATA,
+                                          max(cam.width, cam.height))
+    sync()
+    refine_ms = (time.perf_counter() - t) * 1e3
+    launches = {k.name: k.launches for k in _cuda.KERNELS}
+    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else None
+
+    # A step with subset_accs renders three times; the loss reads the full
+    # render and the object-only accumulation, so two of them run backward.
+    renders = sum(3 if s else 1 for s in plan)
+    backwards = sum(2 if s else 1 for s in plan)
+    expected = {"flat_scan": 3 * renders, "expand_ragged": 2 * renders,
+                "pack_feat_cols": renders, "composite_fwd": renders,
+                "composite_bwd": backwards, "rank_rowsum": backwards}
+    for name, n in expected.items():
+        if dev == "cuda" and launches[name] != n:
+            raise AssertionError(f"train: {name} launched {launches[name]} "
+                                 f"times over {renders} renders and "
+                                 f"{backwards} backward passes, expected "
+                                 f"{n}")
+
+    def params_of(st):
+        out = {}
+        for name in sts.GAUSSIAN_GROUPS:
+            for k, t_ in sts._gaussian_group_params(st.store, name).items():
+                out[f"{name}/{k}"] = t_
+        out["env_map"] = st.store.env_map
+        return out
+
+    moved = {}
+    for name, new in params_of(state).items():
+        if not bool(torch.isfinite(new).all()):
+            raise AssertionError(f"train: parameter {name} is not finite")
+        moved[name] = bool((new != params_of(first)[name]).any())
+        if has_grad[name] and not moved[name]:
+            raise AssertionError(f"train: group {name} has a gradient and "
+                                 f"did not move")
+    for name, st in state.opt.items():
+        for leaf in (st.mu, st.nu):
+            for t_ in (leaf.values() if isinstance(leaf, dict) else [leaf]):
+                if not bool(torch.isfinite(t_).all()):
+                    raise AssertionError(f"train: Adam moments of {name} "
+                                         f"are not finite")
+    info = {k: int(v) for k, v in info.items()}
+    n_active = int(refined.store.background.active.sum()
+                   + refined.store.objects.active.sum())
+    if info["bg_gaussian_count"] + info["obj_gaussian_count"] != n_active:
+        raise AssertionError("train: the refine pass's count disagrees "
+                             "with its active masks")
+    if info["bg_refine_splits_count"] + info["bg_refine_dups_count"] <= 0:
+        raise AssertionError("train: the refine pass densified nothing")
+    if float(state.store.background.vis_counts.max()) != len(plan):
+        raise AssertionError("train: the densification statistics did not "
+                             "accumulate over the steps")
+    ms = float(np.median(times[:4]))
+    emit("train_path", steps=len(plan), renders=renders,
+         backward_passes=backwards,
+         first_step=TRAIN_STEP0, sh_degree_active=sh_active,
+         size=[size.width, size.height],
+         gaussians_active=int(first.store.background.active.sum()
+                              + first.store.objects.active.sum()),
+         ms_per_step=times, ms_per_step_median=ms,
+         steps_per_s=1e3 / ms, ms_step_subset_accs=times[4],
+         loss_per_step=losses, num_pairs=pairs,
+         max_memory_allocated=peak, setup_seconds=setup_s,
+         grad_absmax=grad_absmax, moved=moved, refine_ms=refine_ms,
+         refine=info, gaussians_after_refine=n_active, launches=launches)
+    return state, batch, launches
+
+
+def capture_train(state, tracks, cfg, rcfg, cam, batch):
+    """Inputs of kernels E and F in one full-width backward (one step's
+    full render), with the step's results."""
+    jitter = draw_pixel_jitter(cam, state.generator)
+    recs = [Recorder(composite, "composite_bwd"),
+            Recorder(composite, "rank_rowsum")]
+    for r in recs:
+        r.__enter__()
+    try:
+        res = sts.scene_loss_and_grads(state, tracks, cam, batch, cfg, rcfg,
+                                       subset_accs=False, jitter=jitter)
+    finally:
+        for r in recs:
+            r.__exit__()
+    return {r.name: r.calls for r in recs}, jitter, res
+
+
+def phase_train_stages(state, tracks, cfg, rcfg, cam, batch, calls, jitter,
+                       res, reps: int = 3):
+    """Device time of the stages of one training step (CUDA events), the
+    pieces of the backward on the inputs captured from it."""
+    _, _, outputs, rout, grads = res
+    (bwd_args, _), = calls["composite_bwd"]
+    feat, ts, tc, ntx, nc, g_accum, g_t, tfin, ncon, accum = bwd_args
+    n = rout.bins.depth_order.shape[0]
+    gpair = composite.composite_bwd(*bwd_args)
+    nvis = torch.minimum(ncon.amax(dim=1), tc)
+    pair = composite._visited_pairs(ts, nvis)
+    kk = composite.K
+    g = gpair[pair // kk, :11, pair % kk]
+    rank_s, perm = torch.sort(g[:, 10].to(torch.int32), stable=True)
+    rows11 = g.index_select(0, perm).T.contiguous()
+    rank_sums = segreduce.rank_rowsum(rows11, rank_s, n)
+    store = state.store
+
+    def adam():
+        for name in sts.GAUSSIAN_GROUPS:
+            c = optimizers.DEFAULT_GROUPS[name]
+            optimizers.adam_update(
+                grads["gauss"][name], state.opt[name],
+                sts._gaussian_group_params(store, name),
+                optimizers.schedule(c, state.step), c)
+        c = optimizers.DEFAULT_GROUPS["sky_sphere"]
+        optimizers.adam_update(grads["env_map"], state.opt["sky_sphere"],
+                               store.env_map,
+                               optimizers.schedule(c, state.step), c)
+
+    def fwd():
+        with torch.no_grad():
+            return forward_scene(store, tracks, cam, state.step, cfg, rcfg,
+                                 training=True, subset_accs=False,
+                                 jitter=jitter)
+
+    def gather_visited():
+        pr = composite._visited_pairs(ts, nvis)
+        return gpair[pr // kk, :11, pr % kk]
+
+    cap_bg = store.background.capacity
+    stages = {
+        "forward_scene(training)": fwd,
+        "scene_loss_dict": lambda: scene_loss_dict(outputs, batch, cfg,
+                                                   state.step),
+        "loss_and_grads": lambda: sts.scene_loss_and_grads(
+            state, tracks, cam, batch, cfg, rcfg, subset_accs=False,
+            jitter=jitter),
+        "bwd.composite_bwd": lambda: composite.composite_bwd(*bwd_args),
+        "bwd.gather_visited": gather_visited,
+        "bwd.rank_sort": lambda: g.index_select(0, torch.sort(
+            g[:, 10].to(torch.int32), stable=True).indices).T.contiguous(),
+        "bwd.rank_rowsum": lambda: segreduce.rank_rowsum(rows11, rank_s, n),
+        "bwd.unsort": lambda: composite._unsort_rank_sums(
+            rank_sums, rout.bins.depth_order),
+        "bwd.reduce(compact)": lambda: composite._reduce_pair_grads_ranked(
+            gpair, ts, nvis, rout.bins.depth_order, n),
+        "adam(7 groups)": adam,
+        "update_stats": lambda: refinement.update_stats(
+            store.background, grads["xys"][:cap_bg],
+            rout.projected.radii[:cap_bg], max(cam.width, cam.height),
+            state.step, cfg.background),
+        "scene_train_step": lambda: sts.scene_train_step(
+            state, tracks, cam, batch, cfg, rcfg, subset_accs=False,
+            jitter=jitter),
+    }
+    ms = {k: time_ms(fn, reps) for k, fn in stages.items()}
+    ms["backward(derived)"] = (ms["loss_and_grads"]
+                               - ms["forward_scene(training)"]
+                               - ms["scene_loss_dict"])
+    ms["bwd.autograd_rest(derived)"] = (ms["backward(derived)"]
+                                        - ms["bwd.composite_bwd"]
+                                        - ms["bwd.reduce(compact)"])
+    emit("train_stages", ms=ms, pairs_visited=int(pair.shape[0]),
+         pairs_in_stream=int(tc.sum()), max_pairs=rcfg.max_pairs)
+
+
+def phase_profile(phase: str, fn, top: int = 15):
+    """One call of `fn` (an eval frame, a train step) under
+    torch.profiler: device time by kernel, and the device's busy share of
+    the call's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -437,7 +829,7 @@ def phase_profile(store, tracks, cfg, rcfg, cam, top: int = 15):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        forward_scene(store, tracks, cam, 0, cfg, rcfg, eval_extras=True)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     ops, busy = [], 0.0
@@ -450,7 +842,7 @@ def phase_profile(store, tracks, cfg, rcfg, cam, top: int = 15):
         elif us > 0:
             ops.append((us / 1e3, e.count, e.key))   # the ops launching them
     ops.sort(reverse=True)
-    emit("profile", wall_ms=wall_ms, device_busy_ms=busy,
+    emit(phase, wall_ms=wall_ms, device_busy_ms=busy,
          device_idle_share=(1.0 - busy / wall_ms) if busy else None,
          top_ops=[{"ms": ms, "calls": n, "name": name[:100]}
                   for ms, n, name in ops[:top]])
@@ -544,9 +936,10 @@ def _max_err(a, b):
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
-def phase_kernels(calls, launches, reps: int = REPS):
+def phase_kernels(calls, launches, train_launches, reps: int = REPS):
     rows = []
-    rel = lambda p: str(Path(p).resolve().relative_to(REPO))  # noqa: E731
+    rel = rel_path = lambda p: str(  # noqa: E731
+        Path(p).resolve().relative_to(REPO))
 
     # A: flat scan, the render's 3 int32 cumsums (2 of N, 1 of max_rowruns).
     ms = plain = lib = nbytes = err = 0.0
@@ -665,6 +1058,100 @@ def phase_kernels(calls, launches, reps: int = REPS):
                      ops_bound_ms=D_OPS_PER_EVAL * n_eval / FP32_OPS_PER_S
                      * 1e3, tiles=ts.numel(),
                      max_tile_count=int(tc.max())))
+
+    # E: backward compositor, on one full-width backward's inputs. The
+    # plain version takes one Python iteration per within-tile pair index,
+    # so the comparison leaves out the tiles that visit more than
+    # E_PLAIN_DEPTH pairs (their count set to 0 for both versions).
+    (bwd_args, _), = calls["composite_bwd"]
+    feat, ts, tc, ntx, nc, g_accum, g_t, tfin, ncon, accum = bwd_args
+    nvis = torch.minimum(ncon.amax(dim=1), tc)
+    shallow = nvis <= E_PLAIN_DEPTH
+    tc_cmp = torch.where(shallow, tc, torch.zeros_like(tc))
+    cmp_args = (feat, ts, tc_cmp, ntx, nc, g_accum, g_t, tfin, ncon, accum)
+    got = composite.composite_bwd(*cmp_args)
+    t0 = time.perf_counter()
+    want = composite.composite_bwd_plain(
+        *cmp_args[:-1], torch.sum(g_accum * accum, dim=-1))
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    top = float(want[:, :10].abs().max())
+    err = _max_err(got[:, :10], want[:, :10])
+    rel = float(((got[:, :10] - want[:, :10]).abs()
+                 / (1e-4 * want[:, :10].abs() + 1e-5 * top)).max())
+    if (not top > 0 or rel > 1.0
+            or not torch.equal(got[:, 10:], want[:, 10:])):
+        raise AssertionError(f"composite_bwd: max abs error {err} at "
+                             f"largest |g| {top} (rtol 1e-4, atol 1e-5 of "
+                             f"it; rank row exact)")
+    evals = torch.zeros((3,), dtype=torch.int64, device=feat.device)
+    full = composite.composite_bwd(*bwd_args, evals=evals)
+    if not torch.equal(full, composite.composite_bwd(*bwd_args)):
+        raise AssertionError("composite_bwd: two launches on the same "
+                             "inputs differ")
+    ms = time_ms(lambda: composite.composite_bwd(*bwd_args), reps)
+    n_eval, n_vis, n_contrib = (int(v) for v in evals.tolist())
+    nbytes = 4 * (n_vis * 11 + n_vis * 11 + ts.numel() * 256 * (nc + 4)
+                  + 2 * ts.numel())
+    ops = D_OPS_PER_EVAL * n_eval + E_OPS_PER_CONTRIB * n_contrib
+    b, by = bound(nbytes, ops)
+    rows.append(dict(name="composite_bwd", route="cuda",
+                     source=rel_path(_cuda.CSRC / composite.BWD_KERNEL.source),
+                     replaces=composite.BWD_KERNEL.replaces,
+                     launches=train_launches["composite_bwd"],
+                     max_abs_err=err,
+                     tolerance="rtol 1e-4 + atol 1e-5 of the largest |g|; "
+                               "rank row exact; two launches bit-equal",
+                     largest_grad=top, ms=ms, plain_ms=plain, bound_ms=b,
+                     bound_by=by, library_ms=None,
+                     plain_compared_tiles=int(shallow.sum()),
+                     tiles=ts.numel(), plain_depth=E_PLAIN_DEPTH,
+                     pixel_pair_evals=n_eval,
+                     contributing_evals=n_contrib, pairs_visited=n_vis,
+                     pairs_in_stream=int(tc.sum()),
+                     max_visited_in_a_tile=int(nvis.max()),
+                     bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                     ops_bound_ms=ops / FP32_OPS_PER_S * 1e3))
+
+    # F: rank-keyed row sum, on the same backward's sorted gradient rows.
+    (f_args, _), = calls["rank_rowsum"]
+    rows11, rank_s, n_out = f_args
+    got = segreduce.rank_rowsum(rows11, rank_s, n_out)
+    want = segreduce.rank_rowsum_plain(rows11, rank_s, n_out)
+    top = float(want.abs().max())
+    err = _max_err(got, want)
+    relf = float(((got - want).abs()
+                  / (1e-4 * want.abs() + 1e-5 * top)).max())
+    if not top > 0 or relf > 1.0:
+        raise AssertionError(f"rank_rowsum: max abs error {err} at largest "
+                             f"|sum| {top} (rtol 1e-4, atol 1e-5 of it)")
+    if not torch.equal(got, segreduce.rank_rowsum(rows11, rank_s, n_out)):
+        raise AssertionError("rank_rowsum: two launches on the same inputs "
+                             "differ")
+    ms = time_ms(lambda: segreduce.rank_rowsum(rows11, rank_s, n_out), reps)
+    plain = time_ms(lambda: segreduce.rank_rowsum_plain(rows11, rank_s,
+                                                        n_out), reps)
+    idx = rank_s.to(torch.int64)
+    vals = rows11[:10]
+    lib = time_ms(lambda: torch.zeros(
+        (10, n_out + 1), dtype=torch.float32,
+        device=vals.device).index_add_(1, idx, vals), reps)
+    p_len = rows11.shape[1]
+    b, by = bound(4 * (11 * p_len + 10 * n_out))
+    runs = torch.bincount(idx, minlength=n_out + 1)[:n_out]
+    rows.append(dict(name="rank_rowsum", route="cuda",
+                     source=rel_path(_cuda.CSRC / segreduce.KERNEL.source),
+                     replaces=segreduce.KERNEL.replaces,
+                     launches=train_launches["rank_rowsum"], max_abs_err=err,
+                     tolerance="rtol 1e-4 + atol 1e-5 of the largest |sum|; "
+                               "two launches bit-equal",
+                     largest_sum=top, ms=ms, plain_ms=plain, bound_ms=b,
+                     bound_by=by, library_ms=lib,
+                     library="torch.Tensor.index_add_",
+                     shapes=[list(rows11.shape), n_out],
+                     longest_run=int(runs.max()),
+                     runs_over_32=int((runs > 32).sum()),
+                     ranks_with_pairs=int((runs > 0).sum())))
     return rows
 
 
@@ -677,11 +1164,24 @@ def main():
     smi = phase_device()
     phase_build()
     phase_reference(args.seed)
+    phase_reference_train(args.seed)
     store, tracks, cfg, rcfg, cam0, launches = phase_main(args.seed)
-    phase_profile(store, tracks, cfg, rcfg, cam0)
+    phase_profile("profile", lambda: forward_scene(
+        store, tracks, cam0, 0, cfg, rcfg, eval_extras=True))
     phase_stages(store, tracks, cfg, rcfg, cam0)
     calls = capture(store, tracks, cfg, rcfg, cam0)
-    rows = phase_kernels(calls, launches)
+    del store
+    state, batch, train_launches = phase_train(args.seed, tracks, cfg, rcfg,
+                                               cam0)
+    phase_profile("train_profile", lambda: sts.scene_train_step(
+        state, tracks, cam0, batch, cfg, rcfg, subset_accs=False))
+    train_calls, jitter, res = capture_train(state, tracks, cfg, rcfg, cam0,
+                                             batch)
+    phase_train_stages(state, tracks, cfg, rcfg, cam0, batch, train_calls,
+                       jitter, res)
+    del res
+    calls.update(train_calls)
+    rows = phase_kernels(calls, launches, train_launches)
     for r in rows:
         r["card"] = smi
     print(json.dumps({"kernels": rows}), flush=True)

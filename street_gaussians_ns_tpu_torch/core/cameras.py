@@ -68,13 +68,22 @@ def viewmat_from_c2w(c2w: torch.Tensor) -> torch.Tensor:
     return viewmat
 
 
-def pixel_directions(camera: Camera) -> torch.Tensor:
-    """Per-pixel world ray directions (H, W, 3), normalized, through the
-    pixel centers (the eval rays of the sky model; the training-time
-    jitter belongs to the training slice).
+def draw_pixel_jitter(camera: Camera,
+                      generator: torch.Generator) -> torch.Tensor:
+    """The training-time anti-alias jitter: (2, H, W) offsets (du, dv)
+    uniform in [0, 1), drawn from `generator` on the camera's device."""
+    return torch.rand((2, camera.height, camera.width), dtype=torch.float32,
+                      device=camera.device, generator=generator)
 
-    Camera-frame rays ((u - cx)/fx, (v - cy)/fy, 1) are rotated by the raw
-    OpenGL c2w rotation, as the JAX package does."""
+
+def pixel_directions(camera: Camera,
+                     jitter: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-pixel world ray directions (H, W, 3), normalized. `jitter`
+    ((2, H, W), see draw_pixel_jitter) offsets every pixel's ray at train
+    time; without it the rays go through the pixel centers (eval).
+
+    Camera-frame rays ((u - cx + du)/fx, (v - cy + dv)/fy, 1) are rotated
+    by the raw OpenGL c2w rotation, as the JAX package does."""
     if camera.model != PERSPECTIVE:
         raise NotImplementedError(
             "only PERSPECTIVE cameras are ported; FISHEYE rays are a "
@@ -83,8 +92,15 @@ def pixel_directions(camera: Camera) -> torch.Tensor:
     dev = camera.device
     u = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
     v = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
-    u = u + 0.5
-    v = v + 0.5
+    if jitter is not None:
+        if tuple(jitter.shape) != (2, H, W):
+            raise ValueError(f"jitter must be (2, {H}, {W}), got "
+                             f"{tuple(jitter.shape)}")
+        u = u + jitter[0]
+        v = v + jitter[1]
+    else:
+        u = u + 0.5
+        v = v + 0.5
     d = torch.stack([(u - camera.cx) / camera.fx, (v - camera.cy) / camera.fy,
                      torch.ones_like(u)], dim=-1)
     d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)

@@ -5,6 +5,8 @@ Convention: wxyz (scalar-first). All functions broadcast over leading axes.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -78,6 +80,20 @@ def from_rotmat(m: torch.Tensor) -> torch.Tensor:
     q = torch.where(idx == 0, qw,
                     torch.where(idx == 1, qx, torch.where(idx == 2, qy, qz)))
     return normalize(q)
+
+
+def shoemake_quats(u: torch.Tensor) -> torch.Tensor:
+    """Unit quaternions (n, 4) wxyz from uniforms u (3, n) in [0, 1) by
+    Shoemake's subgroup algorithm; uniform on the rotation group when the
+    rows are independent uniform draws."""
+    u0, v, w = u[0], u[1], u[2]
+    two_pi = 2.0 * math.pi
+    return torch.stack([
+        torch.sqrt(1.0 - u0) * torch.sin(two_pi * v),
+        torch.sqrt(1.0 - u0) * torch.cos(two_pi * v),
+        torch.sqrt(u0) * torch.sin(two_pi * w),
+        torch.sqrt(u0) * torch.cos(two_pi * w),
+    ], dim=-1)
 
 
 def slerp(q0: torch.Tensor, q1: torch.Tensor, t) -> torch.Tensor:

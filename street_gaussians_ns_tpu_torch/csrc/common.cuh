@@ -19,3 +19,30 @@ SG_EXPORT const char* sg_error_string(int err) {
 static inline int sg_last_error() {
   return static_cast<int>(cudaGetLastError());
 }
+
+// The compositor's per-(pixel, pair) evaluation, shared by the forward
+// kernel and the backward replay so both form sigma, the falloff and alpha
+// in the same order of float operations and take the same branch at every
+// (pixel, pair) (ops/rasterize_ref.py states the rules):
+//   sigma = 0.5 (a dx^2 + c dy^2) + b dx dy,  (dx, dy) = center - pixel
+//   alpha = min(0.999, opacity * exp(-max(sigma, 0)))
+// A pair is skipped where sigma < SG_SIGMA_MIN or alpha < SG_ALPHA_THRESH;
+// the callers test sigma before they form alpha (most pairs fail there).
+constexpr float SG_ALPHA_THRESH = 1.0f / 255.0f;
+constexpr float SG_ALPHA_CLAMP = 0.999f;
+constexpr float SG_T_EPS = 1e-4f;
+constexpr float SG_SIGMA_MIN = -1e-3f;
+
+__device__ __forceinline__ float sg_sigma(float x, float y, float ca, float cb,
+                                          float cc, float px, float py,
+                                          float& dx, float& dy) {
+  dx = x - px;
+  dy = y - py;
+  return 0.5f * (ca * dx * dx + cc * dy * dy) + cb * dx * dy;
+}
+
+__device__ __forceinline__ float sg_alpha(float op, float sigma,
+                                          float& falloff) {
+  falloff = expf(-fmaxf(sigma, 0.0f));
+  return fminf(SG_ALPHA_CLAMP, op * falloff);
+}

@@ -39,11 +39,6 @@ constexpr int NFEAT = 16;
 constexpr int K = 128;
 constexpr int BATCH = PIX;
 
-constexpr float ALPHA_THRESH = 1.0f / 255.0f;
-constexpr float ALPHA_CLAMP = 0.999f;
-constexpr float T_EPS = 1e-4f;
-constexpr float SIGMA_MIN = -1e-3f;
-
 template <int NC>
 __global__ void __launch_bounds__(PIX)
     composite_fwd_kernel(const float* __restrict__ feat,
@@ -79,18 +74,15 @@ __global__ void __launch_bounds__(PIX)
     __syncthreads();
     if (!done) {
       for (int j = 0; j < nb; ++j) {
-        const float dx = sm[0][j] - px;
-        const float dy = sm[1][j] - py;
-        const float sigma =
-            0.5f * (sm[2][j] * dx * dx + sm[4][j] * dy * dy) +
-            sm[3][j] * dx * dy;
+        float dx, dy, falloff;
+        const float sigma = sg_sigma(sm[0][j], sm[1][j], sm[2][j], sm[3][j],
+                                     sm[4][j], px, py, dx, dy);
         ++nev;
-        if (sigma < SIGMA_MIN) continue;
-        const float alpha =
-            fminf(ALPHA_CLAMP, sm[5][j] * expf(-fmaxf(sigma, 0.0f)));
-        if (alpha < ALPHA_THRESH) continue;
+        if (sigma < SG_SIGMA_MIN) continue;
+        const float alpha = sg_alpha(sm[5][j], sigma, falloff);
+        if (alpha < SG_ALPHA_THRESH) continue;
         const float next_T = T * (1.0f - alpha);
-        if (next_T <= T_EPS) {
+        if (next_T <= SG_T_EPS) {
           done = true;
           break;
         }

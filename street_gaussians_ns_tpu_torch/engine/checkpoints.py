@@ -8,6 +8,14 @@ port's SceneGraphStore from the store's arrays, keyed relative to the
 store ("background/params/means", ...); `tracks_from_numpy` builds
 ObjectTracks from a JAX ObjectTracks' arrays ("times", "centers", ...);
 `load_checkpoint` reads an npz and selects the store under a prefix.
+
+A whole train state crosses the same way: `train_state_from_numpy` /
+`load_train_checkpoint` read the JAX trainer's keys ("store/...",
+"opt/<group>/mu/bg", "opt/<group>/nu/obj", "opt/<group>/count",
+"opt/sky_sphere/mu", "opt/bbox_opt/mu/delta_center", "step") into a
+`SceneTrainState`, and `state_to_numpy` writes the same keys back. The JAX
+"rng" key has no counterpart (the port draws from a `torch.Generator`,
+seeded by the caller) and is ignored.
 """
 from __future__ import annotations
 
@@ -18,6 +26,9 @@ import torch
 
 from ..models.gaussians import GaussianParams, GaussianStore
 from ..models.scene_graph import ObjectTracks, SceneGraphConfig, SceneGraphStore
+from .optimizers import AdamState
+from .scene_train_step import (BBOX_PARAMS, SceneTrainState,
+                               init_scene_train_state)
 
 _PARAMS = ("means", "scales", "quats", "features_dc", "features_rest",
            "opacities")
@@ -101,3 +112,78 @@ def load_checkpoint(path: Path, prefix: str = "store/",
     if not arrays:
         raise KeyError(f"{path}: no arrays under prefix {prefix!r}")
     return store_from_numpy(arrays, config, device)
+
+
+def train_state_from_numpy(arrays, config: SceneGraphConfig, device="cuda",
+                           seed: int = 0) -> SceneTrainState:
+    """A JAX SceneTrainState's arrays (keyed by its checkpoint tree paths)
+    -> the port's SceneTrainState on `device`. Adam groups missing from
+    `arrays` start from zero moments; the generator is seeded with `seed`."""
+    store = store_from_numpy(
+        {k[len("store/"):]: v for k, v in arrays.items()
+         if k.startswith("store/")}, config, device)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+    state = init_scene_train_state(store, generator)
+
+    def moments(like, path: str):
+        if isinstance(like, dict):
+            return {k: moments(v, f"{path}/{k}") for k, v in like.items()}
+        t = _tensor(arrays, path, device, torch.float32)
+        if t.shape != like.shape:
+            raise ValueError(f"{path}: shape {tuple(t.shape)}, the store "
+                             f"needs {tuple(like.shape)}")
+        return t
+
+    opt = {}
+    for name, zero in state.opt.items():
+        if f"opt/{name}/count" not in arrays:
+            opt[name] = zero
+            continue
+        opt[name] = AdamState(
+            mu=moments(zero.mu, f"opt/{name}/mu"),
+            nu=moments(zero.nu, f"opt/{name}/nu"),
+            count=int(arrays[f"opt/{name}/count"]))
+    step = int(arrays["step"]) if "step" in arrays else 0
+    return SceneTrainState(store=store, opt=opt, step=step,
+                           generator=generator)
+
+
+def load_train_checkpoint(path: Path,
+                          config: SceneGraphConfig = SceneGraphConfig(),
+                          device="cuda", seed: int = 0) -> SceneTrainState:
+    """Read a step-*.ckpt.npz written by the JAX trainer into a
+    SceneTrainState."""
+    with np.load(path, allow_pickle=False) as data:
+        arrays = {k: data[k] for k in data.files}
+    return train_state_from_numpy(arrays, config, device, seed)
+
+
+def state_to_numpy(state: SceneTrainState) -> dict:
+    """The state's arrays under the JAX trainer's checkpoint keys (the way
+    back of train_state_from_numpy; no "rng")."""
+    out = {}
+
+    def put(path: str, tree):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                put(f"{path}/{k}", v)
+        elif tree is not None:
+            out[path] = tree.detach().cpu().numpy()
+
+    store = state.store
+    for prefix, part in (("background", store.background),
+                         ("objects", store.objects)):
+        put(f"store/{prefix}/params", part.params.as_dict())
+        put(f"store/{prefix}/active", part.active)
+        for name in _STATS:
+            put(f"store/{prefix}/{name}", getattr(part, name))
+    put("store/env_map", store.env_map)
+    for name in BBOX_PARAMS:
+        put(f"store/{name}", getattr(store, name))
+    for name, s in state.opt.items():
+        put(f"opt/{name}/mu", s.mu)
+        put(f"opt/{name}/nu", s.nu)
+        out[f"opt/{name}/count"] = np.asarray(s.count, np.int32)
+    out["step"] = np.asarray(state.step, np.int32)
+    return out

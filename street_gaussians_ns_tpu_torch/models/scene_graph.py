@@ -5,10 +5,12 @@ street_gaussians_ns_tpu/models/scene_graph.py).
 The scene is data: a background store plus one object store with a
 leading object axis. Boxes are interpolated at the camera time (SLERP /
 lerp between tracked frames), the objects are posed into the world and
-everything is flattened into one splat set for the renderer. This slice
-ports the eval render (`forward_scene` with training=False): the bbox
-modes "off" and "simple"; "SO3xR3"/"SE3" need the camera-optimizer
-exp maps and raise until they are ported.
+everything is flattened into one splat set for the renderer.
+`forward_scene` renders for evaluation and for training (jittered sky
+rays, the screen-space gradient hook, no final clamp) and
+`scene_loss_dict` adds the accumulation entropy loss to the base losses.
+The bbox modes "off" and "simple" are ported; "SO3xR3"/"SE3" need the
+camera-optimizer exp maps and raise until they are ported (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ from ..core.cameras import Camera
 from ..ops.render import RenderConfig, render
 from .fourier import fourier_dc
 from .gaussians import GaussianStore
-from .splatfacto import SplatfactoConfig, sh_colors, sky_color
+from .splatfacto import (SplatfactoConfig, init_env_map, loss_dict,
+                         sh_colors, sky_color)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,12 +99,15 @@ def interpolate_boxes(tracks: ObjectTracks, t: torch.Tensor,
                       delta_center: Optional[torch.Tensor] = None,
                       delta_yaw: Optional[torch.Tensor] = None,
                       mode: str = "simple",
-                      delta_rot: Optional[torch.Tensor] = None) -> BoxesAtT:
+                      delta_rot: Optional[torch.Tensor] = None,
+                      differentiable: bool = False) -> BoxesAtT:
     """Boxes at camera time t: the exact frame when t matches one, else
     SLERP/lerp between the bracketing frames, visible where both are
     valid; none visible outside the tracked time range. In "simple" mode
     the bbox optimizer's delta center and yaw are applied at exact
-    annotated frames (inference: no gradients flow)."""
+    annotated frames; unless `differentiable`, they are detached (the
+    reference applies its correction detached, so no gradient reaches
+    them)."""
     if mode in ("SO3xR3", "SE3"):
         raise NotImplementedError(
             f"bbox_mode={mode!r} needs the camera-optimizer exp maps, not "
@@ -141,7 +147,9 @@ def interpolate_boxes(tracks: ObjectTracks, t: torch.Tensor,
         dy = (delta_yaw[fi] if delta_yaw is not None
               else torch.zeros(centers.shape[:-1], dtype=torch.float32,
                                device=times.device))
-        centers = centers + gate * dc
+        if not differentiable:
+            dc, dy = dc.detach(), dy.detach()
+        centers = centers + gate[..., None] * dc
         dyaw = dy * gate
         zero = torch.zeros_like(dyaw)
         dq = torch.stack([torch.cos(dyaw), zero, zero, torch.sin(dyaw)],
@@ -165,6 +173,24 @@ class SceneGraphStore:
         return self.objects.active.shape[0]
 
 
+def init_scene_graph_store(background: GaussianStore,
+                           object_stores: GaussianStore,
+                           tracks: ObjectTracks, config: SceneGraphConfig,
+                           device="cuda") -> SceneGraphStore:
+    """A scene graph from a background store and the stacked object stores
+    (leaves (O, CAP_o, ...)): the sky cubemap at 0.5 when the base config
+    has one, and zero bbox-optimizer deltas per (frame, object)."""
+    env = (init_env_map(config.base, device)
+           if config.base.use_sky_sphere else None)
+    F, O = tracks.num_frames, tracks.num_objects
+    f32 = dict(dtype=torch.float32, device=device)
+    return SceneGraphStore(
+        background=background, objects=object_stores, env_map=env,
+        delta_center=torch.zeros((F, O, 3), **f32),
+        delta_yaw=torch.zeros((F, O), **f32),
+        delta_rot=torch.zeros((F, O, 3), **f32))
+
+
 def object2world(means: torch.Tensor, quats_g: torch.Tensor,
                  boxes: BoxesAtT):
     """Rigid object -> world transform of per-object gaussians (O, C, ...):
@@ -184,12 +210,13 @@ def compose(store: SceneGraphStore, tracks: ObjectTracks, time: torch.Tensor,
     bg = store.background
     obj = store.objects
     mode = config.bbox_mode if config is not None else "simple"
+    diff = config.bbox_differentiable if config is not None else False
     boxes = interpolate_boxes(
         tracks, time,
         delta_center=store.delta_center if store.delta_center.numel() else None,
         delta_yaw=store.delta_yaw if store.delta_yaw.numel() else None,
         delta_rot=store.delta_rot if store.delta_rot.numel() else None,
-        mode=mode)
+        mode=mode, differentiable=diff)
     means_w, quats_w = object2world(obj.params.means, obj.params.quats, boxes)
     dc_obj = fourier_dc(obj.params.features_dc, boxes.t_norm)
     dc_bg = fourier_dc(bg.params.features_dc,
@@ -213,29 +240,44 @@ def compose(store: SceneGraphStore, tracks: ObjectTracks, time: torch.Tensor,
 def forward_scene(store: SceneGraphStore, tracks: ObjectTracks,
                   camera: Camera, step: int, config: SceneGraphConfig,
                   render_config: RenderConfig, training: bool = False,
-                  eval_extras: bool = False, subset_accs: bool = True):
-    """Scene-graph eval render of one camera: compose, render with the
-    sky, plus the object-only / background-only renders (accumulations,
-    and with eval_extras their rgb and depth). Returns
-    (outputs dict, RenderOutputs of the full render, boxes)."""
-    if training:
+                  eval_extras: bool = False, subset_accs: bool = True,
+                  jitter: Optional[torch.Tensor] = None,
+                  xys_offset: Optional[torch.Tensor] = None,
+                  sky_dirs_grad: bool = False):
+    """Scene-graph render of one camera: compose, render with the sky,
+    plus the object-only / background-only renders (accumulations, and
+    with eval_extras their rgb and depth). Returns (outputs dict,
+    RenderOutputs of the full render, boxes).
+
+    training=True steps the SH degree up with `step`, jitters the sky
+    rays by `jitter` ((2, H, W), core.cameras.draw_pixel_jitter; pixel
+    centers when None) and leaves rgb unclamped below. `xys_offset`
+    ((N, 2) over the flat splat set) is the screen-space gradient hook of
+    ops.render.render. subset_accs=False skips the two subset renders
+    (the entropy loss that reads them is off until the background's
+    stop_split_at)."""
+    if config.camera_opt_mode != "off":
         raise NotImplementedError(
-            "forward_scene(training=True) belongs to the training slice "
-            "(ROADMAP.md); this port renders with training=False")
+            f"camera_opt_mode={config.camera_opt_mode!r}: the camera "
+            f"optimizer (models/camera_opt) is not ported yet (ROADMAP.md)")
     flat, active, boxes = compose(store, tracks, camera.time, config=config)
     cap_bg = store.background.capacity
 
     rgbs = sh_colors(flat["means"], flat["features_dc_t"],
                      flat["features_rest"], camera, step, config.base,
-                     training=False)
+                     training=training)
     op = torch.sigmoid(flat["opacities"][:, 0])
     opac = torch.where(active, op, torch.zeros_like(op))
     scales = torch.exp(flat["scales"])
-    sky = (sky_color(store.env_map, camera) if store.env_map is not None
-           else None)
+    sky = None
+    if store.env_map is not None:
+        sky = sky_color(store.env_map, camera,
+                        jitter if training else None,
+                        dirs_grad=sky_dirs_grad)
 
     out = render(flat["means"], scales, flat["quats"], opac, rgbs, camera,
-                 render_config, sky_rgb=sky, training=False, active=active)
+                 render_config, sky_rgb=sky, training=training,
+                 active=active, xys_offset=xys_offset)
     outputs = {"rgb": out.rgb, "accumulation": out.accumulation,
                "depth": out.depth}
     if sky is not None:
@@ -244,10 +286,10 @@ def forward_scene(store: SceneGraphStore, tracks: ObjectTracks,
     if subset_accs or eval_extras:
         seg_obj = torch.arange(active.shape[0], device=active.device) >= cap_bg
         out_obj = render(flat["means"], scales, flat["quats"], opac, rgbs,
-                         camera, render_config, training=False,
+                         camera, render_config, training=training,
                          active=active & seg_obj)
         out_bg = render(flat["means"], scales, flat["quats"], opac, rgbs,
-                        camera, render_config, training=False,
+                        camera, render_config, training=training,
                         active=active & ~seg_obj)
         outputs["object_acc"] = out_obj.accumulation
         outputs["background_acc"] = out_bg.accumulation
@@ -262,3 +304,18 @@ def forward_scene(store: SceneGraphStore, tracks: ObjectTracks,
         outputs["background_depth"] = out_bg.depth
         outputs["object_depth"] = out_obj.depth
     return outputs, out, boxes
+
+
+def scene_loss_dict(outputs: dict, batch: dict, config: SceneGraphConfig,
+                    step: int) -> dict:
+    """The base L1 + SSIM + sky losses plus the object accumulation
+    entropy loss, which is live past the background's stop_split_at (and
+    only when the outputs carry "object_acc")."""
+    losses = loss_dict(outputs, batch, config.base)
+    if config.object_acc_entropy_loss_mult > 0 and "object_acc" in outputs:
+        acc = torch.clamp(outputs["object_acc"], 1e-5, 1.0 - 1e-5)
+        ent = -(acc * torch.log(acc) + (1 - acc) * torch.log(1 - acc))
+        gate = 1.0 if int(step) > config.background.stop_split_at else 0.0
+        losses["object_acc_entropy_loss"] = (
+            config.object_acc_entropy_loss_mult * gate * torch.mean(ent))
+    return losses

@@ -1,6 +1,6 @@
 """Splatfacto pieces the scene graph renders with (counterpart of
 street_gaussians_ns_tpu/models/splatfacto.py: `SplatfactoConfig`,
-`sh_colors`, `init_env_map`, `sky_color`)."""
+`sh_colors`, `init_env_map`, `sky_color`, `loss_dict`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,6 +10,7 @@ import torch
 from ..core.cameras import Camera, pixel_directions
 from ..core.sh import eval_sh
 from ..ops.cubemap import sample_cubemap
+from ..ops.ssim import ssim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,10 +57,11 @@ class SplatfactoConfig:
 def sh_colors(means: torch.Tensor, features_dc_t: torch.Tensor,
               features_rest: torch.Tensor, camera: Camera, step: int,
               config: SplatfactoConfig, training: bool = True) -> torch.Tensor:
-    """Per-splat RGB by SH: view directions from the camera center, the
+    """Per-splat RGB by SH: view directions from the camera center (means
+    and camera detached: no gradient flows through the directions), the
     active degree stepping up every sh_degree_interval steps in training
     and the full degree at eval, then +0.5 and the clamp at 0."""
-    viewdirs = means - camera.c2w[:3, 3]
+    viewdirs = means.detach() - camera.c2w[:3, 3].detach()
     viewdirs = viewdirs / torch.clamp(
         torch.linalg.vector_norm(viewdirs, dim=-1, keepdim=True), min=1e-12)
     n = (min(int(step) // config.sh_degree_interval, config.sh_degree)
@@ -74,10 +76,39 @@ def init_env_map(config: SplatfactoConfig, device="cuda") -> torch.Tensor:
     return torch.full((6, r, r, 3), 0.5, dtype=torch.float32, device=device)
 
 
-def sky_color(env_map: torch.Tensor, camera: Camera) -> torch.Tensor:
-    """Per-pixel sky RGB (H, W, 3) at the pixel centers: world rays
-    mapped to the cubemap frame (x, z, -y) and sampled."""
-    dirs = pixel_directions(camera)
+def sky_color(env_map: torch.Tensor, camera: Camera,
+              jitter: torch.Tensor | None = None,
+              dirs_grad: bool = False) -> torch.Tensor:
+    """Per-pixel sky RGB (H, W, 3): world rays (jittered when `jitter` is
+    given, see core.cameras.pixel_directions) mapped to the cubemap frame
+    (x, z, -y) and sampled. dirs_grad: see ops.cubemap.sample_cubemap."""
+    dirs = pixel_directions(camera, jitter)
     to_opengl = torch.tensor([[1.0, 0.0, 0.0], [0.0, 0.0, 1.0],
                               [0.0, -1.0, 0.0]], device=dirs.device)
-    return sample_cubemap(env_map, dirs @ to_opengl.T)
+    return sample_cubemap(env_map, dirs @ to_opengl.T, dirs_grad=dirs_grad)
+
+
+SKY_SEMANTIC = 2  # the semantic class of sky pixels
+
+
+def loss_dict(outputs: dict, batch: dict, config: SplatfactoConfig) -> dict:
+    """L1 + SSIM + sky accumulation losses. batch: {"image" (H, W, 3) in
+    [0, 1], optional "mask" (H, W, 1) bool, optional "semantic" (H, W, 1)
+    int}."""
+    gt = batch["image"].to(torch.float32)
+    rgb = outputs["rgb"]
+    if batch.get("mask") is not None:
+        m = batch["mask"].to(torch.float32)
+        gt = gt * m
+        rgb = rgb * m
+    l1 = torch.mean(torch.abs(gt - rgb))
+    simloss = 1.0 - ssim(gt, rgb)
+    losses = {
+        "Ll1": (1.0 - config.ssim_lambda) * l1,
+        "simloss": config.ssim_lambda * simloss,
+    }
+    if batch.get("semantic") is not None and config.sky_acc_loss_mult > 0:
+        sky_mask = (batch["semantic"] == SKY_SEMANTIC).to(torch.float32)
+        losses["sky_accumulation"] = config.sky_acc_loss_mult * torch.mean(
+            sky_mask * outputs["accumulation"])
+    return losses

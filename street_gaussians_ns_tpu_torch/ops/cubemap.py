@@ -32,11 +32,15 @@ def cube_faces_uv(dirs: torch.Tensor):
     return face, s, t
 
 
-def sample_cubemap(cubemap: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+def sample_cubemap(cubemap: torch.Tensor, dirs: torch.Tensor,
+                   dirs_grad: bool = False) -> torch.Tensor:
     """Bilinear cubemap lookup: cubemap (6, R, R, C), dirs (..., 3) ->
-    (..., C)."""
+    (..., C), differentiable in the cubemap. With dirs_grad=True the
+    gradient also flows through the sampling geometry into `dirs` (camera
+    pose optimisation through the sky); otherwise the geometry is
+    detached, which skips that part of the backward."""
     R = cubemap.shape[1]
-    face, s, t = cube_faces_uv(dirs)
+    face, s, t = cube_faces_uv(dirs if dirs_grad else dirs.detach())
     fx = s * R - 0.5
     fy = t * R - 0.5
     x0 = torch.floor(fx)

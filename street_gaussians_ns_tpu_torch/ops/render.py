@@ -100,20 +100,28 @@ def render(
     sky_rgb: Optional[torch.Tensor] = None,  # (H, W, 3)
     training: bool = True,
     active: Optional[torch.Tensor] = None,   # (N,) bool live gaussians
+    xys_offset: Optional[torch.Tensor] = None,   # (N, 2), see below
 ) -> RenderOutputs:
     """Forward render of one camera: rasterization background zeros, rgb
     clamped to <= 1, the sky composited behind, alpha-normalised depth
-    with far fill, and rgb clamped to [0, 1] when not training."""
+    with far fill, and rgb clamped to [0, 1] when not training.
+
+    The tile boxes are topology, not differentiated: `project` gets the
+    opacities detached. `xys_offset`, when given, is added to the
+    projected screen centers; it is a zero-valued hook whose gradient is
+    the screen-space positional gradient that drives densification."""
     vm = viewmat_from_c2w(camera.c2w)
     proj = project(means, scales, quats, vm, camera.fx, camera.fy,
                    camera.cx, camera.cy, camera.width, camera.height,
-                   tile_size=config.tile_size, opacities=opacities)
+                   tile_size=config.tile_size, opacities=opacities.detach())
     if active is not None:
         proj = dataclasses.replace(
             proj,
             radii=torch.where(active, proj.radii, 0),
             num_tiles_hit=torch.where(active, proj.num_tiles_hit, 0),
         )
+    if xys_offset is not None:
+        proj = dataclasses.replace(proj, xys=proj.xys + xys_offset)
     colors4 = torch.cat([rgbs, proj.depths[:, None]], dim=-1)
     background = torch.zeros((4,), dtype=torch.float32, device=means.device)
     img, alpha, bins = rasterize(proj, colors4, opacities, camera,
