@@ -29,7 +29,7 @@ Phases, each printing one JSON line:
   7. train_path the flagship scene graph as a train state (the same weights
                 through engine.checkpoints.train_state_from_numpy, one slot in
                 16 left free as a trainer's headroom, a target image and a
-                semantic map from --seed): 4 steps of
+                semantic map from --seed): 3 steps of
                 engine.scene_train_step.scene_train_step with
                 subset_accs=False, 1 step with subset_accs=True, from step
                 3600 (the SH degree has reached 3, so features_rest trains),
@@ -37,11 +37,30 @@ Phases, each printing one JSON line:
                 counter is set to 0 just before the steps and read just after;
   8. train_profile / train_stages  one step under torch.profiler, and the
                 device time of the stages of one step (CUDA events);
-  9. kernels    every kernel of both paths, on the inputs captured from one
-                full-width render and one full-width backward, against its
-                plain version, with its time, the plain version's time, a
-                PyTorch library call's time where one computes the same
-                function, and its bound.
+  9. reference_modes  the small scene on the card against the CPU through
+                every other route of ops.render.rasterize: depth_slices=3,
+                impl="chunked" and "scan" (heads, one step's loss and
+                gradients), shared bins through the unfused kernel route
+                and three tile strips (image, loss, gradients); and on the
+                card sliced, unfused and strips against the fused route;
+ 10. sliced_path  the flagship scene with RenderConfig(depth_slices=2): 2
+                eval frames and 2 training steps, the counts set to 0 just
+                before and read just after (kernels D and E run with t_in
+                once per render / backward), then sliced and unsliced in
+                turns for the latencies;
+ 11. unfused_path  the flagship scene, one render + backward through
+                ops.tiles.bin_gaussians and rasterize_tiles_pallas (kernels
+                A in max mode, D, E, G), held against the fused route, with
+                stage times;
+ 12. row_scan_path  kernel H, which no render path of either package
+                calls, through its entry points cumsum_rows / cummax_rows at
+                the three shapes of the JAX package's micro-benchmark;
+ 13. kernels    every kernel of these paths, on the inputs captured from
+                them, against its plain version, with its time, the plain
+                version's time, a PyTorch library call's time where one
+                computes the same function, and its bound; D and E also in
+                their t_in mode and with a tile0 strip held bit for bit
+                against the full launch.
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
@@ -80,7 +99,8 @@ from street_gaussians_ns_tpu_torch.models.splatfacto import (  # noqa: E402
 from street_gaussians_ns_tpu_torch.ops import _cuda  # noqa: E402
 from street_gaussians_ns_tpu_torch.ops import (  # noqa: E402
     composite, expand, scan, segreduce, tiles)
-from street_gaussians_ns_tpu_torch.ops.render import RenderConfig, render  # noqa: E402
+from street_gaussians_ns_tpu_torch.ops.render import (  # noqa: E402
+    RenderConfig, rasterize, render)
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
@@ -298,6 +318,29 @@ def bound(nbytes: float, ops: float = 0.0):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def reset_launches() -> None:
+    for k in _cuda.KERNELS:
+        k.reset_launches()
+
+
+def read_launches() -> dict:
+    """Launches per kernel since reset_launches, and per mode of a kernel
+    as "name[mode]"."""
+    out = {k.name: k.launches for k in _cuda.KERNELS}
+    for k in _cuda.KERNELS:
+        for mode, n in k.mode_launches.items():
+            out[f"{k.name}[{mode}]"] = n
+    return out
+
+
+def check_launches(phase: str, launches: dict, expected: dict) -> None:
+    for name, n in expected.items():
+        if launches.get(name, 0) != n:
+            raise AssertionError(f"{phase}: {name} launched "
+                                 f"{launches.get(name, 0)} times, expected "
+                                 f"{n}")
 
 
 class Recorder:
@@ -532,8 +575,7 @@ def phase_main(seed: int, size: Size = FLAGSHIP, dev="cuda"):
     sync()
     if dev == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    for k in _cuda.KERNELS:
-        k.launches = 0
+    reset_launches()
     times, frames = [], []
     for cam in cams:
         t = time.perf_counter()
@@ -541,7 +583,7 @@ def phase_main(seed: int, size: Size = FLAGSHIP, dev="cuda"):
         sync()
         times.append((time.perf_counter() - t) * 1e3)
         frames.append((outputs, out))
-    launches = {k.name: k.launches for k in _cuda.KERNELS}
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated() if dev == "cuda" else None
 
     per_frame = {"flat_scan": 9, "expand_ragged": 6, "pack_feat_cols": 3,
@@ -586,7 +628,7 @@ def phase_main(seed: int, size: Size = FLAGSHIP, dev="cuda"):
 
 def phase_train(seed: int, tracks, cfg, rcfg, cam, size: Size = FLAGSHIP,
                 dev="cuda"):
-    """The training path: 4 steps with subset_accs=False, 1 step with
+    """The training path: 3 steps with subset_accs=False, 1 step with
     subset_accs=True, one refinement pass. dev="cpu" rehearses it on the
     plain versions (no launch counts there)."""
     t0 = time.perf_counter()
@@ -636,10 +678,9 @@ def phase_train(seed: int, tracks, cfg, rcfg, cam, size: Size = FLAGSHIP,
     sync()
     if dev == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    for k in _cuda.KERNELS:
-        k.launches = 0
+    reset_launches()
     times, losses, pairs = [], [], []
-    plan = [False, False, False, False, True]
+    plan = [False, False, False, True]
     for subset_accs in plan:
         t = time.perf_counter()
         state, metrics = step(state, subset_accs)
@@ -658,7 +699,7 @@ def phase_train(seed: int, tracks, cfg, rcfg, cam, size: Size = FLAGSHIP,
                                           max(cam.width, cam.height))
     sync()
     refine_ms = (time.perf_counter() - t) * 1e3
-    launches = {k.name: k.launches for k in _cuda.KERNELS}
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated() if dev == "cuda" else None
 
     # A step with subset_accs renders three times; the loss reads the full
@@ -708,7 +749,7 @@ def phase_train(seed: int, tracks, cfg, rcfg, cam, size: Size = FLAGSHIP,
     if float(state.store.background.vis_counts.max()) != len(plan):
         raise AssertionError("train: the densification statistics did not "
                              "accumulate over the steps")
-    ms = float(np.median(times[:4]))
+    ms = float(np.median(times[:-1]))
     emit("train_path", steps=len(plan), renders=renders,
          backward_passes=backwards,
          first_step=TRAIN_STEP0, sh_degree_active=sh_active,
@@ -716,7 +757,7 @@ def phase_train(seed: int, tracks, cfg, rcfg, cam, size: Size = FLAGSHIP,
          gaussians_active=int(first.store.background.active.sum()
                               + first.store.objects.active.sum()),
          ms_per_step=times, ms_per_step_median=ms,
-         steps_per_s=1e3 / ms, ms_step_subset_accs=times[4],
+         steps_per_s=1e3 / ms, ms_step_subset_accs=times[-1],
          loss_per_step=losses, num_pairs=pairs,
          max_memory_allocated=peak, setup_seconds=setup_s,
          grad_absmax=grad_absmax, moved=moved, refine_ms=refine_ms,
@@ -870,10 +911,8 @@ def phase_stages(store, tracks, cfg, rcfg, cam, reps: int = 5):
     colors4 = torch.cat([rgbs, proj.depths[:, None]], dim=-1)
     depth_key = torch.where(proj.num_tiles_hit > 0, proj.depths,
                             torch.full_like(proj.depths, float("inf")))
-    sorted_cols = tiles._depth_sort_cols(proj.xys, proj.conics, depth_key,
-                                         colors4, op, True)
-    fs = sorted_cols[2]
-    box_s = proj.tile_box.index_select(0, sorted_cols[1])
+    _, _, fs, box_s = tiles._depth_sort_cols(
+        proj.xys, proj.conics, proj.tile_box, depth_key, colors4, op, True)
     nty = -(-cam.height // 16)
     ntx = -(-cam.width // 16)
     bin_args = (proj.xys, proj.conics, proj.tile_box, depth_key, colors4,
@@ -889,7 +928,8 @@ def phase_stages(store, tracks, cfg, rcfg, cam, reps: int = 5):
         "sky_color": lambda: sky_color(store.env_map, cam),
         "project": proj_fn,
         "bin.depth_sort": lambda: tiles._depth_sort_cols(
-            proj.xys, proj.conics, depth_key, colors4, op, True),
+            proj.xys, proj.conics, proj.tile_box, depth_key, colors4, op,
+            True),
         "bin.row_trim": lambda: tiles._row_trim_counts(
             fs[:, 2:5], fs[:, 0:2], box_s, 16, nty,
             coverage_q(fs[:, 5])),
@@ -908,6 +948,518 @@ def phase_stages(store, tracks, cfg, rcfg, cam, reps: int = 5):
                                  active=active),
     }
     emit("stages", ms={k: time_ms(fn, reps) for k, fn in stages.items()})
+
+
+# ---------------------------------------------------------------------------
+# The secondary routes of ops.render.rasterize.
+# ---------------------------------------------------------------------------
+
+def _flat_inputs(store, tracks, cfg, cam, training: bool = False):
+    """What `render` hands the rasterizer for the full render of `cam`:
+    (proj, colors4 = rgb + depth, opacities), the inactive slots masked."""
+    flat, active, _ = compose(store, tracks, cam.time, config=cfg)
+    rgbs = sh_colors(flat["means"], flat["features_dc_t"],
+                     flat["features_rest"], cam, 0, cfg.base,
+                     training=training)
+    op = torch.sigmoid(flat["opacities"][:, 0])
+    op = torch.where(active, op, torch.zeros_like(op))
+    proj = project(flat["means"], torch.exp(flat["scales"]), flat["quats"],
+                   viewmat_from_c2w(cam.c2w), cam.fx, cam.fy, cam.cx, cam.cy,
+                   cam.width, cam.height, opacities=op)
+    proj = dataclasses.replace(
+        proj, num_tiles_hit=torch.where(active, proj.num_tiles_hit, 0),
+        radii=torch.where(active, proj.radii, 0))
+    colors4 = torch.cat([rgbs, proj.depths[:, None]], dim=-1)
+    return proj, colors4, op
+
+
+def _raster_loss_and_grads(proj, colors4, op, route):
+    """A mean-type loss of the image and alpha that `route` rasterizes,
+    and its gradients with respect to (xys, conics, colours, opacities)."""
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (proj.xys, proj.conics, colors4, op)]
+    pr = dataclasses.replace(proj, xys=leaves[0], conics=leaves[1])
+    img, alpha = route(pr, leaves[2], leaves[3])
+    loss = (img - 0.5).abs().mean() + 0.3 * (alpha ** 2).mean()
+    grads = torch.autograd.grad(loss, leaves)
+    return dict(loss=float(loss.detach()), img=img.detach(), alpha=alpha.detach(),
+                grads=dict(zip(("xys", "conics", "colors", "opacities"),
+                               grads)))
+
+
+def _raster_routes(cam, rcfg, n_strips: int = 3):
+    """The rasterizer-level routes: fused, shared bins through the unfused
+    kernel compositor, and tile strips put together."""
+    w, h = cam.width, cam.height
+    ntx, nty = -(-w // 16), -(-h // 16)
+    bg = lambda t: torch.zeros(4, device=t.device)       # noqa: E731
+
+    def fused(pr, colors, op):
+        return rasterize(pr, colors, op, cam, bg(op), rcfg,
+                         last_color_is_depth=True)[:2]
+
+    def shared_bins(pr, colors, op):
+        bins = tiles.bin_gaussians(pr, w, h, 16, rcfg.max_pairs,
+                                   rcfg.max_rowruns, opacities=op.detach())
+        return rasterize(pr, colors, op, cam, bg(op), rcfg, bins=bins)[:2]
+
+    def strips(pr, colors, op):
+        per = -(-ntx * nty // n_strips)
+        parts = [composite.composite_tiles_fused(
+            pr, colors, op, s_ * per, per, w, h, rcfg.max_pairs,
+            rcfg.max_rowruns, last_color_is_depth=True)
+            for s_ in range(n_strips)]
+        accum = torch.cat([p_[0] for p_ in parts])[:ntx * nty]
+        alpha = torch.cat([p_[1] for p_ in parts])[:ntx * nty]
+        return (composite._tiles_to_image(accum, ntx, nty, w, h),
+                composite._tiles_to_image(alpha, ntx, nty, w, h))
+
+    return {"fused": fused, "shared_bins": shared_bins, "strips": strips}
+
+
+def _close_grads(phase, got, want, rtol_of_top, errs, prefix=""):
+    for k, w in want.items():
+        top = float(w.abs().max())
+        err = float((got[k].cpu() - w.cpu()).abs().max())
+        if k.startswith("bbox/"):
+            if top != 0.0 or err != 0.0:
+                raise AssertionError(f"{phase}: {prefix}{k} must be zero")
+            continue
+        if not top > 0 or err > rtol_of_top * top:
+            raise AssertionError(f"{phase}: {prefix}gradient {k} differs by "
+                                 f"{err} (largest |g| {top})")
+        errs[f"{prefix}grad {k}"] = err / top
+
+
+def phase_reference_modes(seed: int, devices=("cpu", "cuda")):
+    """The small scene through every route of ops.render.rasterize but
+    the fused one, on the card (the kernels) against the CPU (their plain
+    versions): heads at atol 2e-5 (depths rtol 1e-4), one training step's
+    loss at atol 2e-5, every gradient at 1e-4 of its group's largest |g|.
+    And on the card against the fused route: depth_slices=3 (image atol
+    3e-5, gradients 2e-4 of the group's largest), shared bins (1e-6, 1e-4)
+    and three tile strips (1e-5, 2e-4)."""
+    store_np, tracks_np = make_scene(seed + 1, 600, 2, 80, 16, sh_degree=1)
+    cfg = scene_config(1, 16, 5)
+    late = cfg.background.stop_split_at + 1
+    base = dict(max_pairs=1 << 14)
+    configs = {"fused": RenderConfig(**base),
+               "depth_slices=3": RenderConfig(depth_slices=3, **base),
+               "impl=chunked": RenderConfig(impl="chunked",
+                                            max_per_tile=1024, **base),
+               "impl=scan": RenderConfig(impl="scan", max_per_tile=1024,
+                                         **base)}
+    rng = np.random.default_rng(seed + 3)
+    jitter = rng.random((2, 48, 64), dtype=np.float32)
+    heads = ("rgb", "accumulation", "depth")
+    scene, raster = {}, {}
+    for dev in devices:
+        tracks = tracks_from_numpy(tracks_np, device=dev)
+        cam = Camera.make(60.0, 60.0, 32.0, 24.0,
+                          np.eye(3, 4, dtype=np.float32), 64, 48, time=0.6,
+                          device=dev)
+        batch = make_batch(seed, 64, 48, dev)
+        jit = torch.from_numpy(jitter).to(dev)
+        state = train_state_from_numpy(train_arrays(store_np, late), cfg,
+                                       device=dev, seed=seed)
+        scene[dev] = {}
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", RuntimeWarning)
+            for mode, rc in configs.items():
+                outs = forward_scene(state.store, tracks, cam, 0, cfg, rc,
+                                     eval_extras=True)[0]
+                total, _, _, rout, grads = sts.scene_loss_and_grads(
+                    state, tracks, cam, batch, cfg, rc, subset_accs=True,
+                    jitter=jit)
+                scene[dev][mode] = dict(
+                    heads={k: outs[k].detach().cpu() for k in heads},
+                    loss=float(total), densest=int(rout.bins.max_tile_count),
+                    grads={k: v.cpu() for k, v in _all_grads(grads)})
+            proj, colors4, op = _flat_inputs(state.store, tracks, cfg, cam)
+            raster[dev] = {
+                name: _raster_loss_and_grads(proj, colors4, op, route)
+                for name, route in _raster_routes(cam,
+                                                  configs["fused"]).items()}
+    ref, dut = devices[0], devices[-1]
+    errs = {}
+    for mode in configs:
+        if mode == "fused":
+            continue
+        want, got = scene[ref][mode], scene[dut][mode]
+        for k, e in _heads_close(got["heads"], want["heads"],
+                                 atol=2e-5).items():
+            errs[f"{mode} {k}"] = e
+        errs[f"{mode} loss"] = abs(got["loss"] - want["loss"])
+        if errs[f"{mode} loss"] > 2e-5:
+            raise AssertionError(f"reference_modes: {mode} loss differs by "
+                                 f"{errs[f'{mode} loss']}")
+        _close_grads("reference_modes", got["grads"], want["grads"], 1e-4,
+                     errs, prefix=f"{mode} ")
+    for name in ("shared_bins", "strips"):
+        want, got = raster[ref][name], raster[dut][name]
+        errs[f"{name} loss"] = abs(got["loss"] - want["loss"])
+        errs[f"{name} image"] = float(
+            (got["img"].cpu()[..., :3] - want["img"].cpu()[..., :3])
+            .abs().max())
+        if errs[f"{name} loss"] > 2e-5 or errs[f"{name} image"] > 2e-5:
+            raise AssertionError(f"reference_modes: {name} differs from the "
+                                 f"CPU: {errs}")
+        _close_grads("reference_modes", got["grads"], want["grads"], 1e-4,
+                     errs, prefix=f"{name} ")
+    # On the device under test, against the fused route.
+    fused_s, sliced = scene[dut]["fused"], scene[dut]["depth_slices=3"]
+    for k, e in _heads_close(sliced["heads"], fused_s["heads"],
+                             atol=3e-5).items():
+        errs[f"sliced vs fused {k}"] = e
+    if sliced["densest"] != fused_s["densest"]:
+        raise AssertionError("reference_modes: the sliced max_tile_count "
+                             f"{sliced['densest']} is not the scene's "
+                             f"{fused_s['densest']}")
+    _close_grads("reference_modes", sliced["grads"], fused_s["grads"], 2e-4,
+                 errs, prefix="sliced vs fused ")
+    fused_r = raster[dut]["fused"]
+    for name, img_tol, g_tol in (("shared_bins", 1e-6, 1e-4),
+                                 ("strips", 1e-5, 2e-4)):
+        got = raster[dut][name]
+        e = max(float((got["img"][..., :3] - fused_r["img"][..., :3])
+                      .abs().max()),
+                float((got["alpha"] - fused_r["alpha"]).abs().max()))
+        errs[f"{name} vs fused image"] = e
+        if e > img_tol:
+            raise AssertionError(f"reference_modes: {name} image differs "
+                                 f"from the fused route by {e}")
+        _close_grads("reference_modes", got["grads"], fused_r["grads"],
+                     g_tol, errs, prefix=f"{name} vs fused ")
+    if float(fused_r["alpha"].max()) <= 0.3:
+        raise AssertionError("reference_modes: the scene renders almost "
+                             "nothing")
+    emit("reference_modes", size=[64, 48], devices=list(devices),
+         modes=list(configs)[1:] + ["shared_bins", "strips"],
+         tolerance="against the CPU: heads atol 2e-5 (depth rtol 1e-4), "
+                   "loss atol 2e-5, gradients 1e-4 of the group's largest; "
+                   "against the fused route: sliced 3e-5 / 2e-4, shared "
+                   "bins 1e-6 / 1e-4, strips 1e-5 / 2e-4",
+         densest_tile=fused_s["densest"], max_err=errs)
+
+
+def phase_sliced(state, tracks, cfg, rcfg, cams, batch, k: int = 2,
+                 dev="cuda"):
+    """The flagship scene through RenderConfig(depth_slices=k): eval
+    frames on `cams` and 2 training steps on cams[0], counted; then sliced
+    and unsliced in turns. The capacities are grown from the demand counts
+    of a sizing render, as a trainer grows them. Returns the captured
+    second-window launches of kernels D and E and the counted launches."""
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    store = state.store
+
+    def up(v, step=8192):
+        return -(-int(v) // step) * step
+
+    def frame(cam, rc):
+        with torch.no_grad():
+            return forward_scene(store, tracks, cam, 0, cfg, rc,
+                                 eval_extras=True)
+
+    def step(st, rc):
+        return sts.scene_train_step(st, tracks, cams[0], batch, cfg, rc,
+                                    subset_accs=False)
+
+    # Sizing (and warm-up): a generous first guess, then the demand.
+    guess = RenderConfig(max_pairs=up(1.25 * rcfg.max_pairs),
+                         max_rowruns=up(2 * rcfg.rowrun_capacity),
+                         depth_slices=k)
+    demand_p = demand_r = 0
+    for cam in cams:
+        bins = frame(cam, guess)[1].bins
+        demand_p = max(demand_p, int(bins.num_pairs))
+        demand_r = max(demand_r, int(bins.num_rowruns))
+    rc = RenderConfig(max_pairs=up(demand_p), max_rowruns=up(demand_r),
+                      depth_slices=k)
+    step(state, rc)
+    sync()
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    frame_ms, step_ms, losses, outs = [], [], [], []
+    st = state
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)
+        for cam in cams:
+            t = time.perf_counter()
+            outputs, out, _ = frame(cam, rc)
+            sync()
+            frame_ms.append((time.perf_counter() - t) * 1e3)
+            outs.append((outputs, out))
+        for _ in range(2):
+            t = time.perf_counter()
+            st, metrics = step(st, rc)
+            sync()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(metrics["loss"]))
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else None
+    renders, backwards = 3 * len(cams) + 2, 2
+    if dev == "cuda":
+        check_launches("sliced_path", launches, {
+            "flat_scan": (1 + 3 * k) * renders,
+            "expand_ragged": 2 * k * renders, "pack_feat_cols": k * renders,
+            "composite_fwd": k * renders,
+            "composite_fwd[t_in]": (k - 1) * renders,
+            "composite_bwd": k * backwards,
+            "composite_bwd[t_in]": (k - 1) * backwards,
+            "rank_rowsum": k * backwards})
+    for loss in losses:
+        if not math.isfinite(loss):
+            raise AssertionError(f"sliced_path: loss {loss}")
+    demand = []
+    for (outputs, out), cam in zip(outs, cams):
+        for h, v in outputs.items():
+            if not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"sliced_path: head {h} is not finite")
+        demand.append([int(out.bins.num_pairs), int(out.bins.num_rowruns)])
+        if demand[-1][0] > rc.max_pairs or demand[-1][1] > rc.rowrun_capacity:
+            raise AssertionError("sliced_path: capacity overflow")
+        # Against the unsliced frame: the same pairs in the same order,
+        # the windows' accums added in another.
+        want = frame(cam, rcfg)
+        diff = float((outputs["rgb"] - want[0]["rgb"]).abs().max())
+        dacc = float((outputs["accumulation"]
+                      - want[0]["accumulation"]).abs().max())
+        if max(diff, dacc) > 3e-5:
+            raise AssertionError(f"sliced_path: the sliced frame differs "
+                                 f"from the unsliced by {diff} (rgb), "
+                                 f"{dacc} (accumulation)")
+        if int(out.bins.max_tile_count) != int(want[1].bins.max_tile_count):
+            raise AssertionError("sliced_path: max_tile_count is not the "
+                                 "unsliced render's")
+        demand[-1] += [diff, dacc, int(want[1].bins.num_pairs),
+                       int(want[1].bins.num_rowruns)]
+
+    # Sliced and unsliced in turns, on the host's clock and on the card's.
+    turns = {"sliced": ([], [], rc), "unsliced": ([], [], rcfg)}
+    st_turn = st
+    for _ in range(2):
+        for name, (f_ms, s_ms, rcx) in turns.items():
+            t = time.perf_counter()
+            frame(cams[0], rcx)
+            sync()
+            f_ms.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            st_turn, _ = step(st_turn, rcx)
+            sync()
+            s_ms.append((time.perf_counter() - t) * 1e3)
+    proj, colors4, op = _flat_inputs(store, tracks, cfg, cams[0])
+    bg = torch.zeros(4, device=op.device)
+    device_ms = {
+        name: time_ms(lambda rcx=rcx: composite.rasterize_tiles_fused(
+            proj, colors4, op, cams[0].width, cams[0].height, 16, bg,
+            rcx.max_pairs, rcx.max_rowruns, last_color_is_depth=True,
+            depth_slices=rcx.depth_slices), 3)
+        for name, (_, _, rcx) in turns.items()}
+
+    # One sliced step with the compositor launches recorded.
+    recs = [Recorder(composite, "composite_fwd"),
+            Recorder(composite, "composite_bwd")]
+    for r in recs:
+        r.__enter__()
+    try:
+        sts.scene_loss_and_grads(
+            st, tracks, cams[0], batch, cfg, rc, subset_accs=False,
+            jitter=draw_pixel_jitter(cams[0], st.generator))
+    finally:
+        for r in recs:
+            r.__exit__()
+    fwd_calls, bwd_calls = (r.calls for r in recs)
+    if len(fwd_calls) != k or len(bwd_calls) != k:
+        raise AssertionError("sliced_path: expected one forward and one "
+                             "backward launch per window")
+    captured = {
+        "composite_fwd[t_in]": next(c for c in fwd_calls
+                                    if c[1].get("t_in") is not None),
+        "composite_bwd[t_in]": next(c for c in bwd_calls
+                                    if c[1].get("t_in") is not None)}
+    emit("sliced_path", depth_slices=k, frames=len(cams), steps=2,
+         renders=renders, backward_passes=backwards,
+         max_pairs=rc.max_pairs, max_rowruns=rc.rowrun_capacity,
+         unsliced_max_pairs=rcfg.max_pairs,
+         unsliced_max_rowruns=rcfg.rowrun_capacity,
+         per_frame=[dict(zip(("demand_pairs", "demand_rowruns",
+                              "rgb_diff_vs_unsliced",
+                              "accumulation_diff_vs_unsliced",
+                              "unsliced_pairs", "unsliced_rowruns"), d))
+                    for d in demand],
+         pairs_per_window=[int(c[0][2].sum()) for c in fwd_calls],
+         pairs_visited_per_window=[
+             int(torch.minimum(c[0][8].amax(dim=1), c[0][2]).sum())
+             for c in bwd_calls],
+         ms_per_frame=frame_ms, ms_per_step=step_ms, loss_per_step=losses,
+         max_memory_allocated=peak, launches=launches,
+         in_turns={name: dict(ms_per_frame=f_ms, ms_per_step=s_ms,
+                              rasterize_device_ms=device_ms[name])
+                   for name, (f_ms, s_ms, _) in turns.items()})
+    return captured, launches
+
+
+def phase_unfused(store, tracks, cfg, rcfg, cam, dev="cuda", reps: int = 3):
+    """The flagship scene through shared bins: ops.tiles.bin_gaussians,
+    then one render and backward of rasterize_tiles_pallas, counted, held
+    against the fused route on the same inputs, with stage times. Returns
+    kernel G's captured arguments and the counted launches."""
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    w, h = cam.width, cam.height
+    with torch.no_grad():
+        proj, colors4, op = _flat_inputs(store, tracks, cfg, cam)
+    bg = torch.zeros(4, device=op.device)
+    mp, mr = rcfg.max_pairs, rcfg.rowrun_capacity
+
+    last_bins = []
+
+    def unfused(pr, colors, opac):
+        bins = tiles.bin_gaussians(pr, w, h, 16, mp, mr,
+                                   opacities=opac.detach())
+        last_bins[:] = [bins]
+        return composite.rasterize_tiles_pallas(pr.xys, pr.conics, colors,
+                                                opac, bins, w, h, 16, bg)
+
+    def fused(pr, colors, opac):
+        return composite.rasterize_tiles_fused(
+            pr, colors, opac, w, h, 16, bg, mp, mr,
+            last_color_is_depth=True)[:2]
+
+    _raster_loss_and_grads(proj, colors4, op, unfused)       # warm-up
+    sync()
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with Recorder(composite, "segment_rowsum") as rec:
+        t = time.perf_counter()
+        got = _raster_loss_and_grads(proj, colors4, op, unfused)
+        sync()
+        ms = (time.perf_counter() - t) * 1e3
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else None
+    if dev == "cuda":
+        check_launches("unfused_path", launches, {
+            "flat_scan": 5, "composite_fwd": 1, "composite_bwd": 1,
+            "segment_rowsum": 1, "expand_ragged": 0, "pack_feat_cols": 0,
+            "rank_rowsum": 0})
+    bins, = last_bins
+    n_pairs, n_runs = int(bins.num_pairs), int(bins.num_rowruns)
+    if n_pairs > mp or n_runs > mr:
+        raise AssertionError(f"unfused_path: capacity overflow ({n_pairs} "
+                             f"pairs, {n_runs} runs)")
+    want = _raster_loss_and_grads(proj, colors4, op, fused)
+    errs = {"loss": abs(got["loss"] - want["loss"]),
+            "image": float((got["img"] - want["img"]).abs().max()),
+            "alpha": float((got["alpha"] - want["alpha"]).abs().max())}
+    if errs["loss"] > 1e-6 or errs["image"] > 1e-5 or errs["alpha"] > 1e-6:
+        raise AssertionError(f"unfused_path: differs from the fused route: "
+                             f"{errs}")
+    _close_grads("unfused_path", got["grads"], want["grads"], 1e-4, errs)
+    if float(got["alpha"].max()) <= 0.5:
+        raise AssertionError("unfused_path: renders almost nothing")
+
+    # Stage times, on the captured pieces.
+    xys, conics = proj.xys, proj.conics
+    feat = composite._build_feat(xys, conics, colors4, op, bins)
+    ntx = bins.num_tiles_x
+    accum, tfin, ncon = composite.composite_fwd(feat, bins.tile_start,
+                                                bins.tile_count, ntx, 4)
+    g_accum = torch.full_like(accum, 1e-6)
+    g_t = torch.full_like(tfin, -1e-6)
+    gpair = composite.composite_bwd(feat, bins.tile_start, bins.tile_count,
+                                    ntx, 4, g_accum, g_t, tfin, ncon, accum)
+    (g_args, _), = rec.calls
+    rows_cm, starts, ends = g_args
+    rank_sums = segreduce.segment_rowsum(rows_cm, starts, ends)
+    cols = gpair[:mp // 128, :10].permute(1, 0, 2).reshape(10, mp)
+    slot = bins.exp_slot.to(torch.int64)
+
+    def scatter_back():
+        out = torch.zeros((10, mp + 1), dtype=torch.float32,
+                          device=cols.device)
+        out.index_copy_(1, slot, cols)
+        return out[:, :mp].contiguous()
+
+    def no_grad(fn):
+        def run():
+            with torch.no_grad():
+                return fn(proj, colors4, op)
+        return run
+
+    stages = {
+        "bin_gaussians": lambda: tiles.bin_gaussians(
+            proj, w, h, 16, mp, mr, opacities=op),
+        "_build_feat": lambda: composite._build_feat(xys, conics, colors4,
+                                                     op, bins),
+        "composite_fwd": lambda: composite.composite_fwd(
+            feat, bins.tile_start, bins.tile_count, ntx, 4),
+        "composite_bwd": lambda: composite.composite_bwd(
+            feat, bins.tile_start, bins.tile_count, ntx, 4, g_accum, g_t,
+            tfin, ncon, accum),
+        "reduce.scatter_to_expansion_order": scatter_back,
+        "reduce.segment_rowsum": lambda: segreduce.segment_rowsum(
+            rows_cm, starts, ends),
+        "reduce.unsort": lambda: composite._unsort_rank_sums(
+            rank_sums, bins.depth_order),
+        "_reduce_pair_grads": lambda: composite._reduce_pair_grads(
+            gpair, bins, 4),
+        "forward(unfused)": no_grad(unfused),
+        "forward(fused)": no_grad(fused),
+        "forward+backward(unfused)": lambda: _raster_loss_and_grads(
+            proj, colors4, op, unfused),
+        "forward+backward(fused)": lambda: _raster_loss_and_grads(
+            proj, colors4, op, fused),
+    }
+    stage_ms = {k_: time_ms(fn, reps) for k_, fn in stages.items()}
+    emit("unfused_path", size=[w, h], max_pairs=mp, max_rowruns=mr,
+         num_pairs=n_pairs, num_rowruns=n_runs,
+         ms_render_and_backward=ms, max_memory_allocated=peak,
+         tolerance="against the fused route: loss 1e-6, image 1e-5, alpha "
+                   "1e-6, gradients 1e-4 of the group's largest",
+         max_err=errs, stage_ms=stage_ms, launches=launches)
+    return {"segment_rowsum": rec.calls[0]}, launches
+
+
+ROW_SCAN_ROWS = 4_456_448      # rows of the JAX micro-benchmark's arrays
+
+
+def phase_row_scans(seed: int, rows: int = ROW_SCAN_ROWS, dev="cuda"):
+    """Kernel H through its entry points, at the shapes of the JAX
+    package's micro-benchmark (tools/micro_bench.py): cumulative max of
+    (rows, 6) and (rows, 8) int32 owner marks (-1 but where a run
+    starts), cumulative sum of (rows, 16) float32. No render path calls
+    the row scans, so this phase is their path: the counts are set to 0
+    just before and read just after."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    idx = torch.arange(rows, dtype=torch.int32, device=dev)[:, None]
+    inputs = []
+    for c in (6, 8):
+        hit = torch.rand((rows, c), generator=gen, device=dev) < 0.3
+        inputs.append(("max", torch.where(hit, idx, -1).contiguous()))
+    inputs.append(("add", torch.randn((rows, 16), generator=gen,
+                                      device=dev)))
+    reset_launches()
+    t = time.perf_counter()
+    outs = [scan.cummax_rows(x) if op == "max" else scan.cumsum_rows(x)
+            for op, x in inputs]
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    launches = read_launches()
+    if dev == "cuda":
+        check_launches("row_scan_path", launches, {"scan_rows": 3})
+    for (op, x), y in zip(inputs, outs):
+        if y.shape != x.shape or y.dtype != x.dtype:
+            raise AssertionError("row_scan_path: shape or dtype changed")
+        if not bool(torch.isfinite(y.to(torch.float32)).all()):
+            raise AssertionError("row_scan_path: non-finite result")
+        if op == "max" and not bool((y[1:] >= y[:-1]).all()):
+            raise AssertionError("row_scan_path: a cumulative max falls")
+    emit("row_scan_path", shapes=[[op, list(x.shape), str(x.dtype)]
+                                  for op, x in inputs],
+         ms_three_scans=ms, launches=launches)
+    return {"scan_rows": inputs}, launches
 
 
 def capture(store, tracks, cfg, rcfg, cam):
@@ -936,10 +1488,176 @@ def _max_err(a, b):
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
 
 
-def phase_kernels(calls, launches, train_launches, reps: int = REPS):
+def _pair_major(gpair):
+    """(rows, 16, 128) stream -> (rows * 128, 16): one row per pair."""
+    return gpair.permute(0, 2, 1).reshape(-1, composite.NFEAT)
+
+
+def _fwd_row(name: str, call, launches: int, reps: int,
+             tile0_check: bool = False) -> dict:
+    """Kernel D on one captured launch (with its t_in when it has one)
+    against its plain version."""
+    (feat, ts, tc, ntx, nc), kw = call
+    t_in = kw.get("t_in")
+    kw = dict(t_in=t_in, mark_done=kw.get("mark_done", False))
+    evals = torch.zeros((2,), dtype=torch.int64, device=feat.device)
+    acc_k, t_k, n_k = composite.composite_fwd(feat, ts, tc, ntx, nc,
+                                              evals=evals, **kw)
+    acc_p, t_p, n_p = composite.composite_fwd_plain(feat, ts, tc, ntx, nc,
+                                                    **kw)
+    # A pixel whose transmittance lands on the other side of T_EPS ends at
+    # another pair; such pixels (at most 0.1%) are counted, the rest held
+    # at atol 2e-5.
+    same = n_k == n_p
+    err = max(_max_err(acc_k[same], acc_p[same]),
+              _max_err(t_k[same], t_p[same]))
+    n_bad = int((~same).sum())
+    n_pix = n_k.numel()
+    if err > 2e-5 or n_bad > 1e-3 * n_pix:
+        raise AssertionError(f"{name}: max abs error {err} (atol 2e-5), "
+                             f"n_contrib differs on {n_bad} of {n_pix} "
+                             f"pixels (at most 0.1%)")
+    again = composite.composite_fwd(feat, ts, tc, ntx, nc, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(again, (acc_k, t_k, n_k))):
+        raise AssertionError(f"{name}: two launches on the same inputs "
+                             f"differ")
+    extra = {}
+    if tile0_check:
+        # A strip of a tenth of the tiles from the middle of the grid: the
+        # same tiles of the full launch, bit for bit.
+        n_strip = max(1, ts.numel() // 10)
+        t0 = ts.numel() // 2
+        sl = slice(t0, t0 + n_strip)
+        part = composite.composite_fwd(feat, ts[sl].contiguous(),
+                                       tc[sl].contiguous(), ntx, nc,
+                                       tile0=t0)
+        if not all(torch.equal(a, b[sl])
+                   for a, b in zip(part, (acc_k, t_k, n_k))):
+            raise AssertionError(f"{name}: the strip at tile0={t0} differs "
+                                 f"from the full launch")
+        extra = dict(tile0_strip_bit_equal=True, tile0=t0,
+                     strip_tiles=n_strip)
+    ms = time_ms(lambda: composite.composite_fwd(feat, ts, tc, ntx, nc,
+                                                 **kw), reps)
+    plain = time_ms(lambda: composite.composite_fwd_plain(
+        feat, ts, tc, ntx, nc, **kw), 1)
+    n_eval, n_need = (int(v) for v in evals.tolist())
+    # The loop ends early: count the pairs the tiles needed (their 6 + nc
+    # used feature rows), not the whole stream.
+    nbytes = 4 * (n_need * (6 + nc) + 2 * ts.numel() + acc_k.numel()
+                  + t_k.numel() + n_k.numel()
+                  + (t_in.numel() if t_in is not None else 0))
+    b, by = bound(nbytes, D_OPS_PER_EVAL * n_eval)
+    return dict(name=name, route="cuda",
+                source=_rel(_cuda.CSRC / composite.FWD_KERNEL.source),
+                replaces=composite.FWD_KERNEL.replaces,
+                launches=launches, max_abs_err=err,
+                tolerance="atol 2e-5 (accum, T); n_contrib <= 0.1%; two "
+                          "launches bit-equal",
+                n_contrib_mismatch=n_bad, ms=ms, plain_ms=plain,
+                bound_ms=b, bound_by=by, library_ms=None,
+                pixel_pair_evals=n_eval, pairs_needed=n_need,
+                pairs_in_stream=int(tc.sum()),
+                bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                ops_bound_ms=D_OPS_PER_EVAL * n_eval / FP32_OPS_PER_S * 1e3,
+                tiles=ts.numel(), max_tile_count=int(tc.max()),
+                pixels_arriving_done=(int((t_in <= 1e-4).sum())
+                                      if t_in is not None else None),
+                pixels_done_at_end=(int((t_k < 0).sum())
+                                    if kw["mark_done"] else None),
+                **extra)
+
+
+def _bwd_row(name: str, call, launches: int, reps: int,
+             tile0_check: bool = False) -> dict:
+    """Kernel E on one captured launch (with its t_in when it has one)
+    against its plain version. The plain version takes one Python
+    iteration per within-tile pair index, so the comparison leaves out the
+    tiles that visit more than E_PLAIN_DEPTH pairs (their count set to 0
+    for both versions)."""
+    bwd_args, kw = call
+    t_in = kw.get("t_in")
+    feat, ts, tc, ntx, nc, g_accum, g_t, tfin, ncon, accum = bwd_args
+    nvis = torch.minimum(ncon.amax(dim=1), tc)
+    shallow = nvis <= E_PLAIN_DEPTH
+    tc_cmp = torch.where(shallow, tc, torch.zeros_like(tc))
+    cmp_args = (feat, ts, tc_cmp, ntx, nc, g_accum, g_t, tfin, ncon, accum)
+    got = composite.composite_bwd(*cmp_args, t_in=t_in)
+    t0 = time.perf_counter()
+    want = composite.composite_bwd_plain(
+        *cmp_args[:-1], torch.sum(g_accum * accum, dim=-1), t_in)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    top = float(want[:, :10].abs().max())
+    err = _max_err(got[:, :10], want[:, :10])
+    rel = float(((got[:, :10] - want[:, :10]).abs()
+                 / (1e-4 * want[:, :10].abs() + 1e-5 * top)).max())
+    if (not top > 0 or rel > 1.0
+            or not torch.equal(got[:, 10:], want[:, 10:])):
+        raise AssertionError(f"{name}: max abs error {err} at largest |g| "
+                             f"{top} (rtol 1e-4, atol 1e-5 of it; rank row "
+                             f"exact)")
+    evals = torch.zeros((3,), dtype=torch.int64, device=feat.device)
+    full = composite.composite_bwd(*bwd_args, evals=evals, t_in=t_in)
+    if not torch.equal(full, composite.composite_bwd(*bwd_args, t_in=t_in)):
+        raise AssertionError(f"{name}: two launches on the same inputs "
+                             f"differ")
+    extra = {}
+    if tile0_check:
+        # The strip's launch writes its own tiles' pairs, bit for bit what
+        # the full launch wrote there, and nothing else.
+        n_strip = max(1, ts.numel() // 10)
+        t0_ = ts.numel() // 2
+        sl = slice(t0_, t0_ + n_strip)
+        part = composite.composite_bwd(
+            feat, ts[sl].contiguous(), tc[sl].contiguous(), ntx, nc,
+            g_accum[sl].contiguous(), g_t[sl].contiguous(),
+            tfin[sl].contiguous(), ncon[sl].contiguous(),
+            accum[sl].contiguous(), tile0=t0_)
+        lo = int(ts[t0_])
+        hi = int(ts[t0_ + n_strip - 1] + tc[t0_ + n_strip - 1])
+        pm_part, pm_full = _pair_major(part), _pair_major(full)
+        if (not torch.equal(pm_part[lo:hi], pm_full[lo:hi])
+                or bool(pm_part[:lo].any()) or bool(pm_part[hi:].any())):
+            raise AssertionError(f"{name}: the strip at tile0={t0_} differs "
+                                 f"from the full launch")
+        extra = dict(tile0_strip_bit_equal=True, tile0=t0_,
+                     strip_tiles=n_strip, strip_pairs=hi - lo)
+    ms = time_ms(lambda: composite.composite_bwd(*bwd_args, t_in=t_in), reps)
+    n_eval, n_vis, n_contrib = (int(v) for v in evals.tolist())
+    nbytes = 4 * (n_vis * 11 + n_vis * 11
+                  + ts.numel() * 256 * (nc + 4 + (t_in is not None))
+                  + 2 * ts.numel())
+    ops = D_OPS_PER_EVAL * n_eval + E_OPS_PER_CONTRIB * n_contrib
+    b, by = bound(nbytes, ops)
+    return dict(name=name, route="cuda",
+                source=_rel(_cuda.CSRC / composite.BWD_KERNEL.source),
+                replaces=composite.BWD_KERNEL.replaces,
+                launches=launches, max_abs_err=err,
+                tolerance="rtol 1e-4 + atol 1e-5 of the largest |g|; rank "
+                          "row exact; two launches bit-equal",
+                largest_grad=top, ms=ms, plain_ms=plain, bound_ms=b,
+                bound_by=by, library_ms=None,
+                plain_compared_tiles=int(shallow.sum()),
+                tiles=ts.numel(), plain_depth=E_PLAIN_DEPTH,
+                pixel_pair_evals=n_eval, contributing_evals=n_contrib,
+                pairs_visited=n_vis, pairs_in_stream=int(tc.sum()),
+                max_visited_in_a_tile=int(nvis.max()),
+                bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                ops_bound_ms=ops / FP32_OPS_PER_S * 1e3, **extra)
+
+
+def _rel(path) -> str:
+    return str(Path(path).resolve().relative_to(REPO))
+
+
+def phase_kernels(calls, launches, train_launches, sliced_launches,
+                  unfused_launches, scan_launches, reps: int = REPS):
+    """calls: the captured arguments of every kernel; launches: of the
+    eval frames; train_launches, sliced_launches, unfused_launches,
+    scan_launches: of the paths that first drove kernels E and F, the
+    t_in modes, kernel G and kernel H."""
     rows = []
-    rel = rel_path = lambda p: str(  # noqa: E731
-        Path(p).resolve().relative_to(REPO))
 
     # A: flat scan, the render's 3 int32 cumsums (2 of N, 1 of max_rowruns).
     ms = plain = lib = nbytes = err = 0.0
@@ -962,7 +1680,7 @@ def phase_kernels(calls, launches, train_launches, reps: int = REPS):
                              f"by {err} (must be exact)")
     b, by = bound(nbytes)
     rows.append(dict(name="flat_scan", route="cuda",
-                     source=rel(_cuda.CSRC / scan.KERNEL.source),
+                     source=_rel(_cuda.CSRC / scan.KERNEL.source),
                      replaces=scan.KERNEL.replaces,
                      launches=launches["flat_scan"], max_abs_err=err,
                      tolerance="exact", ms=ms, plain_ms=plain,
@@ -991,7 +1709,7 @@ def phase_kernels(calls, launches, train_launches, reps: int = REPS):
                              f"exact)")
     b, by = bound(nbytes)
     rows.append(dict(name="expand_ragged", route="cuda",
-                     source=rel(_cuda.CSRC / expand.KERNEL.source),
+                     source=_rel(_cuda.CSRC / expand.KERNEL.source),
                      replaces=expand.KERNEL.replaces,
                      launches=launches["expand_ragged"], max_abs_err=err,
                      tolerance="exact", ms=ms, plain_ms=plain,
@@ -1010,108 +1728,19 @@ def phase_kernels(calls, launches, train_launches, reps: int = REPS):
                                                            max_pairs), reps)
     b, by = bound(4 * (len(feats) * max_pairs + got.numel()))
     rows.append(dict(name="pack_feat_cols", route="cuda",
-                     source=rel(_cuda.CSRC / composite.PACK_KERNEL.source),
+                     source=_rel(_cuda.CSRC / composite.PACK_KERNEL.source),
                      replaces=composite.PACK_KERNEL.replaces,
                      launches=launches["pack_feat_cols"], max_abs_err=err,
                      tolerance="exact", ms=ms, plain_ms=plain, bound_ms=b,
                      bound_by=by, library_ms=None,
                      shapes=[len(feats), max_pairs, list(got.shape)]))
 
-    # D: forward compositor.
-    (feat, ts, tc, ntx, nc), _ = calls["composite_fwd"][0]
-    evals = torch.zeros((2,), dtype=torch.int64, device=feat.device)
-    acc_k, t_k, n_k = composite.composite_fwd(feat, ts, tc, ntx, nc,
-                                              evals=evals)
-    acc_p, t_p, n_p = composite.composite_fwd_plain(feat, ts, tc, ntx, nc)
-    # A pixel whose transmittance lands on the other side of T_EPS ends at
-    # another pair; such pixels (at most 0.1%) are counted, the rest held
-    # at atol 2e-5.
-    same = n_k == n_p
-    err = max(_max_err(acc_k[same], acc_p[same]),
-              _max_err(t_k[same], t_p[same]))
-    n_bad = int((~same).sum())
-    n_pix = n_k.numel()
-    if err > 2e-5 or n_bad > 1e-3 * n_pix:
-        raise AssertionError(f"composite_fwd: max abs error {err} (atol "
-                             f"2e-5), n_contrib differs on {n_bad} of "
-                             f"{n_pix} pixels (at most 0.1%)")
-    ms = time_ms(lambda: composite.composite_fwd(feat, ts, tc, ntx, nc),
-                 reps)
-    plain = time_ms(lambda: composite.composite_fwd_plain(feat, ts, tc, ntx,
-                                                          nc), 1)
-    n_eval, n_need = (int(v) for v in evals.tolist())
-    # The loop ends early: count the pairs the tiles needed (their 6 + nc
-    # used feature rows), not the whole stream.
-    nbytes = 4 * (n_need * (6 + nc) + 2 * ts.numel() + acc_k.numel()
-                  + t_k.numel() + n_k.numel())
-    b, by = bound(nbytes, D_OPS_PER_EVAL * n_eval)
-    rows.append(dict(name="composite_fwd", route="cuda",
-                     source=rel(_cuda.CSRC / composite.FWD_KERNEL.source),
-                     replaces=composite.FWD_KERNEL.replaces,
-                     launches=launches["composite_fwd"], max_abs_err=err,
-                     tolerance="atol 2e-5 (accum, T); n_contrib <= 0.1%",
-                     n_contrib_mismatch=n_bad, ms=ms, plain_ms=plain,
-                     bound_ms=b, bound_by=by, library_ms=None,
-                     pixel_pair_evals=n_eval, pairs_needed=n_need,
-                     pairs_in_stream=int(tc.sum()),
-                     bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                     ops_bound_ms=D_OPS_PER_EVAL * n_eval / FP32_OPS_PER_S
-                     * 1e3, tiles=ts.numel(),
-                     max_tile_count=int(tc.max())))
-
-    # E: backward compositor, on one full-width backward's inputs. The
-    # plain version takes one Python iteration per within-tile pair index,
-    # so the comparison leaves out the tiles that visit more than
-    # E_PLAIN_DEPTH pairs (their count set to 0 for both versions).
-    (bwd_args, _), = calls["composite_bwd"]
-    feat, ts, tc, ntx, nc, g_accum, g_t, tfin, ncon, accum = bwd_args
-    nvis = torch.minimum(ncon.amax(dim=1), tc)
-    shallow = nvis <= E_PLAIN_DEPTH
-    tc_cmp = torch.where(shallow, tc, torch.zeros_like(tc))
-    cmp_args = (feat, ts, tc_cmp, ntx, nc, g_accum, g_t, tfin, ncon, accum)
-    got = composite.composite_bwd(*cmp_args)
-    t0 = time.perf_counter()
-    want = composite.composite_bwd_plain(
-        *cmp_args[:-1], torch.sum(g_accum * accum, dim=-1))
-    torch.cuda.synchronize()
-    plain = (time.perf_counter() - t0) * 1e3
-    top = float(want[:, :10].abs().max())
-    err = _max_err(got[:, :10], want[:, :10])
-    rel = float(((got[:, :10] - want[:, :10]).abs()
-                 / (1e-4 * want[:, :10].abs() + 1e-5 * top)).max())
-    if (not top > 0 or rel > 1.0
-            or not torch.equal(got[:, 10:], want[:, 10:])):
-        raise AssertionError(f"composite_bwd: max abs error {err} at "
-                             f"largest |g| {top} (rtol 1e-4, atol 1e-5 of "
-                             f"it; rank row exact)")
-    evals = torch.zeros((3,), dtype=torch.int64, device=feat.device)
-    full = composite.composite_bwd(*bwd_args, evals=evals)
-    if not torch.equal(full, composite.composite_bwd(*bwd_args)):
-        raise AssertionError("composite_bwd: two launches on the same "
-                             "inputs differ")
-    ms = time_ms(lambda: composite.composite_bwd(*bwd_args), reps)
-    n_eval, n_vis, n_contrib = (int(v) for v in evals.tolist())
-    nbytes = 4 * (n_vis * 11 + n_vis * 11 + ts.numel() * 256 * (nc + 4)
-                  + 2 * ts.numel())
-    ops = D_OPS_PER_EVAL * n_eval + E_OPS_PER_CONTRIB * n_contrib
-    b, by = bound(nbytes, ops)
-    rows.append(dict(name="composite_bwd", route="cuda",
-                     source=rel_path(_cuda.CSRC / composite.BWD_KERNEL.source),
-                     replaces=composite.BWD_KERNEL.replaces,
-                     launches=train_launches["composite_bwd"],
-                     max_abs_err=err,
-                     tolerance="rtol 1e-4 + atol 1e-5 of the largest |g|; "
-                               "rank row exact; two launches bit-equal",
-                     largest_grad=top, ms=ms, plain_ms=plain, bound_ms=b,
-                     bound_by=by, library_ms=None,
-                     plain_compared_tiles=int(shallow.sum()),
-                     tiles=ts.numel(), plain_depth=E_PLAIN_DEPTH,
-                     pixel_pair_evals=n_eval,
-                     contributing_evals=n_contrib, pairs_visited=n_vis,
-                     pairs_in_stream=int(tc.sum()),
-                     max_visited_in_a_tile=int(nvis.max()),
-                     bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                     ops_bound_ms=ops / FP32_OPS_PER_S * 1e3))
+    # D and E: the compositors, whole-image launches of the fused path.
+    rows.append(_fwd_row("composite_fwd", calls["composite_fwd"][0],
+                         launches["composite_fwd"], reps, tile0_check=True))
+    rows.append(_bwd_row("composite_bwd", calls["composite_bwd"][0],
+                         train_launches["composite_bwd"], reps,
+                         tile0_check=True))
 
     # F: rank-keyed row sum, on the same backward's sorted gradient rows.
     (f_args, _), = calls["rank_rowsum"]
@@ -1140,7 +1769,7 @@ def phase_kernels(calls, launches, train_launches, reps: int = REPS):
     b, by = bound(4 * (11 * p_len + 10 * n_out))
     runs = torch.bincount(idx, minlength=n_out + 1)[:n_out]
     rows.append(dict(name="rank_rowsum", route="cuda",
-                     source=rel_path(_cuda.CSRC / segreduce.KERNEL.source),
+                     source=_rel(_cuda.CSRC / segreduce.KERNEL.source),
                      replaces=segreduce.KERNEL.replaces,
                      launches=train_launches["rank_rowsum"], max_abs_err=err,
                      tolerance="rtol 1e-4 + atol 1e-5 of the largest |sum|; "
@@ -1152,6 +1781,129 @@ def phase_kernels(calls, launches, train_launches, reps: int = REPS):
                      longest_run=int(runs.max()),
                      runs_over_32=int((runs > 32).sum()),
                      ranks_with_pairs=int((runs > 0).sum())))
+
+    # D and E continuing a transmittance: the second window of one sliced
+    # full-width render and of its backward.
+    rows.append(_fwd_row("composite_fwd[t_in]", calls["composite_fwd[t_in]"],
+                         sliced_launches["composite_fwd[t_in]"], reps))
+    rows.append(_bwd_row("composite_bwd[t_in]", calls["composite_bwd[t_in]"],
+                         sliced_launches["composite_bwd[t_in]"], reps))
+
+    # G: segmented row sum, on the unfused backward's rows in expansion
+    # order and the bins' runs.
+    (rows_cm, starts, ends), _ = calls["segment_rowsum"]
+    got = segreduce.segment_rowsum(rows_cm, starts, ends)
+    want = segreduce.segment_rowsum_plain(rows_cm, starts, ends)
+    top = float(want.abs().max())
+    err = _max_err(got, want)
+    relg = float(((got - want).abs()
+                  / (1e-4 * want.abs() + 1e-5 * top)).max())
+    if not top > 0 or relg > 1.0:
+        raise AssertionError(f"segment_rowsum: max abs error {err} at "
+                             f"largest |sum| {top} (rtol 1e-4, atol 1e-5 of "
+                             f"it)")
+    if not torch.equal(got, segreduce.segment_rowsum(rows_cm, starts, ends)):
+        raise AssertionError("segment_rowsum: two launches on the same "
+                             "inputs differ")
+    ms = time_ms(lambda: segreduce.segment_rowsum(rows_cm, starts, ends),
+                 reps)
+    plain = time_ms(lambda: segreduce.segment_rowsum_plain(rows_cm, starts,
+                                                           ends), reps)
+    lens = (ends - starts).to(torch.int64)
+    n_seg = starts.shape[0]
+    seg_ids = torch.repeat_interleave(
+        torch.arange(n_seg, device=starts.device), lens)
+    covered = int(seg_ids.shape[0])
+    # The runs are contiguous from pair 0, so the covered pairs are the
+    # first `covered` columns.
+    if int(starts[0]) != 0 or int(ends.max()) != covered:
+        raise AssertionError("segment_rowsum: the captured runs do not tile "
+                             "[0, covered)")
+    vals = rows_cm[:, :covered]
+    lib = time_ms(lambda: torch.zeros(
+        (rows_cm.shape[0], n_seg), dtype=torch.float32,
+        device=vals.device).index_add_(1, seg_ids, vals), reps)
+    b, by = bound(4 * (rows_cm.shape[0] * covered + 2 * n_seg
+                       + rows_cm.shape[0] * n_seg))
+    rows.append(dict(name="segment_rowsum", route="cuda",
+                     source=_rel(_cuda.CSRC / segreduce.SEG_KERNEL.source),
+                     replaces=segreduce.SEG_KERNEL.replaces,
+                     launches=unfused_launches["segment_rowsum"],
+                     max_abs_err=err,
+                     tolerance="rtol 1e-4 + atol 1e-5 of the largest |sum|; "
+                               "two launches bit-equal",
+                     largest_sum=top, ms=ms, plain_ms=plain, bound_ms=b,
+                     bound_by=by, library_ms=lib,
+                     library="torch.Tensor.index_add_ (segment ids prepared "
+                             "outside the timing)",
+                     shapes=[list(rows_cm.shape), n_seg],
+                     covered_pairs=covered, longest_run=int(lens.max()),
+                     runs_over_32=int((lens > 32).sum()),
+                     empty_runs=int((lens == 0).sum())))
+
+    # H: row scans at the three shapes of the JAX package's
+    # micro-benchmark. int32 exact; the float32 sum at rtol 1e-5 of the
+    # column's largest running magnitude (its association differs from
+    # torch.cumsum's).
+    ms = plain = lib = nbytes = err = 0.0
+    shapes = []
+    for op, x in calls["scan_rows"]:
+        fn, fn_plain = ((scan.cummax_rows, scan.cummax_rows_plain)
+                        if op == "max" else
+                        (scan.cumsum_rows, scan.cumsum_rows_plain))
+        # torch.cummax / torch.cumsum along dim 0 of an (M, C) array take
+        # about a second each at these shapes: the plain version runs once
+        # (and once more in float64 for the float32 sum), timed as it runs.
+        holder = {}
+        one_plain = time_ms(lambda: holder.update(want=fn_plain(x)), 1,
+                            warmup=0)
+        got, want = fn(x), holder.pop("want")
+        if x.dtype == torch.int32:
+            if not torch.equal(got, want):
+                raise AssertionError(f"scan_rows {op} {tuple(x.shape)} "
+                                     f"int32 is not exact")
+        else:
+            # Millions of float32 terms: the plain version's own rounding
+            # is of the tolerance's size, so the kernel is held against
+            # the plain version run in float64.
+            want64 = fn_plain(x.double())
+            plain_err = float((want.double() - want64).abs().max())
+            e = (got.double() - want64).abs()
+            top = want64.abs().amax(dim=0, keepdim=True)
+            if bool((e > 1e-5 * top).any()):
+                raise AssertionError(
+                    f"scan_rows {op} {tuple(x.shape)} float32: error "
+                    f"{float((e / top).max())} of the column's largest "
+                    f"(rtol 1e-5)")
+            err = max(err, float(e.max()))
+            del want64, e
+        if not torch.equal(got, fn(x)):
+            raise AssertionError("scan_rows: two launches differ")
+        del got, want
+        one = time_ms(lambda: fn(x), reps)
+        ms += one
+        plain += one_plain
+        lib += one_plain      # the plain version is the library call
+        nbytes += 2 * 4 * x.numel()
+        shapes.append(dict(shape=list(x.shape), dtype=str(x.dtype), op=op,
+                           ms=one, library_ms=one_plain,
+                           plain_float32_abs_err=(
+                               plain_err if x.dtype == torch.float32
+                               else None),
+                           bound_ms=2 * 4 * x.numel() / HBM_BYTES_PER_S
+                           * 1e3))
+    b, by = bound(nbytes)
+    rows.append(dict(name="scan_rows", route="cuda",
+                     source=_rel(_cuda.CSRC / scan.ROWS_KERNEL.source),
+                     replaces=scan.ROWS_KERNEL.replaces,
+                     launches=scan_launches["scan_rows"], max_abs_err=err,
+                     tolerance="int32 exact; float32 sum rtol 1e-5 of the "
+                               "column's largest, against the plain version "
+                               "in float64; two launches bit-equal",
+                     ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                     library_ms=lib,
+                     library="torch.cummax / torch.cumsum along dim 0",
+                     on_render_path=False, shapes=shapes))
     return rows
 
 
@@ -1165,6 +1917,7 @@ def main():
     phase_build()
     phase_reference(args.seed)
     phase_reference_train(args.seed)
+    phase_reference_modes(args.seed)
     store, tracks, cfg, rcfg, cam0, launches = phase_main(args.seed)
     phase_profile("profile", lambda: forward_scene(
         store, tracks, cam0, 0, cfg, rcfg, eval_extras=True))
@@ -1181,7 +1934,19 @@ def main():
                        jitter, res)
     del res
     calls.update(train_calls)
-    rows = phase_kernels(calls, launches, train_launches)
+    cams2 = cameras(2, FLAGSHIP.width, FLAGSHIP.height, FLAGSHIP.focal,
+                    "cuda")
+    sliced_calls, sliced_launches = phase_sliced(state, tracks, cfg, rcfg,
+                                                 cams2, batch)
+    calls.update(sliced_calls)
+    unfused_calls, unfused_launches = phase_unfused(state.store, tracks, cfg,
+                                                    rcfg, cam0)
+    calls.update(unfused_calls)
+    del state
+    scan_calls, scan_launches = phase_row_scans(args.seed)
+    calls.update(scan_calls)
+    rows = phase_kernels(calls, launches, train_launches, sliced_launches,
+                         unfused_launches, scan_launches)
     for r in rows:
         r["card"] = smi
     print(json.dumps({"kernels": rows}), flush=True)

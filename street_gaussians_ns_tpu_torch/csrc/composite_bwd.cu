@@ -1,13 +1,26 @@
 // Kernel E: backward tile compositor (forward replay).
 //
 // Replaces street_gaussians_ns_tpu/ops/composite_pallas.py:_bwd_kernel /
-// _bwd_tile (with_rank=True, with_tin=False, tile0=0). For every pair, in
-// sorted pair order and in the stream's own (rows, 16, 128) layout, it
+// _bwd_tile in all its modes. For every pair, in sorted pair order and in the stream's own (rows, 16, 128) layout, it
 // writes dL/d[x, y, conic a, b, c, opacity, colour 0..NC-1] summed over the
 // tile's pixels into rows 0..5+NC, and copies the pair's depth rank (row 10
 // of the feature stream) into row 10, which keys the gradient reduce
 // (kernel F). Pairs that no pixel of their tile reached stay as the caller
-// zero-filled them.
+// zero-filled them. The unfused path's stream has zeros in row 10 (the TPU
+// kernel's with_rank=False); the copy then writes zeros and that path's
+// reduce does not read the row.
+//
+// Continuation (TIN) and strips (tile0) as in the forward kernel
+// (composite_fwd.cu): the replay starts from the pixel's incoming
+// transmittance `tin`, and the CTA's pixel coordinates are those of tile
+// blockIdx.x + tile0. The formulas do not change: g . accum is taken on the
+// window's own accum, which the forward premultiplied by the whole chain,
+// and g_T is the cotangent of the window's own T_final; the chain from one
+// window's T_final to the next one's `tin` is the caller's. A pixel with
+// tin <= 1e-4 (or negative: done in an earlier window) has n_contrib 0
+// and is never evaluated. Every pair's row is
+// stored whole by its own tile, so a strip needs nothing like the TPU
+// kernel's flush of a boundary row at its end.
 //
 // One CTA of 256 threads per 16x16 tile, one thread per pixel, as in the
 // forward kernel. The thread replays the forward recurrence over the pairs
@@ -74,11 +87,12 @@ __device__ __forceinline__ void fold(float (&v)[NG], bool up) {
   }
 }
 
-template <int NC>
+template <int NC, bool TIN>
 __global__ void __launch_bounds__(PIX)
     composite_bwd_kernel(const float* __restrict__ feat,
                          const int* __restrict__ tile_start,
                          const int* __restrict__ tile_count, int ntx,
+                         int tile0, const float* __restrict__ tin,
                          const float* __restrict__ g_accum,
                          const float* __restrict__ g_t,
                          const float* __restrict__ tfin,
@@ -99,8 +113,9 @@ __global__ void __launch_bounds__(PIX)
   const int warp = tid >> 5;
   const long long start = tile_start[t];
   const int count = tile_count[t];
-  const float px = (float)((t % ntx) * TILE + (tid % TILE)) + 0.5f;
-  const float py = (float)((t / ntx) * TILE + (tid / TILE)) + 0.5f;
+  const int tg = t + tile0;
+  const float px = (float)((tg % ntx) * TILE + (tid % TILE)) + 0.5f;
+  const float py = (float)((tg / ntx) * TILE + (tid / TILE)) + 0.5f;
 
   const long long o = (long long)t * PIX + tid;
   const int my_n = min(ncon[o], count);
@@ -131,6 +146,11 @@ __global__ void __launch_bounds__(PIX)
   float T = 1.0f;
   float cum_u = 0.0f;
   bool done = false;
+  if (TIN) {
+    const float v = tin[o];
+    T = fabsf(v);
+    done = v <= SG_T_EPS;
+  }
   unsigned int nev = 0, ncontrib = 0;
 
   for (int b0 = 0; b0 < nmax; b0 += BATCH) {
@@ -242,23 +262,30 @@ __global__ void __launch_bounds__(PIX)
 
 template <int NC>
 void launch(const float* feat, const int* tile_start, const int* tile_count,
-            int num_tiles, int ntx, const float* g_accum, const float* g_t,
-            const float* tfin, const int* ncon, const float* gdotacc,
-            float* gpair, unsigned long long* evals, cudaStream_t s) {
-  composite_bwd_kernel<NC><<<num_tiles, PIX, 0, s>>>(
-      feat, tile_start, tile_count, ntx, g_accum, g_t, tfin, ncon, gdotacc,
-      gpair, evals);
+            int num_tiles, int ntx, int tile0, const float* tin,
+            const float* g_accum, const float* g_t, const float* tfin,
+            const int* ncon, const float* gdotacc, float* gpair,
+            unsigned long long* evals, cudaStream_t s) {
+  if (tin != nullptr)
+    composite_bwd_kernel<NC, true><<<num_tiles, PIX, 0, s>>>(
+        feat, tile_start, tile_count, ntx, tile0, tin, g_accum, g_t, tfin,
+        ncon, gdotacc, gpair, evals);
+  else
+    composite_bwd_kernel<NC, false><<<num_tiles, PIX, 0, s>>>(
+        feat, tile_start, tile_count, ntx, tile0, tin, g_accum, g_t, tfin,
+        ncon, gdotacc, gpair, evals);
 }
 
 }  // namespace
 
 // feat and gpair (rows, 16, 128) float32, gpair zero-filled by the caller;
 // g_accum (num_tiles, 256, nc), g_t, tfin, gdotacc (num_tiles, 256)
-// float32, ncon (num_tiles, 256) int32; evals (three uint64) is optional
-// (null = off).
+// float32, ncon (num_tiles, 256) int32; tin (num_tiles, 256) float32 and
+// evals (three uint64) are optional (null = off).
 SG_EXPORT int sg_composite_bwd(const float* feat, const int* tile_start,
                                const int* tile_count, int num_tiles, int ntx,
-                               int nc, const float* g_accum, const float* g_t,
+                               int nc, int tile0, const float* tin,
+                               const float* g_accum, const float* g_t,
                                const float* tfin, const int* ncon,
                                const float* gdotacc, float* gpair,
                                unsigned long long* evals, void* stream) {
@@ -266,20 +293,20 @@ SG_EXPORT int sg_composite_bwd(const float* feat, const int* tile_start,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (nc) {
     case 1:
-      launch<1>(feat, tile_start, tile_count, num_tiles, ntx, g_accum, g_t,
-                tfin, ncon, gdotacc, gpair, evals, s);
+      launch<1>(feat, tile_start, tile_count, num_tiles, ntx, tile0, tin,
+                g_accum, g_t, tfin, ncon, gdotacc, gpair, evals, s);
       break;
     case 2:
-      launch<2>(feat, tile_start, tile_count, num_tiles, ntx, g_accum, g_t,
-                tfin, ncon, gdotacc, gpair, evals, s);
+      launch<2>(feat, tile_start, tile_count, num_tiles, ntx, tile0, tin,
+                g_accum, g_t, tfin, ncon, gdotacc, gpair, evals, s);
       break;
     case 3:
-      launch<3>(feat, tile_start, tile_count, num_tiles, ntx, g_accum, g_t,
-                tfin, ncon, gdotacc, gpair, evals, s);
+      launch<3>(feat, tile_start, tile_count, num_tiles, ntx, tile0, tin,
+                g_accum, g_t, tfin, ncon, gdotacc, gpair, evals, s);
       break;
     case 4:
-      launch<4>(feat, tile_start, tile_count, num_tiles, ntx, g_accum, g_t,
-                tfin, ncon, gdotacc, gpair, evals, s);
+      launch<4>(feat, tile_start, tile_count, num_tiles, ntx, tile0, tin,
+                g_accum, g_t, tfin, ncon, gdotacc, gpair, evals, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -1,8 +1,8 @@
 // Kernel D: forward tile compositor.
 //
 // Replaces street_gaussians_ns_tpu/ops/composite_pallas.py:_fwd_kernel
-// (with_tin=False, tile0=0). One CTA of 256 threads per 16x16 tile, one
-// thread per pixel, walks the tile's sorted pair range
+// in both its modes. One CTA of 256 threads per 16x16 tile, one thread per
+// pixel, walks the tile's sorted pair range
 // [tile_start, tile_start + tile_count) of the (rows, 16, 128) feature
 // stream front to back, with the oracle's rules
 // (ops/rasterize_ref.py):
@@ -23,6 +23,31 @@
 // (__syncthreads_count), the GPU form of the TPU kernel's tile-level
 // early exit.
 //
+// Continuation (TIN, the TPU kernel's with_tin): the depth-sliced path
+// composites one depth-rank window after another, and a later window's
+// launch starts every pixel from the transmittance `tin` the earlier ones
+// left (done where tin <= 1e-4) instead of 1. The accumulated colours then
+// come out premultiplied by the whole chain, the windows' outputs simply
+// add, and a pixel that the earlier windows saturated does no work: the
+// CTA's exit count sees it as done from the start. A tile of count 0 still
+// writes T_final = tin and n_contrib = 0; n_contrib counts within the
+// window. The mode is a template parameter, so a launch without `tin` runs
+// the code it ran before the mode existed.
+//
+// The done state crosses windows in the sign of the transmittance. A pixel
+// is done when a pair would push its T to 1e-4 or below, and it keeps the T
+// it had before that pair, which is above 1e-4: the magnitude alone cannot
+// tell the next window that the pixel has ended. With mark_done the kernel
+// writes T_final negated for the pixels that are done, and a `tin` value
+// that is negative (or <= 1e-4, the TPU kernel's own test) starts its pixel
+// done with T = |tin|. The chain of windows then ends every pixel where
+// the single launch over all pairs ends it.
+//
+// Strips (tile0): the CTA's tile is blockIdx.x + tile0 of the image grid
+// (its pixel coordinates), while tile_start / tile_count and the outputs
+// are indexed by blockIdx.x: a caller composites tiles [tile0, tile0 + n)
+// by passing that slice of the ranges.
+//
 // Bound on the H100: the larger of the bytes (the stream once plus the
 // outputs; a tile re-reads nothing from device memory) and about 16 float32
 // operations with one exp per evaluated (pixel, pair), both counted into
@@ -39,12 +64,14 @@ constexpr int NFEAT = 16;
 constexpr int K = 128;
 constexpr int BATCH = PIX;
 
-template <int NC>
+template <int NC, bool TIN>
 __global__ void __launch_bounds__(PIX)
     composite_fwd_kernel(const float* __restrict__ feat,
                          const int* __restrict__ tile_start,
                          const int* __restrict__ tile_count, int ntx,
-                         float* __restrict__ accum, float* __restrict__ tfin,
+                         int tile0, const float* __restrict__ tin,
+                         int mark_done, float* __restrict__ accum,
+                         float* __restrict__ tfin,
                          int* __restrict__ ncon,
                          unsigned long long* __restrict__ evals) {
   __shared__ float sm[6 + NC][BATCH];
@@ -52,8 +79,10 @@ __global__ void __launch_bounds__(PIX)
   const int tid = threadIdx.x;
   const long long start = tile_start[t];
   const int count = tile_count[t];
-  const float px = (float)((t % ntx) * TILE + (tid % TILE)) + 0.5f;
-  const float py = (float)((t / ntx) * TILE + (tid / TILE)) + 0.5f;
+  const int tg = t + tile0;
+  const float px = (float)((tg % ntx) * TILE + (tid % TILE)) + 0.5f;
+  const float py = (float)((tg / ntx) * TILE + (tid / TILE)) + 0.5f;
+  const long long o = (long long)t * PIX + tid;
 
   float T = 1.0f;
   float acc[NC];
@@ -61,6 +90,11 @@ __global__ void __launch_bounds__(PIX)
   for (int c = 0; c < NC; ++c) acc[c] = 0.0f;
   int last = 0;
   bool done = false;
+  if (TIN) {
+    const float v = tin[o];
+    T = fabsf(v);
+    done = v <= SG_T_EPS;
+  }
   unsigned int nev = 0;
 
   for (int b0 = 0; b0 < count; b0 += BATCH) {
@@ -97,10 +131,9 @@ __global__ void __launch_bounds__(PIX)
     if (__syncthreads_count(!done) == 0) break;
   }
 
-  const long long o = (long long)t * PIX + tid;
 #pragma unroll
   for (int c = 0; c < NC; ++c) accum[o * NC + c] = acc[c];
-  tfin[o] = T;
+  tfin[o] = (mark_done && done) ? -T : T;
   ncon[o] = last;
 
   // Measurement aid: evals[0] += evaluated (pixel, pair)s; evals[1] +=
@@ -123,38 +156,48 @@ __global__ void __launch_bounds__(PIX)
 
 template <int NC>
 void launch(const float* feat, const int* tile_start, const int* tile_count,
-            int num_tiles, int ntx, float* accum, float* tfin, int* ncon,
+            int num_tiles, int ntx, int tile0, const float* tin,
+            int mark_done, float* accum, float* tfin, int* ncon,
             unsigned long long* evals, cudaStream_t s) {
-  composite_fwd_kernel<NC><<<num_tiles, PIX, 0, s>>>(
-      feat, tile_start, tile_count, ntx, accum, tfin, ncon, evals);
+  if (tin != nullptr)
+    composite_fwd_kernel<NC, true><<<num_tiles, PIX, 0, s>>>(
+        feat, tile_start, tile_count, ntx, tile0, tin, mark_done, accum,
+        tfin, ncon, evals);
+  else
+    composite_fwd_kernel<NC, false><<<num_tiles, PIX, 0, s>>>(
+        feat, tile_start, tile_count, ntx, tile0, tin, mark_done, accum,
+        tfin, ncon, evals);
 }
 
 }  // namespace
 
 // accum (num_tiles, 256, nc), tfin (num_tiles, 256) float32, ncon
-// (num_tiles, 256) int32; evals (two uint64) is optional (null = off).
+// (num_tiles, 256) int32; tin (num_tiles, 256) float32 and evals (two
+// uint64) are optional (null = off).
 SG_EXPORT int sg_composite_fwd(const float* feat, const int* tile_start,
                                const int* tile_count, int num_tiles, int ntx,
-                               int nc, float* accum, float* tfin, int* ncon,
+                               int nc, int tile0, const float* tin,
+                               int mark_done, float* accum, float* tfin,
+                               int* ncon,
                                unsigned long long* evals, void* stream) {
   if (num_tiles <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (nc) {
     case 1:
-      launch<1>(feat, tile_start, tile_count, num_tiles, ntx, accum, tfin,
-                ncon, evals, s);
+      launch<1>(feat, tile_start, tile_count, num_tiles, ntx, tile0, tin,
+                mark_done, accum, tfin, ncon, evals, s);
       break;
     case 2:
-      launch<2>(feat, tile_start, tile_count, num_tiles, ntx, accum, tfin,
-                ncon, evals, s);
+      launch<2>(feat, tile_start, tile_count, num_tiles, ntx, tile0, tin,
+                mark_done, accum, tfin, ncon, evals, s);
       break;
     case 3:
-      launch<3>(feat, tile_start, tile_count, num_tiles, ntx, accum, tfin,
-                ncon, evals, s);
+      launch<3>(feat, tile_start, tile_count, num_tiles, ntx, tile0, tin,
+                mark_done, accum, tfin, ncon, evals, s);
       break;
     case 4:
-      launch<4>(feat, tile_start, tile_count, num_tiles, ntx, accum, tfin,
-                ncon, evals, s);
+      launch<4>(feat, tile_start, tile_count, num_tiles, ntx, tile0, tin,
+                mark_done, accum, tfin, ncon, evals, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -8,7 +8,8 @@ and flags, so a fresh checkout builds them at first use and a changed
 source is rebuilt. A missing nvcc or a failed build raises with the
 compiler's output; nothing falls back to the plain PyTorch versions.
 
-Each kernel wrapper (ops/scan.py, ops/expand.py, ops/composite.py)
+Each kernel wrapper (ops/scan.py, ops/expand.py, ops/composite.py,
+ops/segreduce.py)
 dispatches on the device of its tensors: CPU tensors run the plain
 PyTorch version beside it, CUDA tensors launch the kernel on the current
 stream or raise. The wrapper adds one to its Kernel's `launches` where it
@@ -75,6 +76,9 @@ class Kernel:
     replaces: str
     entries: dict
     launches: int = 0
+    # Launches by mode, for the kernels that have modes (the compositors'
+    # "t_in" and "tile0"); a launch in a mode counts in `launches` too.
+    mode_launches: dict = dataclasses.field(default_factory=dict)
     build_log: str = ""
     _lib: ctypes.CDLL | None = dataclasses.field(default=None, repr=False)
 
@@ -129,8 +133,9 @@ class Kernel:
             self._lib = lib
         return self._lib
 
-    def launch(self, entry: str, *args) -> None:
-        """Call a C entry point; raise if its launches reported an error."""
+    def launch(self, entry: str, *args, modes=()) -> None:
+        """Call a C entry point; raise if its launches reported an error.
+        `modes` names the kernel's modes this launch runs in."""
         lib = self.lib()
         rc = getattr(lib, entry)(*args)
         if rc != 0:
@@ -138,6 +143,12 @@ class Kernel:
             raise KernelLaunchError(f"{self.name}: {entry} failed with CUDA "
                                     f"error {rc} ({msg})")
         self.launches += 1
+        for m in modes:
+            self.mode_launches[m] = self.mode_launches.get(m, 0) + 1
+
+    def reset_launches(self) -> None:
+        self.launches = 0
+        self.mode_launches.clear()
 
 
 KERNELS: list[Kernel] = []

@@ -1,9 +1,22 @@
-"""Fused bin + pack + composite, forward and backward — kernels C, D and
-E (counterpart of street_gaussians_ns_tpu/ops/composite_pallas.py:
+"""The kernel compositors, forward and backward — kernels C, D and E
+(counterpart of street_gaussians_ns_tpu/ops/composite_pallas.py:
 `_pack_feat_cols`, `_fwd_call`, `_bwd_call`, `_tiles_to_image`,
 `_img_to_tiles`, `_bwd_from_tiles`, `_reduce_pair_grads_ranked`,
-`_unsort_rank_sums`, and `rasterize_tiles_pallas_fused` with
-depth_slices=1 as one `torch.autograd.Function`).
+`_reduce_pair_grads`, `_unsort_rank_sums`, `_build_feat`, and its four
+rasterizers, each one `torch.autograd.Function`):
+
+  rasterize_tiles_fused       bin + pack + composite
+                              (`rasterize_tiles_pallas_fused`), whole or
+                              in `depth_slices` depth-rank windows
+                              composited one after another;
+  rasterize_tiles_pallas      composite over bins the caller shares
+                              (`ops.tiles.bin_gaussians`), the features
+                              gathered per pair (`rasterize_tiles_pallas`);
+  composite_tiles_fused       bin + pack + composite of a strip of tiles
+                              [tile0, tile0 + n_tiles), optionally of one
+                              depth window, in tile layout
+                              (`composite_tiles_pallas_fused`): the body a
+                              device of a sharded render runs.
 
 Kernel C, `pack_feat_cols` (replaces `composite_pallas.py:_pack_kernel`,
 CUDA in `csrc/pack.cu`): interleaves the sorted-pair feature columns into
@@ -27,13 +40,18 @@ bound is the larger of the visited pairs' bytes and its float32
 operations: the forward's ~16 per evaluated (pixel, pair) and ~51 more per
 evaluation that contributes.
 
+Kernels D and E take an incoming transmittance `t_in` (a later depth
+window continues the earlier ones' chain) and a strip offset `tile0`.
+
 The gradient reduce around kernel F (`ops.segreduce.rank_rowsum`) is plain
 PyTorch: the visited pairs are gathered out of the gradient stream by
 their tile intervals (a tile's backward visits the first max(n_contrib)
 pairs of its range, so no mask pass over the stream is needed), sorted by
 rank, summed per rank by kernel F and un-sorted by `depth_order`. The JAX
 package's cap ladder and nested conds exist for XLA's static shapes and
-have no counterpart.
+have no counterpart. The unfused rasterizer's reduce (`_reduce_pair_grads`)
+goes through expansion order and kernel G
+(`ops.segreduce.segment_rowsum`) instead.
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors.
@@ -46,8 +64,10 @@ import torch
 
 from . import _cuda
 from .rasterize_ref import ALPHA_CLAMP, ALPHA_THRESH, SIGMA_MIN, T_EPS
-from .segreduce import rank_rowsum
-from .tiles import bin_and_pack
+from . import scan
+from .segreduce import rank_rowsum, segment_rowsum
+from .tiles import (TileBins, _bin_sorted, _depth_sort_cols, _trim_full,
+                    bin_and_pack)
 
 TILE = 16
 PIX = TILE * TILE     # pixels per tile
@@ -73,9 +93,11 @@ FWD_KERNEL = _cuda.register(_cuda.Kernel(
              "_fwd_kernel",
     entries={"sg_composite_fwd": (ctypes.c_void_p, ctypes.c_void_p,
                                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                                  ctypes.c_int, ctypes.c_void_p,
+                                  ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_void_p, ctypes.c_int,
                                   ctypes.c_void_p, ctypes.c_void_p,
-                                  ctypes.c_void_p, ctypes.c_void_p)},
+                                  ctypes.c_void_p, ctypes.c_void_p,
+                                  ctypes.c_void_p)},
 ))
 
 BWD_KERNEL = _cuda.register(_cuda.Kernel(
@@ -85,7 +107,8 @@ BWD_KERNEL = _cuda.register(_cuda.Kernel(
              "_bwd_kernel",
     entries={"sg_composite_bwd": (ctypes.c_void_p, ctypes.c_void_p,
                                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                                  ctypes.c_int, ctypes.c_void_p,
+                                  ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_void_p, ctypes.c_void_p,
                                   ctypes.c_void_p, ctypes.c_void_p,
                                   ctypes.c_void_p, ctypes.c_void_p,
                                   ctypes.c_void_p, ctypes.c_void_p,
@@ -137,27 +160,45 @@ def pack_feat_cols(feats, max_pairs: int) -> torch.Tensor:
 # Kernel D: forward compositor.
 # ---------------------------------------------------------------------------
 
-def _pixel_centers(num_tiles: int, ntx: int, device):
-    """(num_tiles, PIX) pixel-center x and y of every tile's pixels."""
-    t = torch.arange(num_tiles, device=device)[:, None]
+def _pixel_centers(num_tiles: int, ntx: int, device, tile0: int = 0):
+    """(num_tiles, PIX) pixel-center x and y of the pixels of tiles
+    [tile0, tile0 + num_tiles)."""
+    t = torch.arange(tile0, tile0 + num_tiles, device=device)[:, None]
     lp = torch.arange(PIX, device=device)[None, :]
     px = ((t % ntx) * TILE + lp % TILE).to(torch.float32) + 0.5
     py = ((t // ntx) * TILE + lp // TILE).to(torch.float32) + 0.5
     return px, py
 
 
-def composite_fwd_plain(feat, tile_start, tile_count, ntx: int, nc: int):
+def _modes(t_in, tile0: int):
+    return (("t_in",) if t_in is not None else ()) + (
+        ("tile0",) if tile0 else ())
+
+
+def _initial_state(num_tiles: int, device, t_in):
+    """(T, done) a compositing loop starts from: 1 and not done, or the
+    magnitude of the incoming transmittance, done where that is <= T_EPS
+    or carries a minus sign (composite_fwd's mark_done)."""
+    if t_in is None:
+        return (torch.ones((num_tiles, PIX), dtype=torch.float32,
+                           device=device),
+                torch.zeros((num_tiles, PIX), dtype=torch.bool,
+                            device=device))
+    return t_in.abs(), t_in <= T_EPS
+
+
+def composite_fwd_plain(feat, tile_start, tile_count, ntx: int, nc: int,
+                        t_in=None, tile0: int = 0, mark_done: bool = False):
     """The compositing loop vectorised over all tiles and pixels, one
     Python iteration per within-tile pair index."""
     num_tiles = tile_start.shape[0]
     dev = feat.device
     flat = feat.reshape(-1, NFEAT, K)
-    px, py = _pixel_centers(num_tiles, ntx, dev)
-    T = torch.ones((num_tiles, PIX), dtype=torch.float32, device=dev)
+    px, py = _pixel_centers(num_tiles, ntx, dev, tile0)
+    T, done = _initial_state(num_tiles, dev, t_in)
     accum = torch.zeros((num_tiles, PIX, nc), dtype=torch.float32,
                         device=dev)
     ncon = torch.zeros((num_tiles, PIX), dtype=torch.int32, device=dev)
-    done = torch.zeros((num_tiles, PIX), dtype=torch.bool, device=dev)
     start = tile_start.to(torch.int64)
     count = tile_count.to(torch.int64)
     n_iter = int(count.max()) if num_tiles else 0
@@ -184,17 +225,33 @@ def composite_fwd_plain(feat, tile_start, tile_count, ntx: int, nc: int):
         done |= terminate
         if j % 64 == 63 and bool(done[count > j + 1].all()):
             break
+    if mark_done:
+        T = torch.where(done, -T, T)
     return accum, T, ncon
 
 
 def composite_fwd(feat, tile_start, tile_count, ntx: int, nc: int,
-                  evals: torch.Tensor | None = None):
+                  evals: torch.Tensor | None = None,
+                  t_in: torch.Tensor | None = None, tile0: int = 0,
+                  mark_done: bool = False):
     """Front-to-back alpha compositing of every 16x16 tile's sorted pair
     range of the packed stream `feat` (rows, 16, 128).
 
     tile_start/tile_count (T,) int32. Returns accum (T, 256, nc)
     premultiplied colours, T_final (T, 256), n_contrib (T, 256) int32
-    (within-tile index after the last contributing pair). `evals` (a (2,)
+    (within-tile index after the last contributing pair).
+
+    t_in (T, 256), when given, is the transmittance every pixel starts
+    from instead of 1: accum then comes out premultiplied by it and
+    T_final continues it. A pixel is done when a pair would push its T to
+    1e-4 or below, and keeps the larger T it had before that pair, so the
+    magnitude cannot say that it has ended: with mark_done, T_final comes
+    back negated for the pixels that are done, and a t_in value that is
+    negative (or <= 1e-4) starts its pixel done with T = |t_in|. A chain
+    of launches that hands T_final on as the next t_in then ends every
+    pixel where one launch over all the pairs would.
+    tile0 places the T tiles at [tile0, tile0 + T) of the image's tile
+    grid; the ranges and outputs stay indexed from 0. `evals` (a (2,)
     int64 CUDA tensor), when given, has the evaluated (pixel, pair) count
     added to [0] and the pairs the tiles needed (per tile the most any
     pixel evaluated) to [1]; it is a measurement aid, CUDA only."""
@@ -208,10 +265,15 @@ def composite_fwd(feat, tile_start, tile_count, ntx: int, nc: int,
     for name, t in (("tile_start", tile_start), ("tile_count", tile_count)):
         if t.dtype != torch.int32 or tuple(t.shape) != (num_tiles,):
             raise ValueError(f"{name} must be ({num_tiles},) int32")
-    if _cuda.is_cpu(feat, tile_start, tile_count):
+    tensors = [feat, tile_start, tile_count]
+    if t_in is not None:
+        _cuda.check(t_in, "t_in", torch.float32, shape=(num_tiles, PIX))
+        tensors.append(t_in)
+    if _cuda.is_cpu(*tensors):
         if evals is not None:
             raise ValueError("evals counting needs the CUDA kernel")
-        return composite_fwd_plain(feat, tile_start, tile_count, ntx, nc)
+        return composite_fwd_plain(feat, tile_start, tile_count, ntx, nc,
+                                   t_in, tile0, mark_done)
     for name, t in (("tile_start", tile_start), ("tile_count", tile_count)):
         _cuda.check(t, name, torch.int32)
     if evals is not None:
@@ -225,9 +287,11 @@ def composite_fwd(feat, tile_start, tile_count, ntx: int, nc: int,
         return accum, tfin, ncon
     FWD_KERNEL.launch(
         "sg_composite_fwd", _cuda.ptr(feat), _cuda.ptr(tile_start),
-        _cuda.ptr(tile_count), num_tiles, ntx, nc, _cuda.ptr(accum),
-        _cuda.ptr(tfin), _cuda.ptr(ncon),
-        _cuda.ptr(evals) if evals is not None else None, _cuda.stream(feat))
+        _cuda.ptr(tile_count), num_tiles, ntx, nc, tile0,
+        _cuda.ptr(t_in) if t_in is not None else None, int(mark_done),
+        _cuda.ptr(accum), _cuda.ptr(tfin), _cuda.ptr(ncon),
+        _cuda.ptr(evals) if evals is not None else None, _cuda.stream(feat),
+        modes=_modes(t_in, tile0))
     return accum, tfin, ncon
 
 
@@ -236,7 +300,8 @@ def composite_fwd(feat, tile_start, tile_count, ntx: int, nc: int,
 # ---------------------------------------------------------------------------
 
 def composite_bwd_plain(feat, tile_start, tile_count, ntx: int, nc: int,
-                        g_accum, g_t, tfin, ncon, gdotacc):
+                        g_accum, g_t, tfin, ncon, gdotacc, t_in=None,
+                        tile0: int = 0):
     """The forward replay vectorised over all tiles and pixels, one Python
     iteration per within-tile pair index, with kernel E's formulas."""
     num_tiles = tile_start.shape[0]
@@ -246,10 +311,9 @@ def composite_bwd_plain(feat, tile_start, tile_count, ntx: int, nc: int,
     if num_tiles == 0:
         return gpair
     ng = 6 + nc
-    px, py = _pixel_centers(num_tiles, ntx, dev)
-    T = torch.ones((num_tiles, PIX), dtype=torch.float32, device=dev)
+    px, py = _pixel_centers(num_tiles, ntx, dev, tile0)
+    T, done = _initial_state(num_tiles, dev, t_in)
     cum_u = torch.zeros_like(T)
-    done = torch.zeros((num_tiles, PIX), dtype=torch.bool, device=dev)
     zero = torch.zeros_like(T)
     start = tile_start.to(torch.int64)
     my_n = torch.minimum(ncon.to(torch.int64),
@@ -296,10 +360,13 @@ def composite_bwd_plain(feat, tile_start, tile_count, ntx: int, nc: int,
 
 def composite_bwd(feat, tile_start, tile_count, ntx: int, nc: int,
                   g_accum, g_t, tfin, ncon, accum,
-                  evals: torch.Tensor | None = None) -> torch.Tensor:
+                  evals: torch.Tensor | None = None,
+                  t_in: torch.Tensor | None = None,
+                  tile0: int = 0) -> torch.Tensor:
     """Per-pair gradients of the compositor, in the stream's layout.
 
-    feat, tile_start, tile_count, ntx, nc as composite_fwd took them;
+    feat, tile_start, tile_count, ntx, nc, t_in, tile0 as composite_fwd
+    took them;
     g_accum (T, 256, nc) and g_t (T, 256) are the cotangents of its accum
     and T_final; tfin, ncon, accum are its outputs. Returns gpair (rows,
     16, 128) float32 in sorted pair order: rows 0..5+nc hold dL/d[x, y,
@@ -324,6 +391,8 @@ def composite_bwd(feat, tile_start, tile_count, ntx: int, nc: int,
                 ("tfin", tfin, f32, (num_tiles, PIX)),
                 ("ncon", ncon, i32, (num_tiles, PIX)),
                 ("accum", accum, f32, (num_tiles, PIX, nc)))
+    if t_in is not None:
+        operands += (("t_in", t_in, f32, (num_tiles, PIX)),)
     for name, t, dtype, shape in operands:
         _cuda.check(t, name, dtype, shape=shape)
     gdotacc = torch.sum(g_accum * accum, dim=-1)
@@ -331,7 +400,8 @@ def composite_bwd(feat, tile_start, tile_count, ntx: int, nc: int,
         if evals is not None:
             raise ValueError("evals counting needs the CUDA kernel")
         return composite_bwd_plain(feat, tile_start, tile_count, ntx, nc,
-                                   g_accum, g_t, tfin, ncon, gdotacc)
+                                   g_accum, g_t, tfin, ncon, gdotacc, t_in,
+                                   tile0)
     if evals is not None:
         _cuda.check(evals, "evals", torch.int64, shape=(3,))
     gpair = torch.zeros_like(feat)
@@ -339,20 +409,21 @@ def composite_bwd(feat, tile_start, tile_count, ntx: int, nc: int,
         return gpair
     BWD_KERNEL.launch(
         "sg_composite_bwd", _cuda.ptr(feat), _cuda.ptr(tile_start),
-        _cuda.ptr(tile_count), num_tiles, ntx, nc, _cuda.ptr(g_accum),
+        _cuda.ptr(tile_count), num_tiles, ntx, nc, tile0,
+        _cuda.ptr(t_in) if t_in is not None else None, _cuda.ptr(g_accum),
         _cuda.ptr(g_t), _cuda.ptr(tfin), _cuda.ptr(ncon), _cuda.ptr(gdotacc),
         _cuda.ptr(gpair), _cuda.ptr(evals) if evals is not None else None,
-        _cuda.stream(feat))
+        _cuda.stream(feat), modes=_modes(t_in, tile0))
     return gpair
 
 
 # ---------------------------------------------------------------------------
-# The gradient reduce: per-pair rows -> per-gaussian sums.
+# The gradient reduces: per-pair rows -> per-gaussian sums.
 # ---------------------------------------------------------------------------
 
 def _unsort_rank_sums(rank_sums: torch.Tensor,
                       depth_order: torch.Tensor) -> torch.Tensor:
-    """(10, N) depth-rank sums -> (N, 10) gradients in the gaussians'
+    """(G, N) depth-rank sums -> (N, G) gradients in the gaussians'
     original order (depth_order is a permutation: rank -> index)."""
     out = torch.empty((rank_sums.shape[1], rank_sums.shape[0]),
                       dtype=rank_sums.dtype, device=rank_sums.device)
@@ -374,23 +445,49 @@ def _visited_pairs(tile_start, nvis) -> torch.Tensor:
 
 
 def _reduce_pair_grads_ranked(gpair, tile_start, nvis, depth_order,
-                              num_gaussians: int) -> torch.Tensor:
-    """Rank-keyed gradient reduction of the fused path: gpair (rows, 16,
+                              num_gaussians: int,
+                              unsort: bool = True) -> torch.Tensor:
+    """Rank-keyed gradient reduction of the fused paths: gpair (rows, 16,
     128) from composite_bwd, nvis (T,) the pairs each tile's backward
-    visited -> (N, 10) per-gaussian gradients. Only the visited pairs are
-    gathered and sorted: everything else in gpair is zero."""
+    visited -> (N, 10) per-gaussian gradients, or with unsort=False the
+    (10, N) sums per depth rank. Only the visited pairs are gathered and
+    sorted: everything else in gpair is zero."""
     pair = _visited_pairs(tile_start, nvis)
     g = gpair[pair // K, :RANK_ROW + 1, pair % K]           # (L, 11)
     # Stable, so pairs of one rank stay in pair order and the sums repeat
     # from run to run.
     rank_s, perm = torch.sort(g[:, RANK_ROW].to(torch.int32), stable=True)
     rows11 = g.index_select(0, perm).T.contiguous()          # (11, L)
-    return _unsort_rank_sums(rank_rowsum(rows11, rank_s, num_gaussians),
-                             depth_order)
+    rank_sums = rank_rowsum(rows11, rank_s, num_gaussians)
+    return _unsort_rank_sums(rank_sums, depth_order) if unsort else rank_sums
+
+
+def _reduce_pair_grads(gpair: torch.Tensor, bins: TileBins,
+                       nc: int) -> torch.Tensor:
+    """Gradient reduction over shared bins: gpair (rows, 16, 128) from
+    composite_bwd -> (N, 6 + nc) per-gaussian gradients. The live rows go
+    back to expansion order, where every depth rank's pairs are one
+    contiguous run [exp_starts, exp_starts + exp_counts), kernel G sums
+    the runs, and depth_order un-sorts the sums. exp_slot is a permutation
+    on the valid pairs, so the way back is a scatter by it (the JAX
+    package sorts by it, which XLA does faster than it scatters); invalid
+    pairs carry the sentinel max_pairs and fall into a spare column. Row
+    10 of gpair (the fused paths' rank) is not read."""
+    max_pairs = bins.exp_slot.shape[0]
+    ng = 6 + nc
+    cols = gpair[:max_pairs // K, :ng].permute(1, 0, 2).reshape(ng, max_pairs)
+    rows_cm = torch.zeros((ng, max_pairs + 1), dtype=torch.float32,
+                          device=gpair.device)
+    rows_cm.index_copy_(1, bins.exp_slot.to(torch.int64), cols)
+    starts = bins.exp_starts.clamp(0, max_pairs)
+    ends = (bins.exp_starts + bins.exp_counts).clamp(0, max_pairs)
+    rank_sums = segment_rowsum(rows_cm[:, :max_pairs].contiguous(), starts,
+                               ends)                          # (ng, N)
+    return _unsort_rank_sums(rank_sums, bins.depth_order)
 
 
 # ---------------------------------------------------------------------------
-# The fused rasterizer.
+# Tile layout <-> image, and the pieces the rasterizers share.
 # ---------------------------------------------------------------------------
 
 def _tiles_to_image(tiles: torch.Tensor, ntx: int, nty: int, width: int,
@@ -416,19 +513,68 @@ def _img_to_tiles(img: torch.Tensor, c: int, ntx: int, nty: int, width: int,
         ntx * nty, PIX, c).contiguous()
 
 
+def _grid(width: int, height: int):
+    return (width + TILE - 1) // TILE, (height + TILE - 1) // TILE
+
+
+def _cotangent_tiles(g_img, g_alpha, dims, device):
+    """Image cotangents -> (g_accum (T, PIX, C), g_t (T, PIX)) in tile
+    layout; alpha = 1 - T_final, so dL/dT_final = -g_alpha. A missing
+    cotangent counts as zeros."""
+    ntx, nty, width, height, nc = dims
+    if g_img is None:
+        g_img = torch.zeros((height, width, nc), dtype=torch.float32,
+                            device=device)
+    if g_alpha is None:
+        g_alpha = torch.zeros((height, width), dtype=torch.float32,
+                              device=device)
+    g_accum = _img_to_tiles(g_img.to(torch.float32), nc, ntx, nty, width,
+                            height)
+    g_t = -_img_to_tiles(g_alpha.to(torch.float32), 1, ntx, nty, width,
+                         height)[..., 0]
+    return g_accum, g_t.contiguous()
+
+
+def _input_grads(seg: torch.Tensor, nc: int, colors_dtype):
+    """(N, 6 + nc) per-gaussian sums -> the gradients of (xys, conics,
+    colors, opacities)."""
+    return (seg[:, 0:2], seg[:, 2:5], seg[:, 6:6 + nc].to(colors_dtype),
+            seg[:, 5])
+
+
 def _bwd_from_tiles(feat, tile_start, tile_count, ntx: int, accum, tfin,
-                    ncon, g_accum, g_t, depth_order,
-                    num_gaussians: int) -> torch.Tensor:
+                    ncon, g_accum, g_t, depth_order, num_gaussians: int,
+                    unsort: bool = True, t_in=None,
+                    tile0: int = 0) -> torch.Tensor:
     """Backward from tile-layout cotangents (g_accum (T, PIX, C) of the
     premultiplied accum, g_t (T, PIX) of T_final): kernel E, then the
-    rank-keyed reduce -> (N, 10) per-gaussian gradients."""
+    rank-keyed reduce -> (N, 10) per-gaussian gradients, or with
+    unsort=False the (10, N) sums per depth rank (the sliced path adds its
+    windows' sums and un-sorts once). t_in, tile0 as composite_fwd took
+    them."""
     nc = accum.shape[-1]
     gpair = composite_bwd(feat, tile_start, tile_count, ntx, nc, g_accum,
-                          g_t, tfin, ncon, accum)
+                          g_t, tfin, ncon, accum, t_in=t_in, tile0=tile0)
     nvis = torch.minimum(ncon.amax(dim=1), tile_count)
     return _reduce_pair_grads_ranked(gpair, tile_start, nvis, depth_order,
-                                     num_gaussians)
+                                     num_gaussians, unsort=unsort)
 
+
+def _depth_key(proj) -> torch.Tensor:
+    """The depth-sort key: +inf marks the gaussians that hit no tile."""
+    return torch.where(proj.num_tiles_hit > 0, proj.depths,
+                       torch.full_like(proj.depths, float("inf"))).detach()
+
+
+def _check_tile_size(tile_size: int) -> None:
+    if tile_size != TILE:
+        raise ValueError(f"the compositor is specialised to {TILE}x{TILE} "
+                         f"tiles, got {tile_size}")
+
+
+# ---------------------------------------------------------------------------
+# The fused rasterizer.
+# ---------------------------------------------------------------------------
 
 class _FusedRasterize(torch.autograd.Function):
     """Binning + feature threading + compositing as one autograd node, so
@@ -441,8 +587,7 @@ class _FusedRasterize(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xys, conics, colors, opacities, depth_key, tile_box,
                 width, height, max_pairs, max_rowruns, last_color_is_depth):
-        ntx = (width + TILE - 1) // TILE
-        nty = (height + TILE - 1) // TILE
+        ntx, nty = _grid(width, height)
         nc = colors.shape[-1]
         bins, feats = bin_and_pack(
             xys, conics, tile_box, depth_key, colors.to(torch.float32),
@@ -463,25 +608,157 @@ class _FusedRasterize(torch.autograd.Function):
     def backward(ctx, g_img, g_alpha, _g_bins):
         feat, tile_start, tile_count, accum, tfin, ncon, depth_order = \
             ctx.saved_tensors
-        ntx, nty, width, height, nc = ctx.dims
-        dev = feat.device
-        if g_img is None:
-            g_img = torch.zeros((height, width, nc), dtype=torch.float32,
-                                device=dev)
-        if g_alpha is None:
-            g_alpha = torch.zeros((height, width), dtype=torch.float32,
-                                  device=dev)
-        g_accum = _img_to_tiles(g_img.to(torch.float32), nc, ntx, nty,
-                                width, height)
-        # alpha = 1 - T_final, so dL/dT_final = -g_alpha.
-        g_t = -_img_to_tiles(g_alpha.to(torch.float32), 1, ntx, nty, width,
-                             height)[..., 0]
+        ntx, nc = ctx.dims[0], ctx.dims[4]
+        g_accum, g_t = _cotangent_tiles(g_img, g_alpha, ctx.dims,
+                                        feat.device)
         seg = _bwd_from_tiles(feat, tile_start, tile_count, ntx, accum, tfin,
-                              ncon, g_accum, g_t.contiguous(), depth_order,
+                              ncon, g_accum, g_t, depth_order,
                               depth_order.shape[0])
-        return (seg[:, 0:2], seg[:, 2:5],
-                seg[:, 6:6 + nc].to(ctx.colors_dtype), seg[:, 5],
+        return (*_input_grads(seg, nc, ctx.colors_dtype),
                 None, None, None, None, None, None, None)
+
+
+# ---------------------------------------------------------------------------
+# The depth-sliced fused rasterizer.
+# ---------------------------------------------------------------------------
+
+def _slice_caps(max_pairs: int, max_rowruns: int | None, n_slices: int):
+    """A slice's pair and run capacities: its share of the totals, rounded
+    up to a multiple of 8192."""
+    if max_rowruns is None:
+        max_rowruns = max_pairs // 2
+    mp = (-(-max_pairs // n_slices) + 8191) // 8192 * 8192
+    mr = (-(-max_rowruns // n_slices) + 8191) // 8192 * 8192
+    return mp, mr
+
+
+class _SlicedRasterize(torch.autograd.Function):
+    """_FusedRasterize in k depth-rank windows (max_pairs / max_rowruns
+    are the totals, split evenly). The gaussians are depth-sorted and
+    row-trimmed once; the windows' bounds sit at the pair-count quantiles
+    of the sorted order, so the windows hold about the same number of
+    pairs; each window is binned, packed and composited on its own, a
+    later one continuing the transmittance and the done state the earlier
+    ones left (kernel D's t_in and mark_done), so the windows' accums add
+    up to the unsliced image, every pixel ends at the pair where the
+    unsliced render ends it, and a pixel that has ended costs the later
+    windows nothing; a tile whose every pixel has ended drops its count.
+    (The JAX package hands on the transmittance alone and tests it
+    against 1e-4, which a pixel that has ended never falls to: there a
+    pixel ended by one window may take pairs of the next.)
+
+    The bins it returns report num_pairs / num_rowruns as the capacity
+    demand, k times the largest window's true count (at least the true
+    total), so a caller that grows the capacities by them keeps every
+    window from dropping pairs; tile_count is the sum of the windows'
+    counts before any tile was dropped (the scene's true densest tile);
+    the per-window fields are None."""
+
+    @staticmethod
+    def forward(ctx, xys, conics, colors, opacities, depth_key, tile_box,
+                width, height, max_pairs, max_rowruns, n_slices,
+                last_color_is_depth):
+        ntx, nty = _grid(width, height)
+        nc = colors.shape[-1]
+        n = depth_key.shape[0]
+        dev = xys.device
+        mp_s, mr_s = _slice_caps(max_pairs, max_rowruns, n_slices)
+        cols = _depth_sort_cols(xys, conics, tile_box, depth_key,
+                                colors.to(torch.float32), opacities,
+                                last_color_is_depth)
+        trim = _trim_full(cols, TILE, nty)
+        cnt_full = torch.where(torch.isfinite(cols[0]) & (trim[2] > 0),
+                               trim[2], 0)
+        # int64 for the quantiles: s * total passes 2^31 at a few slices
+        # of a few hundred million pairs. The bounds stay on the device.
+        cum = scan.cumsum_flat(cnt_full).to(torch.int64)
+        total = cum[-1] if n > 0 else torch.zeros((), dtype=torch.int64,
+                                                  device=dev)
+        qs = torch.stack([(s * total) // n_slices
+                          for s in range(1, n_slices)])
+        inner = torch.searchsorted(cum, qs, side="left")
+        bounds = [torch.zeros((), dtype=torch.int64, device=dev),
+                  *inner.unbind(0),
+                  torch.full((), n, dtype=torch.int64, device=dev)]
+
+        c_agg = None
+        t_prev = None
+        tile_count_true = None
+        saved, demand_p, demand_r = [], [], []
+        for s in range(n_slices):
+            bins_s, feats_s = _bin_sorted(
+                cols, None, width, height, TILE, mp_s, mr_s,
+                rank_window=(bounds[s], bounds[s + 1]), trim=trim)
+            tile_count = bins_s.tile_count
+            tile_count_true = (tile_count if tile_count_true is None
+                               else tile_count_true + tile_count)
+            if s > 0:
+                # t_prev carries a minus sign on the pixels that are done.
+                t_done = t_prev.amax(dim=1) <= T_EPS
+                tile_count = torch.where(t_done, 0, tile_count)
+            feat_s = pack_feat_cols(feats_s, mp_s)
+            accum_s, t_signed, ncon_s = composite_fwd(
+                feat_s, bins_s.tile_start, tile_count, ntx, nc, t_in=t_prev,
+                mark_done=True)
+            tfin_s = t_signed.abs()
+            c_agg = accum_s if c_agg is None else c_agg + accum_s
+            saved += [feat_s, bins_s.tile_start, tile_count, accum_s, tfin_s,
+                      ncon_s]
+            demand_p.append(bins_s.num_pairs)
+            demand_r.append(bins_s.num_rowruns)
+            t_prev = t_signed
+
+        depth_order = cols[1].to(torch.int32)
+        ctx.save_for_backward(depth_order, *saved)
+        ctx.dims = (ntx, nty, width, height, nc)
+        ctx.colors_dtype = colors.dtype
+        img = _tiles_to_image(c_agg, ntx, nty, width, height)
+        alpha = 1.0 - _tiles_to_image(tfin_s, ntx, nty, width, height)
+        bins = TileBins(
+            pair_valid=None, tile_start=None, tile_count=tile_count_true,
+            num_pairs=n_slices * torch.stack(demand_p).max(),
+            num_rowruns=n_slices * torch.stack(demand_r).max(),
+            depth_order=depth_order, exp_starts=None, exp_counts=None,
+            num_tiles_x=ntx, num_tiles_y=nty)
+        return img, alpha, bins
+
+    @staticmethod
+    def backward(ctx, g_img, g_alpha, _g_bins):
+        depth_order, *saved = ctx.saved_tensors
+        per_slice = [saved[i:i + 6] for i in range(0, len(saved), 6)]
+        ntx, nc = ctx.dims[0], ctx.dims[4]
+        n = depth_order.shape[0]
+        g_c, g_t = _cotangent_tiles(g_img, g_alpha, ctx.dims,
+                                    depth_order.device)
+        # The composite is a chain: window s maps (T_in_s, its stream) to
+        # (accum_s, T_out_s) with T_in_{s+1} = T_out_s, C = sum_s accum_s,
+        # alpha = 1 - T_out_{k-1}. dL/daccum_s = g_C for every window;
+        # dL/dT_out goes backward through each window's linearity in its
+        # T_in (with the termination pattern held, accum_s and T_out_s are
+        # T_in times their values from T_in = 1):
+        #   dL/dT_in_s = (<g_C, accum_s> + g_T_out_s T_out_s) / T_in_s,
+        # passed through unchanged where T_in_s <= T_EPS (the window added
+        # nothing there and T_out = T_in). The ranks are global and the
+        # windows' rank sets disjoint, so the k windows' rank sums (one
+        # launch of kernel F each, over that window's visited pairs) add
+        # exactly, and the un-sort is paid once.
+        rank_sums = None
+        for s in range(len(per_slice) - 1, -1, -1):
+            feat_s, tile_start, tile_count, accum_s, tfin_s, ncon_s = \
+                per_slice[s]
+            t_in_s = per_slice[s - 1][4] if s > 0 else None
+            rs = _bwd_from_tiles(feat_s, tile_start, tile_count, ntx,
+                                 accum_s, tfin_s, ncon_s, g_c, g_t,
+                                 depth_order, n, unsort=False, t_in=t_in_s)
+            rank_sums = rs if rank_sums is None else rank_sums + rs
+            if s > 0:
+                gdota = torch.sum(g_c * accum_s, dim=-1)
+                g_t = torch.where(
+                    t_in_s > T_EPS,
+                    (gdota + g_t * tfin_s) / t_in_s.clamp(min=T_EPS), g_t)
+        seg = _unsort_rank_sums(rank_sums, depth_order)
+        return (*_input_grads(seg, nc, ctx.colors_dtype),
+                None, None, None, None, None, None, None, None)
 
 
 def rasterize_tiles_fused(proj, colors: torch.Tensor,
@@ -493,21 +770,191 @@ def rasterize_tiles_fused(proj, colors: torch.Tensor,
     """Bin (ops.tiles.bin_and_pack) + pack (kernel C) + composite
     (kernel D), differentiable in proj.xys, proj.conics, colors and
     opacities through kernels E and F; returns (img (H, W, C), alpha
-    (H, W), bins). The background blend stays outside the autograd node."""
-    if tile_size != TILE:
-        raise ValueError(f"the compositor is specialised to {TILE}x{TILE} "
-                         f"tiles, got {tile_size}")
+    (H, W), bins). depth_slices > 1 composites that many depth-rank
+    windows one after another (_SlicedRasterize): the same image, each
+    sort over a share of the pairs. The background blend stays outside
+    the autograd node."""
+    _check_tile_size(tile_size)
     if precision != "f32":
         raise ValueError(f"precision={precision!r} is not ported yet "
                          f"(ROADMAP.md); use 'f32'")
-    if depth_slices != 1:
-        raise ValueError(f"depth_slices={depth_slices} is not ported yet "
-                         f"(ROADMAP.md); use 1")
-    depth_key = torch.where(proj.num_tiles_hit > 0, proj.depths,
-                            torch.full_like(proj.depths, float("inf")))
-    img, alpha, bins = _FusedRasterize.apply(
-        proj.xys, proj.conics, colors, opacities, depth_key.detach(),
-        proj.tile_box, width, height, max_pairs, max_rowruns,
-        last_color_is_depth)
+    if depth_slices < 1:
+        raise ValueError(f"depth_slices must be >= 1, got {depth_slices}")
+    if depth_slices > 1:
+        img, alpha, bins = _SlicedRasterize.apply(
+            proj.xys, proj.conics, colors, opacities, _depth_key(proj),
+            proj.tile_box, width, height, max_pairs, max_rowruns,
+            depth_slices, last_color_is_depth)
+    else:
+        img, alpha, bins = _FusedRasterize.apply(
+            proj.xys, proj.conics, colors, opacities, _depth_key(proj),
+            proj.tile_box, width, height, max_pairs, max_rowruns,
+            last_color_is_depth)
     img = img + (1.0 - alpha[..., None]) * background[None, None, :]
     return img, alpha, bins
+
+
+# ---------------------------------------------------------------------------
+# The unfused rasterizer: bins shared by the caller.
+# ---------------------------------------------------------------------------
+
+def _build_feat(xys, conics, colors, opacities, bins: TileBins):
+    """Splat attributes gathered into sorted pair order and packed as the
+    (max_pairs // 128 + 1, 16, 128) stream: row r, lane j = sorted pair
+    r * 128 + j, the last row zeros. A per-gaussian (N + 1, 16) table is
+    packed first so that the per-pair gather reads one 64-byte row; its
+    row N is all zero, and invalid pairs gather it (alpha 0). Feature
+    rows 6 + nc .. 15 are zero: this stream carries no depth rank."""
+    nc = colors.shape[-1]
+    max_pairs = bins.gauss_idx.shape[0]
+    n = xys.shape[0]
+    if max_pairs % K:
+        raise ValueError(f"max_pairs must be a multiple of {K}, got "
+                         f"{max_pairs}")
+    f32 = torch.float32
+    table = torch.cat([
+        xys.to(f32), conics.to(f32), opacities.to(f32)[:, None],
+        colors.to(f32),
+        torch.zeros((n, NFEAT - 6 - nc), dtype=f32, device=xys.device)],
+        dim=-1)
+    table = torch.cat([table, torch.zeros((1, NFEAT), dtype=f32,
+                                          device=xys.device)])
+    idx = torch.where(bins.pair_valid, bins.gauss_idx, n).to(torch.int64)
+    rows = table.index_select(0, idx)                        # (P, NFEAT)
+    feat = rows.reshape(max_pairs // K, K, NFEAT).transpose(1, 2)
+    return torch.cat([feat, torch.zeros((1, NFEAT, K), dtype=f32,
+                                        device=xys.device)]).contiguous()
+
+
+class _UnfusedRasterize(torch.autograd.Function):
+    """Compositing over bins that are a constant of the node: the stream
+    is gathered per pair (_build_feat), kernel D composites it, and the
+    backward is kernel E on that stream (its row 10 zero) and the
+    expansion-order reduce through kernel G (_reduce_pair_grads)."""
+
+    @staticmethod
+    def forward(ctx, xys, conics, colors, opacities, bins, width, height):
+        ntx, nty = bins.num_tiles_x, bins.num_tiles_y
+        nc = colors.shape[-1]
+        feat = _build_feat(xys, conics, colors, opacities, bins)
+        accum, tfin, ncon = composite_fwd(feat, bins.tile_start,
+                                          bins.tile_count, ntx, nc)
+        ctx.save_for_backward(feat, accum, tfin, ncon)
+        ctx.bins = bins
+        ctx.dims = (ntx, nty, width, height, nc)
+        ctx.colors_dtype = colors.dtype
+        img = _tiles_to_image(accum, ntx, nty, width, height)
+        alpha = 1.0 - _tiles_to_image(tfin, ntx, nty, width, height)
+        return img, alpha
+
+    @staticmethod
+    def backward(ctx, g_img, g_alpha):
+        feat, accum, tfin, ncon = ctx.saved_tensors
+        bins = ctx.bins
+        ntx, nc = ctx.dims[0], ctx.dims[4]
+        g_accum, g_t = _cotangent_tiles(g_img, g_alpha, ctx.dims,
+                                        feat.device)
+        gpair = composite_bwd(feat, bins.tile_start, bins.tile_count, ntx,
+                              nc, g_accum, g_t, tfin, ncon, accum)
+        seg = _reduce_pair_grads(gpair, bins, nc)
+        return (*_input_grads(seg, nc, ctx.colors_dtype), None, None, None)
+
+
+def rasterize_tiles_pallas(xys, conics, colors, opacities, bins: TileBins,
+                           width: int, height: int, tile_size: int,
+                           background: torch.Tensor):
+    """The kernel compositor over shared bins (ops.tiles.bin_gaussians),
+    with no per-tile cap; same contract as
+    ops.composite_chunked.rasterize_tiles_chunked: returns (img (H, W, C),
+    alpha (H, W)). It keeps the name of the JAX function it ports."""
+    _check_tile_size(tile_size)
+    if bins.gauss_idx is None or bins.exp_slot is None:
+        raise ValueError("these bins carry no gauss_idx / exp_slot: they "
+                         "must come from ops.tiles.bin_gaussians")
+    img, alpha = _UnfusedRasterize.apply(xys, conics, colors, opacities,
+                                         bins, width, height)
+    img = img + (1.0 - alpha[..., None]) * background[None, None, :]
+    return img, alpha
+
+
+# ---------------------------------------------------------------------------
+# Fused compositing of a strip of tiles.
+# ---------------------------------------------------------------------------
+
+class _StripFusedRasterize(torch.autograd.Function):
+    """_FusedRasterize for the tiles [tile0, tile0 + n_tiles) only, in
+    tile layout: the scene (or the depth window depth_slice=(start, size)
+    of it) is binned whole, then kernels D and E run on the strip's slice
+    of the tile ranges with the strip's offset. Tiles past the image's
+    grid are empty."""
+
+    @staticmethod
+    def forward(ctx, xys, conics, colors, opacities, depth_key, tile_box,
+                tile0, n_tiles, width, height, max_pairs, max_rowruns,
+                last_color_is_depth, depth_slice):
+        ntx, _ = _grid(width, height)
+        nc = colors.shape[-1]
+        bins, feats = bin_and_pack(
+            xys, conics, tile_box, depth_key, colors.to(torch.float32),
+            opacities, width, height, TILE, max_pairs, max_rowruns,
+            last_color_is_depth=last_color_is_depth, depth_slice=depth_slice)
+        feat = pack_feat_cols(feats, max_pairs)
+        # Pad tiles start at the end of the pairs and hold none.
+        end = bins.tile_start[-1] + bins.tile_count[-1]
+        starts = torch.cat([bins.tile_start, end.expand(n_tiles)])[
+            tile0:tile0 + n_tiles].contiguous()
+        counts = torch.nn.functional.pad(bins.tile_count, (0, n_tiles))[
+            tile0:tile0 + n_tiles].contiguous()
+        accum, tfin, ncon = composite_fwd(feat, starts, counts, ntx, nc,
+                                          tile0=tile0)
+        ctx.save_for_backward(feat, starts, counts, accum, tfin, ncon,
+                              bins.depth_order)
+        ctx.strip = (ntx, nc, tile0)
+        ctx.colors_dtype = colors.dtype
+        return accum, 1.0 - tfin, bins
+
+    @staticmethod
+    def backward(ctx, g_accum, g_alpha, _g_bins):
+        feat, starts, counts, accum, tfin, ncon, depth_order = \
+            ctx.saved_tensors
+        ntx, nc, tile0 = ctx.strip
+        if g_accum is None:
+            g_accum = torch.zeros_like(accum)
+        g_t = (torch.zeros_like(tfin) if g_alpha is None
+               else -g_alpha.to(torch.float32))
+        seg = _bwd_from_tiles(feat, starts, counts, ntx, accum, tfin, ncon,
+                              g_accum.to(torch.float32).contiguous(),
+                              g_t.contiguous(), depth_order,
+                              depth_order.shape[0], tile0=tile0)
+        return (*_input_grads(seg, nc, ctx.colors_dtype),
+                None, None, None, None, None, None, None, None, None, None)
+
+
+def composite_tiles_fused(proj, colors: torch.Tensor,
+                          opacities: torch.Tensor, tile0: int, n_tiles: int,
+                          width: int, height: int, max_pairs: int,
+                          max_rowruns: int | None = None,
+                          last_color_is_depth: bool = False,
+                          precision: str = "f32", slice0=0,
+                          slice_size: int | None = None):
+    """Fused bin + pack + composite of the tile strip [tile0, tile0 +
+    n_tiles): returns (accum (n_tiles, 256, C) premultiplied, alpha
+    (n_tiles, 256), bins), differentiable as rasterize_tiles_fused is.
+    With slice_size, only the depth window of that many gaussians from
+    depth rank slice0 (an int or a 0-d device tensor) is binned and
+    composited; alpha is then that layer's opacity 1 - T, and layers
+    merge front to back by (C, T) |> (C', T') = (C + T C', T T'). This is
+    what one device of a render sharded over tiles or depth runs; the
+    pair-balanced windows of the sharded path need its collectives and
+    are not here."""
+    if precision != "f32":
+        raise ValueError(f"precision={precision!r} is not ported yet "
+                         f"(ROADMAP.md); use 'f32'")
+    if tile0 < 0 or n_tiles < 0:
+        raise ValueError(f"tile0 and n_tiles must be >= 0, got {tile0}, "
+                         f"{n_tiles}")
+    depth_slice = None if slice_size is None else (slice0, slice_size)
+    return _StripFusedRasterize.apply(
+        proj.xys, proj.conics, colors, opacities, _depth_key(proj),
+        proj.tile_box, tile0, n_tiles, width, height, max_pairs, max_rowruns,
+        last_color_is_depth, depth_slice)

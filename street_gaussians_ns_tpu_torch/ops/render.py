@@ -6,9 +6,14 @@ street_gaussians_ns_tpu/ops/render.py).
 and depth as one 4-channel colour, the sky composited as
 rgb*alpha + sky*(1-alpha), and the alpha-normalised depth with far fill.
 
-The port has one compositor, the fused kernel path (impl="fused"). The
-JAX package's portable compositors ("chunked", "scan"), the bf16 sort
-payloads and depth slices are not ported yet and raise (ROADMAP.md).
+`rasterize` takes the routes of the JAX package's: the fused kernel path
+(impl="fused", or its JAX name "pallas", with no bins passed), whole or
+in `depth_slices` depth-rank windows; the kernel compositor over shared
+bins (impl="fused"/"pallas" with `bins`); and the two portable
+compositors in plain PyTorch (impl="chunked", "scan") over
+`ops.tiles.bin_gaussians`' bins, which render at most `max_per_tile`
+pairs of a tile. The bf16 sort payloads are not ported yet and raise
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -20,8 +25,12 @@ import torch
 
 from ..core.cameras import Camera, viewmat_from_c2w
 from ..core.projection import Projected, project
-from .composite import rasterize_tiles_fused
-from .tiles import TileBins
+from .composite import rasterize_tiles_fused, rasterize_tiles_pallas
+from .composite_chunked import rasterize_tiles_chunked
+from .composite_scan import rasterize_tiles_scan
+from .tiles import TileBins, bin_gaussians
+
+IMPLS = ("fused", "pallas", "chunked", "scan")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,22 +41,33 @@ class RenderConfig:
     max_pairs: int = 2 ** 18           # sorted (gaussian, tile) capacity
     max_rowruns: Optional[int] = None  # (gaussian, tile-row) run capacity;
     #                                    default max_pairs // 2
-    impl: str = "fused"
+    max_per_tile: int = 1024           # a tile's pair budget in the
+    #                                    portable compositors
+    chunk: int = 32                    # splats per chunk of impl="chunked"
+    impl: str = "fused"                # "fused" (= "pallas") | "chunked" |
+    #                                    "scan"
     depth_far_fill: float = 10.0
     precision: str = "f32"
-    depth_slices: int = 1
+    depth_slices: int = 1              # > 1: the fused path composites that
+    #                                    many depth-rank windows one after
+    #                                    another; max_pairs / max_rowruns
+    #                                    stay the totals
 
     def __post_init__(self):
-        if self.impl != "fused":
-            raise NotImplementedError(
-                f"impl={self.impl!r}: only the fused rasterizer is ported; "
-                f"the portable compositors are a queue item (ROADMAP.md)")
+        if self.impl not in IMPLS:
+            raise ValueError(f"impl={self.impl!r}: expected one of {IMPLS}")
         if self.precision != "f32":
             raise ValueError(f"precision={self.precision!r} is not ported "
                              f"yet (ROADMAP.md); use 'f32'")
-        if self.depth_slices != 1:
-            raise ValueError(f"depth_slices={self.depth_slices} is not "
-                             f"ported yet (ROADMAP.md); use 1")
+        if self.depth_slices < 1:
+            raise ValueError(f"depth_slices must be >= 1, got "
+                             f"{self.depth_slices}")
+        if self.max_per_tile < 1 or self.chunk < 1:
+            raise ValueError("max_per_tile and chunk must be >= 1")
+
+    @property
+    def kernel_impl(self) -> bool:
+        return self.impl in ("fused", "pallas")
 
     @property
     def rowrun_capacity(self) -> int:
@@ -66,25 +86,58 @@ class RenderOutputs:
 
 def rasterize(proj: Projected, colors: torch.Tensor, opacities: torch.Tensor,
               camera: Camera, background: torch.Tensor, config: RenderConfig,
+              bins: Optional[TileBins] = None,
               last_color_is_depth: bool = False):
     """Bin + composite. Returns (img (H, W, C), alpha (H, W), bins).
 
+    With a kernel impl and no `bins`, the fused rasterizer bins, packs and
+    composites in one node (depth-sliced when config.depth_slices > 1).
+    Otherwise the scene is binned by ops.tiles.bin_gaussians (unless the
+    caller shares `bins`) and composited by the kernel compositor over
+    shared bins or by a portable one.
+
     Warns (RuntimeWarning) when the scene needs more pairs or runs than
-    the configured capacities: the overflow pairs are dropped from this
-    render. Reading the two counts waits for the device."""
-    img, alpha, bins = rasterize_tiles_fused(
-        proj, colors, opacities, camera.width, camera.height,
-        config.tile_size, background, config.max_pairs, config.max_rowruns,
-        last_color_is_depth=last_color_is_depth, precision=config.precision,
-        depth_slices=config.depth_slices)
-    num_pairs, num_rowruns = (int(v) for v in torch.stack(
-        [bins.num_pairs, bins.num_rowruns]).tolist())
+    the configured capacities (for a sliced render: than k times its
+    fullest window needs), since the overflow pairs are dropped from this
+    render, and when a portable compositor's `max_per_tile` is below the
+    densest tile, since it drops the pairs past it. Reading the counts
+    waits for the device."""
+    width, height = camera.width, camera.height
+    if config.kernel_impl and bins is None:
+        img, alpha, bins = rasterize_tiles_fused(
+            proj, colors, opacities, width, height, config.tile_size,
+            background, config.max_pairs, config.max_rowruns,
+            last_color_is_depth=last_color_is_depth,
+            precision=config.precision, depth_slices=config.depth_slices)
+    else:
+        if bins is None:
+            bins = bin_gaussians(proj, width, height, config.tile_size,
+                                 config.max_pairs, config.max_rowruns,
+                                 opacities=opacities.detach())
+        args = (proj.xys, proj.conics, colors, opacities, bins, width,
+                height, config.tile_size, background)
+        if config.impl == "scan":
+            img, alpha = rasterize_tiles_scan(*args, config.max_per_tile)
+        elif config.impl == "chunked":
+            img, alpha = rasterize_tiles_chunked(*args, config.max_per_tile,
+                                                 config.chunk)
+        else:
+            img, alpha = rasterize_tiles_pallas(*args)
+    num_pairs, num_rowruns, densest = (int(v) for v in torch.stack(
+        [bins.num_pairs, bins.num_rowruns,
+         bins.max_tile_count.to(torch.int64)]).tolist())
     if (num_pairs > config.max_pairs
             or num_rowruns > config.rowrun_capacity):
         warnings.warn(
             f"render capacity overflow: {num_pairs} pairs for max_pairs="
             f"{config.max_pairs}, {num_rowruns} row runs for max_rowruns="
             f"{config.rowrun_capacity}; the overflow pairs are dropped",
+            RuntimeWarning, stacklevel=3)
+    if not config.kernel_impl and densest > config.max_per_tile:
+        warnings.warn(
+            f"render truncation: the densest tile holds {densest} pairs, "
+            f"impl={config.impl!r} renders max_per_tile="
+            f"{config.max_per_tile} of them and drops the rest",
             RuntimeWarning, stacklevel=3)
     return img, alpha, bins
 

@@ -1,5 +1,6 @@
-"""Rank-keyed row sum — kernel F (counterpart of
-street_gaussians_ns_tpu/ops/segreduce_pallas.py, `rank_rowsum`).
+"""Row sums per gaussian — kernels F and G (counterpart of
+street_gaussians_ns_tpu/ops/segreduce_pallas.py, `rank_rowsum` and
+`segment_rowsum`).
 
 The fused rasterizer's backward emits one gradient row per (gaussian,
 tile) pair; `rank_rowsum` sums them per gaussian, keyed by the depth rank
@@ -10,6 +11,15 @@ sorted: one thread per output rank finds its contiguous run by binary
 search and sums it in pair order, a warp sharing the long runs. It is
 bound by memory bandwidth (the rows once, the sums once) and uses no
 atomics, so its sums do not change from run to run.
+
+The unfused rasterizer's backward brings its gradient rows back to
+expansion order, where every gaussian's pairs are one contiguous run
+whose bounds the bins carry; `segment_rowsum` sums the runs. It replaces
+`segreduce_pallas.py:_segsum_kernel` (a one-hot of the bounds contracted
+on the MXU, bf16 inputs). The CUDA kernel (`csrc/segsum.cu`) is kernel F
+without the search: one thread per segment sums its run in pair order in
+float32, a warp sharing the long runs; bound by memory bandwidth, no
+atomics.
 """
 from __future__ import annotations
 
@@ -69,4 +79,65 @@ def rank_rowsum(rows: torch.Tensor, ranks: torch.Tensor,
         return out
     KERNEL.launch("sg_rank_rowsum", _cuda.ptr(rows), _cuda.ptr(ranks),
                   _cuda.ptr(out), c - 1, p_len, num_out, _cuda.stream(rows))
+    return out
+
+
+SEG_KERNEL = _cuda.register(_cuda.Kernel(
+    name="segment_rowsum",
+    source="segsum.cu",
+    replaces="street_gaussians_ns_tpu/ops/segreduce_pallas.py:42 "
+             "_segsum_kernel",
+    entries={"sg_segment_rowsum": (ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_int, ctypes.c_longlong,
+                                   ctypes.c_int, ctypes.c_void_p)},
+))
+
+
+def segment_rowsum_plain(rows: torch.Tensor, starts: torch.Tensor,
+                         ends: torch.Tensor) -> torch.Tensor:
+    """Every covered pair gets its segment's id (`repeat_interleave` of
+    the run lengths) and the rows are `index_add_`ed per id. (The JAX
+    fallback's difference of prefix sums loses precision on prefixes
+    millions of pairs long.)"""
+    c, p_len = rows.shape
+    s = starts.shape[0]
+    dev = rows.device
+    lo = starts.to(torch.int64).clamp(0, p_len)
+    hi = torch.maximum(ends.to(torch.int64).clamp(0, p_len), lo)
+    lens = hi - lo
+    seg = torch.repeat_interleave(torch.arange(s, device=dev), lens)
+    first = torch.cumsum(lens, 0) - lens
+    pos = lo[seg] + (torch.arange(seg.shape[0], device=dev) - first[seg])
+    out = torch.zeros((c, s), dtype=torch.float32, device=dev)
+    return out.index_add_(1, seg, rows.index_select(1, pos))
+
+
+def segment_rowsum(rows: torch.Tensor, starts: torch.Tensor,
+                   ends: torch.Tensor) -> torch.Tensor:
+    """out[:, i] = sum of rows[:, p] over p in [starts[i], ends[i]).
+
+    rows (C, P) float32; starts, ends (S,) int32: contiguous, ascending,
+    non-overlapping runs, empty ones (start == end) allowed anywhere; the
+    bounds are clipped to [0, P]. Returns (C, S) float32."""
+    if rows.dim() != 2 or rows.dtype != torch.float32:
+        raise ValueError(f"rows must be (C, P) float32, got {rows.dtype} "
+                         f"{tuple(rows.shape)}")
+    c, p_len = rows.shape
+    s = starts.shape[0]
+    for name, t in (("starts", starts), ("ends", ends)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (s,):
+            raise ValueError(f"{name} must be ({s},) int32, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if _cuda.is_cpu(rows, starts, ends):
+        return segment_rowsum_plain(rows, starts, ends)
+    _cuda.check(rows, "rows", torch.float32)
+    _cuda.check(starts, "starts", torch.int32)
+    _cuda.check(ends, "ends", torch.int32)
+    out = torch.empty((c, s), dtype=torch.float32, device=rows.device)
+    if s == 0 or c == 0:
+        return out
+    SEG_KERNEL.launch("sg_segment_rowsum", _cuda.ptr(rows),
+                      _cuda.ptr(starts), _cuda.ptr(ends), _cuda.ptr(out), c,
+                      p_len, s, _cuda.stream(rows))
     return out

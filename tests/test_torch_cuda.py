@@ -11,7 +11,11 @@ accum and T at atol 2e-5. The backward compositor replays the forward bit
 for bit but adds its 256 pixels in a shuffle tree where the plain version
 uses torch.sum: rtol 1e-4 with atol 1e-5 of the largest gradient, the rank
 row exact. The rank sum adds a run in pair order like index_add_ on the
-CPU, but a warp shares runs above 32 pairs: rtol 1e-5 / atol 1e-5."""
+CPU, but a warp shares runs above 32 pairs: rtol 1e-5 / atol 1e-5; the
+segment sum likewise. The row scans: int32 exact, the float32 sum at rtol
+1e-5 of the column's largest running magnitude. The compositors' t_in
+mode is held as the plain launches are; a tile0 strip must equal the same
+tiles of the full launch bit for bit."""
 import numpy as np
 import pytest
 import torch
@@ -236,6 +240,236 @@ def test_fused_rasterizer_gradients_on_the_card_match_the_cpu(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_seg,c,long_run", [
+    (3000, 10, 0), (70_000, 10, 5000), (257, 3, 40), (1, 16, 0)])
+def test_segsum_kernel_matches_plain(cuda, n_seg, c, long_run):
+    rng = np.random.default_rng(n_seg)
+    counts = rng.integers(1, 9, size=n_seg)
+    counts[rng.random(n_seg) < 0.4] = 0
+    counts[:3] = 0
+    counts[-2:] = 0
+    if long_run:
+        counts[n_seg // 2] = long_run
+    ends = np.cumsum(counts).astype(np.int32)
+    starts = (ends - counts).astype(np.int32)
+    total = max(int(ends[-1]), 1)
+    rows = torch.from_numpy(rng.standard_normal((c, total)).astype(
+        np.float32)).to(cuda)
+    st, en = torch.from_numpy(starts).to(cuda), torch.from_numpy(ends).to(cuda)
+    got = segreduce.segment_rowsum(rows, st, en)
+    want = segreduce.segment_rowsum_plain(rows, st, en)
+    tol = dict(rtol=1e-4, atol=1e-5 * max(float(want.abs().max()), 1.0))
+    torch.testing.assert_close(got, want, **tol)
+    assert torch.equal(got, segreduce.segment_rowsum(rows, st, en))
+    cpu = segreduce.segment_rowsum(rows.cpu(), st.cpu(), en.cpu())
+    torch.testing.assert_close(got.cpu(), cpu, **tol)
+    if int(ends[-1]) > 0:
+        # Bounds past the rows are clipped.
+        clipped = segreduce.segment_rowsum(
+            rows, st, en + 7 * (en == en[-1]).to(torch.int32))
+        torch.testing.assert_close(clipped, want, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 255, 1281, 40_000, 700_001])
+@pytest.mark.parametrize("c", [1, 6, 8, 16])
+def test_scan_rows_kernel_matches_plain(cuda, m, c):
+    rng = np.random.default_rng(m + c)
+    x = rng.integers(-50, 1000, size=(m, c)).astype(np.int32)
+    x[rng.random((m, c)) < 0.7] = -1
+    xi = torch.from_numpy(x).to(cuda)
+    assert torch.equal(scan.cumsum_rows(xi), scan.cumsum_rows_plain(xi))
+    assert torch.equal(scan.cummax_rows(xi), scan.cummax_rows_plain(xi))
+    xf = torch.from_numpy(rng.standard_normal((m, c)).astype(
+        np.float32)).to(cuda)
+    assert torch.equal(scan.cummax_rows(xf), scan.cummax_rows_plain(xf))
+    # Both float32 sums carry their own rounding over up to 700k terms:
+    # the kernel is held against the plain version run in float64.
+    got, want = scan.cumsum_rows(xf), scan.cumsum_rows_plain(xf.double())
+    top = want.abs().amax(dim=0, keepdim=True)
+    assert bool(((got.double() - want).abs() <= 1e-5 * top + 1e-6).all())
+    assert torch.equal(got, scan.cumsum_rows(xf))
+
+
+def _two_window_streams(cuda, seed=0, n=3000, w=200, h=120, opaque=False):
+    """A scene binned in two depth windows of equal gaussian count, on the
+    card: per window (feat, bins)."""
+    from street_gaussians_ns_tpu_torch.ops import tiles
+
+    rng = np.random.default_rng(seed)
+    means = np.concatenate([rng.standard_normal((n, 2)),
+                            -rng.random((n, 1)) * 8.0 - 2.0], 1)
+    q = rng.standard_normal((n, 4))
+    args = [torch.tensor(a, dtype=torch.float32) for a in (
+        means, np.exp(rng.standard_normal((n, 3)) * 0.5 - 2.5),
+        q / np.linalg.norm(q, axis=1, keepdims=True))]
+    op = (torch.full((n,), 0.95) if opaque else
+          torch.tensor(rng.random(n) * 0.9 + 0.05, dtype=torch.float32))
+    colors = torch.tensor(rng.random((n, 4)), dtype=torch.float32)
+    cam = Camera.make(100.0, 100.0, w / 2, h / 2, np.eye(3, 4), w, h,
+                      device="cpu")
+    p = project(*args, viewmat_from_c2w(cam.c2w), cam.fx, cam.fy, cam.cx,
+                cam.cy, w, h, opacities=op)
+    depth_key = torch.where(p.num_tiles_hit > 0, p.depths,
+                            torch.full_like(p.depths, float("inf")))
+    cols = tiles._depth_sort_cols(*(t.to(cuda) for t in (
+        p.xys, p.conics, p.tile_box, depth_key, colors, op)), False)
+    out = []
+    for s in range(2):
+        bins, feats = tiles._bin_sorted(cols, (s * (n // 2), n // 2), w, h,
+                                        16, 1 << 15, 1 << 14)
+        assert 0 < int(bins.num_pairs) <= 1 << 15
+        out.append((composite.pack_feat_cols(feats, 1 << 15), bins))
+    return out, -(-w // 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opaque", [False, True])
+def test_composite_kernels_with_t_in_match_plain(cuda, opaque):
+    (w0, w1), ntx = _two_window_streams(cuda, opaque=opaque)
+    _, t_in, _ = composite.composite_fwd(w0[0], w0[1].tile_start,
+                                         w0[1].tile_count, ntx, 4)
+    t_in = t_in.clone()
+    t_in[:, ::7] = 5e-5                  # pixels that arrive done
+    t_in[:, 1::7] *= -1.0                # ... latched by an earlier window
+    t_in[::5] = 2e-5                     # tiles whose every pixel has
+    feat, bins = w1
+    ts, tc = bins.tile_start, bins.tile_count
+    before = composite.FWD_KERNEL.mode_launches.get("t_in", 0)
+    acc_k, t_k, n_k = composite.composite_fwd(feat, ts, tc, ntx, 4,
+                                              t_in=t_in)
+    assert composite.FWD_KERNEL.mode_launches["t_in"] == before + 1
+    acc_p, t_p, n_p = composite.composite_fwd_plain(feat, ts, tc, ntx, 4,
+                                                    t_in)
+    assert torch.equal(n_k, n_p)
+    torch.testing.assert_close(acc_k, acc_p, rtol=0, atol=2e-5)
+    torch.testing.assert_close(t_k, t_p, rtol=0, atol=2e-5)
+    arrived = t_in <= 1e-4
+    assert torch.equal(t_k[arrived], t_in[arrived].abs())
+    assert not acc_k[arrived].any() and not n_k[arrived].any()
+    # mark_done: the sign of T_final says which pixels are done.
+    _, t_m, n_m = composite.composite_fwd(feat, ts, tc, ntx, 4, t_in=t_in,
+                                          mark_done=True)
+    _, t_mp, _ = composite.composite_fwd_plain(feat, ts, tc, ntx, 4, t_in,
+                                               mark_done=True)
+    assert torch.equal(t_m.abs(), t_k) and torch.equal(n_m, n_k)
+    assert torch.equal(t_m < 0, t_mp < 0)
+    assert bool((t_m[arrived] <= 0).all()) and bool((t_m > 0).any())
+    # A tile of count 0 writes T_final = t_in.
+    zero = torch.zeros_like(tc)
+    _, t_z, n_z = composite.composite_fwd(feat, ts, zero, ntx, 4, t_in=t_in)
+    assert torch.equal(t_z, t_in.abs()) and not n_z.any()
+
+    rng = np.random.default_rng(1)
+    g_accum = torch.from_numpy(rng.standard_normal(tuple(acc_k.shape)).astype(
+        np.float32)).to(cuda)
+    g_t = torch.from_numpy(rng.standard_normal(tuple(t_k.shape)).astype(
+        np.float32)).to(cuda)
+    args = (feat, ts, tc, ntx, 4, g_accum, g_t, t_k, n_k, acc_k)
+    got = composite.composite_bwd(*args, t_in=t_in)
+    want = composite.composite_bwd_plain(
+        *args[:-1], torch.sum(g_accum * acc_k, dim=-1), t_in)
+    top = float(want[:, :10].abs().max())
+    assert top > 0
+    torch.testing.assert_close(got[:, :10], want[:, :10], rtol=1e-4,
+                               atol=1e-5 * top)
+    assert torch.equal(got[:, 10:], want[:, 10:])
+    assert torch.equal(got, composite.composite_bwd(*args, t_in=t_in))
+
+
+@pytest.mark.cuda
+def test_composite_kernels_tile0_strip_is_bit_equal(cuda):
+    (w0, _), ntx = _two_window_streams(cuda)
+    feat, bins = w0
+    ts, tc = bins.tile_start, bins.tile_count
+    full = composite.composite_fwd(feat, ts, tc, ntx, 4)
+    rng = np.random.default_rng(2)
+    g_accum = torch.from_numpy(rng.standard_normal(
+        tuple(full[0].shape)).astype(np.float32)).to(cuda)
+    g_t = torch.from_numpy(rng.standard_normal(
+        tuple(full[1].shape)).astype(np.float32)).to(cuda)
+    gfull = composite.composite_bwd(feat, ts, tc, ntx, 4, g_accum, g_t,
+                                    full[1], full[2], full[0])
+    gsum = torch.zeros_like(gfull)
+    n = ts.numel()
+    for t0 in range(0, n, 17):
+        sl = slice(t0, min(t0 + 17, n))
+        part = composite.composite_fwd(feat, ts[sl].contiguous(),
+                                       tc[sl].contiguous(), ntx, 4, tile0=t0)
+        for a, b in zip(part, full):
+            assert torch.equal(a, b[sl])
+        gsum += composite.composite_bwd(
+            feat, ts[sl].contiguous(), tc[sl].contiguous(), ntx, 4,
+            g_accum[sl].contiguous(), g_t[sl].contiguous(), part[1], part[2],
+            part[0], tile0=t0)
+    assert torch.equal(gsum[:, :10], gfull[:, :10])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["sliced", "unfused", "strips"])
+def test_secondary_routes_on_the_card_match_the_cpu(cuda, route):
+    import dataclasses
+
+    from street_gaussians_ns_tpu_torch.ops import tiles
+
+    rng = np.random.default_rng(5)
+    n, w, h = 2000, 150, 90
+    means = np.concatenate([rng.standard_normal((n, 2)),
+                            -rng.random((n, 1)) * 8.0 - 2.0], 1)
+    q = rng.standard_normal((n, 4))
+    args = [torch.tensor(a, dtype=torch.float32) for a in (
+        means, np.exp(rng.standard_normal((n, 3)) * 0.5 - 2.5),
+        q / np.linalg.norm(q, axis=1, keepdims=True))]
+    op = torch.tensor(rng.random(n) * 0.9 + 0.05, dtype=torch.float32)
+    colors = torch.tensor(rng.random((n, 4)), dtype=torch.float32)
+    target = torch.tensor(rng.random((h, w, 4)), dtype=torch.float32)
+    cam = Camera.make(100.0, 100.0, w / 2, h / 2, np.eye(3, 4), w, h,
+                      device="cpu")
+    p = project(*args, viewmat_from_c2w(cam.c2w), cam.fx, cam.fy, cam.cx,
+                cam.cy, w, h, opacities=op)
+    ntx, nty = -(-w // 16), -(-h // 16)
+    res = {}
+    for dev in ("cpu", cuda):
+        pd = dataclasses.replace(p, **{
+            f.name: getattr(p, f.name).to(dev)
+            for f in dataclasses.fields(p)})
+        leaves = [t.to(dev).requires_grad_(True)
+                  for t in (p.xys, p.conics, colors, op)]
+        pd = dataclasses.replace(pd, xys=leaves[0], conics=leaves[1])
+        bg = torch.zeros(4, device=dev)
+        if route == "sliced":
+            img, alpha, _ = composite.rasterize_tiles_fused(
+                pd, leaves[2], leaves[3], w, h, 16, bg, 1 << 15,
+                depth_slices=3)
+        elif route == "unfused":
+            bins = tiles.bin_gaussians(pd, w, h, 16, 1 << 15,
+                                       opacities=leaves[3].detach())
+            img, alpha = composite.rasterize_tiles_pallas(
+                *leaves, bins, w, h, 16, bg)
+        else:
+            parts = [composite.composite_tiles_fused(
+                pd, leaves[2], leaves[3], t0, 20, w, h, 1 << 15)
+                for t0 in range(0, ntx * nty, 20)]
+            img = composite._tiles_to_image(
+                torch.cat([a for a, _, _ in parts])[:ntx * nty], ntx, nty,
+                w, h)
+            alpha = composite._tiles_to_image(
+                torch.cat([a for _, a, _ in parts])[:ntx * nty], ntx, nty,
+                w, h)
+        loss = (img - target.to(dev)).abs().mean() + 0.3 * (alpha ** 2).mean()
+        res[str(dev)] = (img.detach().cpu(), [
+            g.cpu() for g in torch.autograd.grad(loss, leaves)])
+    torch.testing.assert_close(res[str(cuda)][0], res["cpu"][0], rtol=0,
+                               atol=2e-5)
+    for name, a, b in zip(("xys", "conics", "colors", "opac"),
+                          res[str(cuda)][1], res["cpu"][1]):
+        top = float(b.abs().max())
+        assert top > 0, name
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * top,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.cuda
 def test_wrappers_raise_on_bad_cuda_input(cuda):
     x = torch.zeros(8, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
@@ -264,7 +498,7 @@ def test_library_is_keyed_by_the_sources():
     from street_gaussians_ns_tpu_torch.ops import _cuda
 
     paths = {k.library_path() for k in _cuda.KERNELS}
-    assert len(paths) == len(_cuda.KERNELS) == 6
+    assert len(paths) == len(_cuda.KERNELS) == 8
     for k in _cuda.KERNELS:
         p = k.library_path()
         assert p.parent == _cuda.BUILD_DIR and p.suffix == ".so"

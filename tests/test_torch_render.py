@@ -175,9 +175,62 @@ def test_capacity_overflow_warns():
 
 
 def test_unported_options_raise():
-    for kw in (dict(impl="chunked"), dict(impl="scan")):
-        with pytest.raises(NotImplementedError):
-            trender.RenderConfig(**kw)
-    for kw in (dict(precision="bf16"), dict(depth_slices=2)):
-        with pytest.raises(ValueError):
-            trender.RenderConfig(**kw)
+    """precision="bf16" is still to port; an impl the package does not
+    know is refused; the options ported since (depth slices, the portable
+    compositors) build and render."""
+    with pytest.raises(ValueError, match="ROADMAP"):
+        trender.RenderConfig(precision="bf16")
+    with pytest.raises(ValueError, match="impl"):
+        trender.RenderConfig(impl="tiles")
+    with pytest.raises(ValueError):
+        trender.RenderConfig(depth_slices=0)
+    means, scales, quats, colors, opac, _ = make_scene(300, 0, w=64, h=48)
+    _, tcam = _cameras(64, 48)
+    args = [T(a) for a in (means, scales, quats, opac, colors)]
+    want = trender.render(*args, tcam, trender.RenderConfig(max_pairs=8192),
+                          training=False)
+    for kw in (dict(depth_slices=2), dict(impl="chunked"), dict(impl="scan"),
+               dict(impl="pallas")):
+        out = trender.render(*args, tcam,
+                             trender.RenderConfig(max_pairs=8192, **kw),
+                             training=False)
+        np.testing.assert_allclose(out.rgb.numpy(), want.rgb.numpy(),
+                                   atol=3e-5, err_msg=str(kw))
+        np.testing.assert_allclose(out.accumulation.numpy(),
+                                   want.accumulation.numpy(), atol=3e-5,
+                                   err_msg=str(kw))
+        assert int(out.bins.max_tile_count) == int(want.bins.max_tile_count)
+
+
+def test_rasterize_routes_by_impl_and_bins():
+    """rasterize with shared bins goes through the compositor the impl
+    names; the kernel impl with bins is the unfused route, whose bins come
+    back as they were passed."""
+    from street_gaussians_ns_tpu_torch.ops.tiles import bin_gaussians
+
+    means, scales, quats, colors, opac, _ = make_scene(300, 0, w=64, h=48)
+    _, tcam = _cameras(64, 48)
+    proj = project(T(means), T(scales), T(quats), viewmat_from_c2w(tcam.c2w),
+                   tcam.fx, tcam.fy, tcam.cx, tcam.cy, 64, 48,
+                   opacities=T(opac))
+    bins = bin_gaussians(proj, 64, 48, 16, 8192, opacities=T(opac))
+    bg = torch.tensor([0.1, 0.2, 0.3])
+    fused = trender.rasterize(proj, T(colors), T(opac), tcam, bg,
+                              trender.RenderConfig(max_pairs=8192))
+    assert fused[2].gauss_idx is None
+    for impl in ("fused", "chunked", "scan"):
+        img, alpha, out_bins = trender.rasterize(
+            proj, T(colors), T(opac), tcam, bg,
+            trender.RenderConfig(max_pairs=8192, impl=impl), bins=bins)
+        assert out_bins is bins
+        np.testing.assert_allclose(img.numpy(), fused[0].numpy(), atol=2e-5)
+        np.testing.assert_allclose(alpha.numpy(), fused[1].numpy(),
+                                   atol=2e-5)
+    with pytest.warns(RuntimeWarning, match="truncation"):
+        trender.rasterize(proj, T(colors), T(opac), tcam, bg,
+                          trender.RenderConfig(max_pairs=8192, impl="scan",
+                                               max_per_tile=8))
+    with pytest.warns(RuntimeWarning, match="capacity overflow"):
+        trender.rasterize(proj, T(colors), T(opac), tcam, bg,
+                          trender.RenderConfig(max_pairs=512,
+                                               depth_slices=2))
