@@ -60,7 +60,15 @@ Phases, each printing one JSON line:
                 version's time, a PyTorch library call's time where one
                 computes the same function, and its bound; D and E also in
                 their t_in mode and with a tile0 strip held bit for bit
-                against the full launch.
+                against the full launch; A also in float32, counted for
+                device launches a call (1) and repeated 200 times over two
+                streams; E also as the fused routes call it (into an
+                undefined buffer), with its registers and occupancy from
+                the build log, the time of the zero fill it spares, and
+                the visited pairs a tile. A line of its own before the
+                `kernels` line quotes the times rows A and E had before
+                their redesign; every number in the `kernels` line itself
+                is this run's.
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
@@ -70,6 +78,7 @@ import argparse
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -141,6 +150,12 @@ class Size:
 
 FLAGSHIP = Size()
 REPS = 20                          # launches per kernel timing
+# Quoted, not measured here: the times of rows A and E before the two
+# kernels were redesigned (PERF.md section 6; NVIDIA H100 80GB HBM3, 700 W).
+# Printed on a line of their own, never in the `kernels` line.
+EARLIER_MS = {"flat_scan": 0.111, "composite_bwd": 1.298,
+              "composite_bwd[t_in]": 0.135}
+SCAN_REPEATS = 200                 # launches of the look-back race check
 E_PLAIN_DEPTH = 3072               # deepest tile the plain backward replays
 
 
@@ -306,6 +321,24 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_ms_queued(fn, reps: int) -> float:
+    """time_ms with the card kept busy while the host enqueues: the
+    launches wait in the stream behind a spinning kernel, so the interval
+    between the events holds the card's work and none of the host's
+    launch path. For kernels that take less than their launch does."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)      # ~10 ms of the card's clock
     start.record()
     for _ in range(reps):
         fn()
@@ -791,7 +824,7 @@ def phase_train_stages(state, tracks, cfg, rcfg, cam, batch, calls, jitter,
     feat, ts, tc, ntx, nc, g_accum, g_t, tfin, ncon, accum = bwd_args
     n = rout.bins.depth_order.shape[0]
     gpair = composite.composite_bwd(*bwd_args)
-    nvis = torch.minimum(ncon.amax(dim=1), tc)
+    nvis = composite.visited_counts(ncon, tc)
     pair = composite._visited_pairs(ts, nvis)
     kk = composite.K
     g = gpair[pair // kk, :11, pair % kk]
@@ -830,7 +863,8 @@ def phase_train_stages(state, tracks, cfg, rcfg, cam, batch, calls, jitter,
         "loss_and_grads": lambda: sts.scene_loss_and_grads(
             state, tracks, cam, batch, cfg, rcfg, subset_accs=False,
             jitter=jitter),
-        "bwd.composite_bwd": lambda: composite.composite_bwd(*bwd_args),
+        "bwd.composite_bwd": lambda: composite.composite_bwd(
+            *bwd_args, zero_fill=False),
         "bwd.gather_visited": gather_visited,
         "bwd.rank_sort": lambda: g.index_select(0, torch.sort(
             g[:, 10].to(torch.int32), stable=True).indices).T.contiguous(),
@@ -1290,7 +1324,7 @@ def phase_sliced(state, tracks, cfg, rcfg, cams, batch, k: int = 2,
                     for d in demand],
          pairs_per_window=[int(c[0][2].sum()) for c in fwd_calls],
          pairs_visited_per_window=[
-             int(torch.minimum(c[0][8].amax(dim=1), c[0][2]).sum())
+             int(composite.visited_counts(c[0][8], c[0][2]).sum())
              for c in bwd_calls],
          ms_per_frame=frame_ms, ms_per_step=step_ms, loss_per_step=losses,
          max_memory_allocated=peak, launches=launches,
@@ -1493,6 +1527,67 @@ def _pair_major(gpair):
     return gpair.permute(0, 2, 1).reshape(-1, composite.NFEAT)
 
 
+def scan_race_check(x, repeats: int = SCAN_REPEATS) -> None:
+    """Kernel A's blocks hand their totals on through global memory:
+    `repeats` launches alternating between two streams (each with a
+    scratch of its own) must all give the one result."""
+    want = scan.cumsum_flat(x)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = []
+    for i in range(repeats):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(scan.cumsum_flat(x))
+    torch.cuda.synchronize()
+    bad = sum(not torch.equal(o, want) for o in outs)
+    if bad:
+        raise AssertionError(f"flat_scan: {bad} of {repeats} launches on "
+                             f"two streams differ from the first")
+
+
+def ptxas_entries(log: str) -> dict:
+    """Mangled kernel name -> (registers, spill store bytes, static shared
+    memory bytes) from an `nvcc -Xptxas -v` log."""
+    out, name, spill = {}, None, 0
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out[name] = (int(m.group(1)), spill,
+                         int(smem.group(1)) if smem else 0)
+            name = None
+    return out
+
+
+def occupancy(registers: int, threads: int, smem: int) -> dict:
+    """Resident CTAs and warps an SM of the H100 holds for a kernel (65,536
+    registers allotted in units of 256 a warp, 64 warps, 32 CTAs, 227 KB
+    of shared memory with 1 KB reserved a CTA)."""
+    warps = -(-threads // 32)
+    regs_cta = -(-registers * 32 // 256) * 256 * warps
+    ctas = min(65536 // regs_cta, 64 // warps, 32,
+               (227 * 1024) // (smem + 1024))
+    return dict(ctas_per_sm=ctas, warps_per_sm=ctas * warps,
+                share_of_64_warps=ctas * warps / 64)
+
+
+def visited_histogram(nvis) -> dict:
+    """The pairs a tile's backward visits, over the tiles of one launch."""
+    nv = nvis.double()
+    q = torch.quantile(nv, torch.tensor([0.5, 0.9, 0.99], dtype=nv.dtype,
+                                        device=nv.device))
+    return dict(mean=float(nv.mean()), p50=float(q[0]), p90=float(q[1]),
+                p99=float(q[2]), max=int(nv.max()),
+                share_of_tiles_over_512=float((nv > 512).double().mean()),
+                share_of_tiles_with_none=float((nv == 0).double().mean()))
+
+
 def _fwd_row(name: str, call, launches: int, reps: int,
              tile0_check: bool = False) -> dict:
     """Kernel D on one captured launch (with its t_in when it has one)
@@ -1578,7 +1673,7 @@ def _bwd_row(name: str, call, launches: int, reps: int,
     bwd_args, kw = call
     t_in = kw.get("t_in")
     feat, ts, tc, ntx, nc, g_accum, g_t, tfin, ncon, accum = bwd_args
-    nvis = torch.minimum(ncon.amax(dim=1), tc)
+    nvis = composite.visited_counts(ncon, tc)
     shallow = nvis <= E_PLAIN_DEPTH
     tc_cmp = torch.where(shallow, tc, torch.zeros_like(tc))
     cmp_args = (feat, ts, tc_cmp, ntx, nc, g_accum, g_t, tfin, ncon, accum)
@@ -1602,6 +1697,15 @@ def _bwd_row(name: str, call, launches: int, reps: int,
     if not torch.equal(full, composite.composite_bwd(*bwd_args, t_in=t_in)):
         raise AssertionError(f"{name}: two launches on the same inputs "
                              f"differ")
+    # As the fused routes call it: into an undefined buffer, the visited
+    # pairs the same bits.
+    pair = composite._visited_pairs(ts, nvis)
+    kk = composite.K
+    loose = composite.composite_bwd(*bwd_args, t_in=t_in, zero_fill=False)
+    if not torch.equal(loose[pair // kk, :11, pair % kk],
+                       full[pair // kk, :11, pair % kk]):
+        raise AssertionError(f"{name}: the visited pairs differ when the "
+                             f"buffer is not zero-filled")
     extra = {}
     if tile0_check:
         # The strip's launch writes its own tiles' pairs, bit for bit what
@@ -1623,21 +1727,47 @@ def _bwd_row(name: str, call, launches: int, reps: int,
                                  f"from the full launch")
         extra = dict(tile0_strip_bit_equal=True, tile0=t0_,
                      strip_tiles=n_strip, strip_pairs=hi - lo)
-    ms = time_ms(lambda: composite.composite_bwd(*bwd_args, t_in=t_in), reps)
+    # ms: the call the fused routes make (no fill of the stream);
+    # ms_zero_filled: the public default, which the earlier rows timed.
+    ms = time_ms(lambda: composite.composite_bwd(
+        *bwd_args, t_in=t_in, zero_fill=False), reps)
+    ms_filled = time_ms(lambda: composite.composite_bwd(*bwd_args, t_in=t_in),
+                        reps)
+    zero_fill_ms = time_ms(lambda: torch.zeros_like(feat), reps)
     n_eval, n_vis, n_contrib = (int(v) for v in evals.tolist())
+    # Per tile: g_accum and accum (nc each), g_t, T_final, n_contrib and,
+    # continuing, t_in, for 256 pixels; its start and count.
     nbytes = 4 * (n_vis * 11 + n_vis * 11
-                  + ts.numel() * 256 * (nc + 4 + (t_in is not None))
+                  + ts.numel() * 256 * (2 * nc + 3 + (t_in is not None))
                   + 2 * ts.numel())
     ops = D_OPS_PER_EVAL * n_eval + E_OPS_PER_CONTRIB * n_contrib
     b, by = bound(nbytes, ops)
+    entry = next((v for k_, v in ptxas_entries(
+        composite.BWD_KERNEL.build_log).items()
+        if f"ILi{nc}ELb{int(t_in is not None)}ELb0EE" in k_), None)
+    if entry is None:
+        raise AssertionError(f"{name}: no ptxas line for the launched "
+                             f"instantiation in the build log")
+    spilled = {k_: v[1] for k_, v in ptxas_entries(
+        composite.BWD_KERNEL.build_log).items() if v[1]}
+    if spilled:
+        raise AssertionError(f"{name}: ptxas spilled registers: {spilled}")
     return dict(name=name, route="cuda",
                 source=_rel(_cuda.CSRC / composite.BWD_KERNEL.source),
                 replaces=composite.BWD_KERNEL.replaces,
                 launches=launches, max_abs_err=err,
                 tolerance="rtol 1e-4 + atol 1e-5 of the largest |g|; rank "
-                          "row exact; two launches bit-equal",
+                          "row exact; two launches bit-equal; the visited "
+                          "pairs bit-equal into an undefined buffer",
                 largest_grad=top, ms=ms, plain_ms=plain, bound_ms=b,
                 bound_by=by, library_ms=None,
+                ms_zero_filled=ms_filled, zero_fill_ms=zero_fill_ms,
+                registers=entry[0], spill_store_bytes=entry[1],
+                static_smem_bytes=entry[2],
+                threads_per_cta=composite.BWD_THREADS,
+                occupancy=occupancy(entry[0], composite.BWD_THREADS,
+                                    entry[2]),
+                visited_pairs_per_tile=visited_histogram(nvis),
                 plain_compared_tiles=int(shallow.sum()),
                 tiles=ts.numel(), plain_depth=E_PLAIN_DEPTH,
                 pixel_pair_evals=n_eval, contributing_evals=n_contrib,
@@ -1659,33 +1789,67 @@ def phase_kernels(calls, launches, train_launches, sliced_launches,
     t_in modes, kernel G and kernel H."""
     rows = []
 
-    # A: flat scan, the render's 3 int32 cumsums (2 of N, 1 of max_rowruns).
-    ms = plain = lib = nbytes = err = 0.0
-    shapes = []
+    # A: flat scan, the render's 3 int32 cumsums (2 of N, 1 of max_rowruns):
+    # int32 add and max and float32 max exact; float32 add at rtol 1e-5 of
+    # the largest running sum against a float64 sum; two launches bit-equal.
+    ms = plain = lib = nbytes = err = f32_add_err = 0.0
+    queued_ms = queued_lib = 0.0
+    shapes, per_call = [], []
+    gen = torch.Generator(device="cuda").manual_seed(0)
     for (x,), _ in calls["cumsum_flat"]:
         err = max(err, _max_err(scan.cumsum_flat(x),
                                 scan.cumsum_flat_plain(x)))
         err = max(err, _max_err(scan.cummax_flat(x),
                                 scan.cummax_flat_plain(x)))
-        xf = x.to(torch.float32)
+        xf = torch.randn(x.shape, generator=gen, device=x.device)
         err = max(err, _max_err(scan.cummax_flat(xf),
                                 scan.cummax_flat_plain(xf)))
+        got = scan.cumsum_flat(xf)
+        want64 = scan.cumsum_flat_plain(xf.double())
+        e = float((got.double() - want64).abs().max())
+        if e > 1e-5 * float(want64.abs().max()):
+            raise AssertionError(f"flat_scan float32 add: error {e} at a "
+                                 f"largest running sum of "
+                                 f"{float(want64.abs().max())} (rtol 1e-5)")
+        f32_add_err = max(f32_add_err, e)
+        for fn, arg in ((scan.cumsum_flat, x), (scan.cummax_flat, x),
+                        (scan.cummax_flat, xf), (scan.cumsum_flat, xf)):
+            if not torch.equal(fn(arg), fn(arg)):
+                raise AssertionError("flat_scan: two launches differ")
+        per_call.append(_cuda.captured_launches(
+            scan.KERNEL, lambda: scan.cumsum_flat(x)))
         ms += time_ms(lambda: scan.cumsum_flat(x), reps)
         plain += time_ms(lambda: scan.cumsum_flat_plain(x), reps)
         lib += time_ms(lambda: torch.cumsum(x, 0, dtype=torch.int32), reps)
+        queued_ms += time_ms_queued(lambda: scan.cumsum_flat(x), reps)
+        queued_lib += time_ms_queued(
+            lambda: torch.cumsum(x, 0, dtype=torch.int32), reps)
         nbytes += 2 * 4 * x.numel()
         shapes.append(x.numel())
     if err != 0.0:
         raise AssertionError(f"flat_scan differs from torch.cumsum/cummax "
                              f"by {err} (must be exact)")
+    if any(n != 1 for n in per_call):
+        raise AssertionError(f"flat_scan: a call made {per_call} device "
+                             f"launches, expected 1 each")
+    scan_race_check(max((x for (x,), _ in calls["cumsum_flat"]),
+                        key=lambda t: t.numel()))
     b, by = bound(nbytes)
     rows.append(dict(name="flat_scan", route="cuda",
                      source=_rel(_cuda.CSRC / scan.KERNEL.source),
                      replaces=scan.KERNEL.replaces,
                      launches=launches["flat_scan"], max_abs_err=err,
-                     tolerance="exact", ms=ms, plain_ms=plain,
+                     tolerance="int32 add and max, float32 max exact; "
+                               "float32 add rtol 1e-5 of the largest running "
+                               "sum against float64; two launches bit-equal",
+                     ms=ms, plain_ms=plain,
                      bound_ms=b, bound_by=by, library_ms=lib,
-                     library="torch.cumsum", shapes=shapes))
+                     library="torch.cumsum", shapes=shapes,
+                     device_launches_per_call=per_call,
+                     ms_behind_a_busy_card=queued_ms,
+                     library_ms_behind_a_busy_card=queued_lib,
+                     float32_add_abs_err=f32_add_err,
+                     repeats_on_two_streams_equal=SCAN_REPEATS))
 
     # B: ragged expansion, the render's 2 calls (16 x N, 14 x max_rowruns).
     ms = plain = lib = nbytes = err = 0.0
@@ -1949,6 +2113,8 @@ def main():
                          unfused_launches, scan_launches)
     for r in rows:
         r["card"] = smi
+    emit("earlier_times", quoted_from="PERF.md section 6",
+         measured_in_this_run=False, ms=EARLIER_MS)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

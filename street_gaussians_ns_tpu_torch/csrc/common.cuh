@@ -20,6 +20,27 @@ static inline int sg_last_error() {
   return static_cast<int>(cudaGetLastError());
 }
 
+// Counting the device work of a call (ops/_cuda.py:captured_launches):
+// between these two, whatever is enqueued on `stream` is recorded into a
+// CUDA graph and not run; the end returns the number of nodes recorded
+// (kernels, memsets, copies) and throws the graph away.
+SG_EXPORT int sg_capture_begin(void* stream) {
+  return static_cast<int>(cudaStreamBeginCapture(
+      static_cast<cudaStream_t>(stream), cudaStreamCaptureModeRelaxed));
+}
+
+SG_EXPORT int sg_capture_end(void* stream, long long* num_nodes) {
+  cudaGraph_t graph = nullptr;
+  cudaError_t err =
+      cudaStreamEndCapture(static_cast<cudaStream_t>(stream), &graph);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  size_t n = 0;
+  err = cudaGraphGetNodes(graph, nullptr, &n);
+  *num_nodes = static_cast<long long>(n);
+  cudaGraphDestroy(graph);
+  return static_cast<int>(err);
+}
+
 // The compositor's per-(pixel, pair) evaluation, shared by the forward
 // kernel and the backward replay so both form sigma, the falloff and alpha
 // in the same order of float operations and take the same branch at every

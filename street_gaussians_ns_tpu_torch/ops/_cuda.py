@@ -130,6 +130,9 @@ class Kernel:
                 f.restype = ctypes.c_int
             lib.sg_error_string.argtypes = [ctypes.c_int]
             lib.sg_error_string.restype = ctypes.c_char_p
+            lib.sg_capture_begin.argtypes = [ctypes.c_void_p]
+            lib.sg_capture_end.argtypes = [
+                ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong)]
             self._lib = lib
         return self._lib
 
@@ -176,6 +179,38 @@ def build_all(kernels=None) -> None:
         raise KernelBuildError("\n\n".join(errors))
     for k in kernels:
         k.lib()
+
+
+def captured_launches(kernel: Kernel, fn) -> int:
+    """The kernels, memsets and copies one call of `fn` enqueues, counted
+    without running them: `fn` is called once on a stream of its own (so
+    that what it keeps per stream and the allocator's blocks exist), then
+    once more while that stream is captured into a CUDA graph, whose nodes
+    are counted and thrown away. `kernel` lends its library's two capture
+    entry points. What `fn` returns from the captured call was never
+    computed."""
+    lib = kernel.lib()
+    side = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    with torch.cuda.stream(side):
+        fn()
+        side.synchronize()
+        handle = ctypes.c_void_p(side.cuda_stream)
+        rc = lib.sg_capture_begin(handle)
+        if rc != 0:
+            raise KernelLaunchError(
+                f"stream capture did not start: CUDA error {rc} "
+                f"({lib.sg_error_string(rc).decode()})")
+        nodes = ctypes.c_longlong(-1)
+        try:
+            fn()
+        finally:
+            rc = lib.sg_capture_end(handle, ctypes.byref(nodes))
+        if rc != 0:
+            raise KernelLaunchError(
+                f"stream capture failed: CUDA error {rc} "
+                f"({lib.sg_error_string(rc).decode()})")
+    return nodes.value
 
 
 def is_cpu(*tensors: torch.Tensor) -> bool:

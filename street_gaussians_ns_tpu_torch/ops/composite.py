@@ -34,11 +34,19 @@ the larger of the stream's bytes and ~16 float32 operations per evaluated
 Kernel E, `composite_bwd` (replaces `composite_pallas.py:_bwd_kernel`,
 CUDA in `csrc/composite_bwd.cu`): the forward replayed per pixel up to its
 n_contrib, the 6 + nc gradient terms of every pair reduced over the tile's
-256 pixels (warp shuffles, then shared memory) and stored without atomics
-in the stream's layout, the pair's depth rank copied into row 10. Its
-bound is the larger of the visited pairs' bytes and its float32
-operations: the forward's ~16 per evaluated (pixel, pair) and ~51 more per
-evaluation that contributes.
+256 pixels and stored without atomics in the stream's layout, the pair's
+depth rank copied into row 10. Its bound is the larger of the visited
+pairs' bytes and its float32 operations: the forward's ~16 per evaluated
+(pixel, pair) and ~51 more per evaluation that contributes. On the card it
+is bound by instruction issue, so its design cuts what is issued beside
+that arithmetic: a thread owns four pixels of its tile (64 threads a
+tile), replays them branch-free and adds their terms in registers before
+one folding shuffle tree a warp; the gradient terms use fused
+multiply-adds, one fast division and three moments for the five geometry
+rows; a pair's features are staged as 12 adjacent floats (three 16-byte
+loads) in batches double-buffered with cp.async; g . accum is formed in
+the kernel; the fused routes leave the rows nobody reads unwritten
+(`zero_fill=False`).
 
 Kernels D and E take an incoming transmittance `t_in` (a later depth
 window continues the earlier ones' chain) and a strip offset `tile0`.
@@ -75,6 +83,7 @@ K = 128               # pairs per stream row
 NFEAT = 16            # feature rows per stream row
 RANK_ROW = 10         # stream row that carries the pair's depth rank
 NGRAD = 10            # gradient rows: x, y, conic (3), opacity, 4 colours
+BWD_THREADS = PIX // 4    # kernel E's CTA: four pixels a thread
 
 PACK_KERNEL = _cuda.register(_cuda.Kernel(
     name="pack_feat_cols",
@@ -358,11 +367,29 @@ def composite_bwd_plain(feat, tile_start, tile_count, ntx: int, nc: int,
     return gpair
 
 
+def visited_counts(ncon: torch.Tensor,
+                   tile_count: torch.Tensor) -> torch.Tensor:
+    """(T,) int32: the pairs each tile's backward visits, the first
+    max(n_contrib) of its range."""
+    return torch.minimum(ncon.amax(dim=1), tile_count)
+
+
+def _poison_unvisited(gpair, tile_start, tile_count, ncon) -> torch.Tensor:
+    """gpair with NaN wherever kernel E writes nothing: every pair slot
+    no tile visited, and rows 11..15 of all of them."""
+    pair = _visited_pairs(tile_start, visited_counts(ncon, tile_count))
+    out = torch.full_like(gpair, float("nan"))
+    rows, lanes = pair // K, pair % K
+    out[rows, :RANK_ROW + 1, lanes] = gpair[rows, :RANK_ROW + 1, lanes]
+    return out
+
+
 def composite_bwd(feat, tile_start, tile_count, ntx: int, nc: int,
                   g_accum, g_t, tfin, ncon, accum,
                   evals: torch.Tensor | None = None,
                   t_in: torch.Tensor | None = None,
-                  tile0: int = 0) -> torch.Tensor:
+                  tile0: int = 0,
+                  zero_fill: bool = True) -> torch.Tensor:
     """Per-pair gradients of the compositor, in the stream's layout.
 
     feat, tile_start, tile_count, ntx, nc, t_in, tile0 as composite_fwd
@@ -372,7 +399,11 @@ def composite_bwd(feat, tile_start, tile_count, ntx: int, nc: int,
     16, 128) float32 in sorted pair order: rows 0..5+nc hold dL/d[x, y,
     conic a, b, c, opacity, colour 0..nc-1] summed over the tile's pixels,
     row 10 the pair's depth rank copied from the stream, and zeros
-    wherever no pixel of the tile reached the pair. `evals` (a (3,) int64
+    wherever no pixel of the tile reached the pair. With zero_fill=False
+    only rows 0..10 of the visited pairs (a tile's first `visited_counts`
+    pairs) are defined: the kernel writes into uninitialised memory and spares the
+    fill of the whole stream, and the CPU version puts NaN there so that a
+    reader of an undefined row shows. `evals` (a (3,) int64
     CUDA tensor), when given, has the evaluated (pixel, pair) count added
     to [0], the visited pairs to [1] and the evaluations that contributed
     to [2]."""
@@ -395,23 +426,25 @@ def composite_bwd(feat, tile_start, tile_count, ntx: int, nc: int,
         operands += (("t_in", t_in, f32, (num_tiles, PIX)),)
     for name, t, dtype, shape in operands:
         _cuda.check(t, name, dtype, shape=shape)
-    gdotacc = torch.sum(g_accum * accum, dim=-1)
     if _cuda.is_cpu(*(t for _, t, _, _ in operands)):
         if evals is not None:
             raise ValueError("evals counting needs the CUDA kernel")
-        return composite_bwd_plain(feat, tile_start, tile_count, ntx, nc,
-                                   g_accum, g_t, tfin, ncon, gdotacc, t_in,
-                                   tile0)
+        gdotacc = torch.sum(g_accum * accum, dim=-1)
+        gpair = composite_bwd_plain(feat, tile_start, tile_count, ntx, nc,
+                                    g_accum, g_t, tfin, ncon, gdotacc, t_in,
+                                    tile0)
+        return gpair if zero_fill else _poison_unvisited(
+            gpair, tile_start, tile_count, ncon)
     if evals is not None:
         _cuda.check(evals, "evals", torch.int64, shape=(3,))
-    gpair = torch.zeros_like(feat)
+    gpair = torch.zeros_like(feat) if zero_fill else torch.empty_like(feat)
     if num_tiles == 0:
         return gpair
     BWD_KERNEL.launch(
         "sg_composite_bwd", _cuda.ptr(feat), _cuda.ptr(tile_start),
         _cuda.ptr(tile_count), num_tiles, ntx, nc, tile0,
         _cuda.ptr(t_in) if t_in is not None else None, _cuda.ptr(g_accum),
-        _cuda.ptr(g_t), _cuda.ptr(tfin), _cuda.ptr(ncon), _cuda.ptr(gdotacc),
+        _cuda.ptr(g_t), _cuda.ptr(tfin), _cuda.ptr(ncon), _cuda.ptr(accum),
         _cuda.ptr(gpair), _cuda.ptr(evals) if evals is not None else None,
         _cuda.stream(feat), modes=_modes(t_in, tile0))
     return gpair
@@ -551,11 +584,13 @@ def _bwd_from_tiles(feat, tile_start, tile_count, ntx: int, accum, tfin,
     rank-keyed reduce -> (N, 10) per-gaussian gradients, or with
     unsort=False the (10, N) sums per depth rank (the sliced path adds its
     windows' sums and un-sorts once). t_in, tile0 as composite_fwd took
-    them."""
+    them. The reduce reads the visited pairs only, so kernel E is not
+    asked to define the rest of the stream."""
     nc = accum.shape[-1]
+    nvis = visited_counts(ncon, tile_count)
     gpair = composite_bwd(feat, tile_start, tile_count, ntx, nc, g_accum,
-                          g_t, tfin, ncon, accum, t_in=t_in, tile0=tile0)
-    nvis = torch.minimum(ncon.amax(dim=1), tile_count)
+                          g_t, tfin, ncon, accum, t_in=t_in, tile0=tile0,
+                          zero_fill=False)
     return _reduce_pair_grads_ranked(gpair, tile_start, nvis, depth_order,
                                      num_gaussians, unsort=unsort)
 

@@ -2,19 +2,31 @@
 street_gaussians_ns_tpu/ops/scan_pallas.py, `cumsum_flat`/`cummax_flat`
 and `cumsum_rows`/`cummax_rows`).
 
-Replaces `scan_pallas.py:_flat_scan_kernel`. The CUDA kernel is
-`csrc/scan.cu`: a three-phase tree scan (block scans with warp shuffles
-writing block totals, a scan of the totals, then the offsets), since GPU
-blocks cannot carry a total from one to the next as the TPU's sequential
-grid does. It is bound by memory bandwidth (read M, write M, plus one more
-pass over the output for the offsets). The plain versions are
+Kernel A replaces `scan_pallas.py:_flat_scan_kernel`. The CUDA kernel is
+`csrc/scan.cu`: one launch, a single-pass scan with decoupled look-back.
+A block takes a tile of 4,096 elements by an atomic ticket, scans it in
+registers, publishes the tile's total as one 64-bit {status, value}
+descriptor and looks back over its predecessors' descriptors until it
+meets a total that already includes everything before it; the output is
+written once. On this card the scan is bound by its launch, not its bytes
+(8-17 MB a call on the render path, a few microseconds of memory time), so
+the design spends one launch and nothing else: the descriptors live in a
+scratch kept per (device, stream) that the last block of a launch zeroes
+again, so a call allocates and clears nothing. A scratch is never shared
+between streams (two launches in flight would race on it); launches on one
+stream run one after another. int32 add, int32 max and float32 max are
+exact and the same from launch to launch; the float32 add combines its
+predecessors' totals in one fixed order, so two launches are bit-equal
+there too, at a cost in descriptor reads that grows with the square of
+the tile count (no caller scans float32). The plain versions are
 `torch.cumsum` / `torch.cummax`; the wrapper runs them only for CPU
 tensors.
 
 Kernel H, `cumsum_rows`/`cummax_rows`, scans a row-major (M, C) array
 along axis 0 and replaces `scan_pallas.py:_scan_kernel`, whose one carry
 row passes from grid step to grid step. The CUDA kernel
-(`csrc/scan_rows.cu`) is the same three-phase tree over slabs of rows
+(`csrc/scan_rows.cu`) is a three-phase tree (slab scans writing slab
+totals, a scan of the totals, then the offsets) over slabs of rows
 staged through shared memory; int32 results are exact (sums wrap), the
 float32 sum's association differs from a serial sum's. No render path of
 either package calls the row scans.
@@ -27,7 +39,8 @@ import torch
 
 from . import _cuda
 
-TILE = 512 * 8     # elements per block of csrc/scan.cu
+TILE = 256 * 16    # elements per block of csrc/scan.cu
+_MIN_SCRATCH = 4096 + 1     # words of a stream's first scratch (16.8 M elements)
 
 KERNEL = _cuda.register(_cuda.Kernel(
     name="flat_scan",
@@ -35,7 +48,8 @@ KERNEL = _cuda.register(_cuda.Kernel(
     replaces="street_gaussians_ns_tpu/ops/scan_pallas.py:34 _flat_scan_kernel",
     entries={"sg_flat_scan": (ctypes.c_void_p, ctypes.c_void_p,
                               ctypes.c_void_p, ctypes.c_longlong,
-                              ctypes.c_int, ctypes.c_int, ctypes.c_void_p)},
+                              ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_void_p)},
 ))
 
 _DTYPES = {torch.int32: 0, torch.float32: 1}
@@ -43,12 +57,30 @@ _OPS = {"add": 0, "max": 1}
 
 
 def _scratch_len(n: int) -> int:
-    """Block totals of every recursion level of csrc/scan.cu:scan_rec."""
-    total = 0
-    while n > TILE:
-        n = -(-n // TILE)
-        total += n
-    return max(total, 1)
+    """8-byte words of look-back scratch a scan of n elements needs: one
+    word of counters and one descriptor per tile of csrc/scan.cu; none
+    where a single block scans the whole array."""
+    tiles = -(-n // TILE)
+    return tiles + 1 if tiles > 1 else 0
+
+
+# (device index, stream handle) -> the stream's zeroed scratch. A launch
+# leaves it zeroed, so it is cleared once, when it is made.
+_scratch: dict = {}
+
+
+def _scratch_for(device: torch.device, stream: int,
+                 words: int) -> torch.Tensor:
+    """The calling stream's scratch, grown to at least `words` words. It
+    is allocated (and zeroed) on the current stream, which is the stream
+    it is keyed by."""
+    key = (device.index, stream)
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < words:
+        size = max(_MIN_SCRATCH, 1 << (words - 1).bit_length())
+        buf = torch.zeros(size, dtype=torch.int64, device=device)
+        _scratch[key] = buf
+    return buf
 
 
 def _check(x: torch.Tensor) -> None:
@@ -69,13 +101,16 @@ def cummax_flat_plain(x: torch.Tensor) -> torch.Tensor:
 def _scan(x: torch.Tensor, op: str) -> torch.Tensor:
     _cuda.check(x, "x", x.dtype, ndim=1)
     out = torch.empty_like(x)
-    if x.numel() == 0:
+    n = x.numel()
+    if n == 0:
         return out
-    scratch = torch.empty(_scratch_len(x.numel()), dtype=x.dtype,
-                          device=x.device)
-    KERNEL.launch("sg_flat_scan", _cuda.ptr(x), _cuda.ptr(out),
-                  _cuda.ptr(scratch), x.numel(), _DTYPES[x.dtype], _OPS[op],
-                  _cuda.stream(x))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    words = _scratch_len(n)
+    scratch = _scratch_for(x.device, stream, words) if words else None
+    KERNEL.launch("sg_flat_scan", x.data_ptr(), out.data_ptr(),
+                  scratch.data_ptr() if words else None,
+                  scratch.numel() if words else 0, n, _DTYPES[x.dtype],
+                  _OPS[op], stream)
     return out
 
 

@@ -87,9 +87,10 @@ _TENSOR_FIELDS = ("pair_valid", "tile_start", "tile_count", "num_pairs",
                   "gauss_idx", "exp_slot")
 
 
-def bins_from_numpy(arrays: dict, device="cpu") -> TileBins:
+def bins_from_numpy(arrays: dict, device="cuda") -> TileBins:
     """TileBins from a mapping of field name -> numpy array (every field
-    of the JAX package's TileBins, the two tile-grid sizes included)."""
+    of the JAX package's TileBins, the two tile-grid sizes included), on
+    the card unless the caller asks for another device."""
     fields = {}
     for name in _TENSOR_FIELDS:
         a = np.asarray(arrays[name])

@@ -7,10 +7,14 @@ so they run on a machine with a card and no JAX:
 Without a card they skip. Tolerances: the scan, the expansion and the
 pack are exact; the compositor is built without multiply-add contraction
 (ops/_cuda.py) and so rounds as its plain version does: n_contrib equal,
-accum and T at atol 2e-5. The backward compositor replays the forward bit
-for bit but adds its 256 pixels in a shuffle tree where the plain version
-uses torch.sum: rtol 1e-4 with atol 1e-5 of the largest gradient, the rank
-row exact. The rank sum adds a run in pair order like index_add_ on the
+accum and T at atol 2e-5. The flat scan is one launch with look-back
+between its blocks: int32 sums, int32 and float32 maxima are exact and
+repeat bit for bit on one stream or two; the float32 sum is held at rtol
+1e-5 of the largest running sum against a float64 sum and repeats bit for
+bit. The backward compositor replays the forward bit
+for bit but adds its 256 pixels in registers and a shuffle tree where the
+plain version uses torch.sum: rtol 1e-4 with atol 1e-5 of the largest
+gradient, the rank row exact. The rank sum adds a run in pair order like index_add_ on the
 CPU, but a warp shares runs above 32 pairs: rtol 1e-5 / atol 1e-5; the
 segment sum likewise. The row scans: int32 exact, the float32 sum at rtol
 1e-5 of the column's largest running magnitude. The compositors' t_in
@@ -22,7 +26,7 @@ import torch
 
 from street_gaussians_ns_tpu_torch.core.cameras import Camera, viewmat_from_c2w
 from street_gaussians_ns_tpu_torch.core.projection import project
-from street_gaussians_ns_tpu_torch.ops import (composite, expand, scan,
+from street_gaussians_ns_tpu_torch.ops import (_cuda, composite, expand, scan,
                                                segreduce)
 from street_gaussians_ns_tpu_torch.ops.tiles import bin_and_pack
 
@@ -42,6 +46,17 @@ def _ragged(rng, n_src, c, p_zero):
             (ends - counts).astype(np.int32), ends)
 
 
+SCAN_SIZES = [1, scan.TILE - 1, scan.TILE, scan.TILE + 1,
+              33 * scan.TILE + 7, 70_001, 2_097_152, (1 << 24) + 3]
+
+
+def _scan_input(m, dtype, seed=0):
+    rng = np.random.default_rng(m + seed)
+    if dtype == "int32":
+        return torch.from_numpy(rng.integers(-5, 9, m).astype(np.int32))
+    return torch.from_numpy(rng.standard_normal(m).astype(np.float32))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [1, 4096, 4097, 1_700_000])
 def test_scan_kernel_matches_plain(cuda, m):
@@ -53,6 +68,57 @@ def test_scan_kernel_matches_plain(cuda, m):
     assert torch.equal(scan.cummax_flat(xf), scan.cummax_flat_plain(xf))
     torch.testing.assert_close(scan.cumsum_flat(xf),
                                scan.cumsum_flat_plain(xf))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", SCAN_SIZES)
+@pytest.mark.parametrize("dtype,op", [("int32", "add"), ("int32", "max"),
+                                      ("float32", "max"), ("float32", "add")])
+def test_lookback_scan_every_size_and_type(cuda, m, dtype, op):
+    x = _scan_input(m, dtype).to(cuda)
+    fn, plain = ((scan.cumsum_flat, scan.cumsum_flat_plain) if op == "add"
+                 else (scan.cummax_flat, scan.cummax_flat_plain))
+    before = scan.KERNEL.launches
+    got = fn(x)
+    assert scan.KERNEL.launches == before + 1
+    if (dtype, op) == ("float32", "add"):
+        want = plain(x.double())
+        top = float(want.abs().max())
+        assert float((got.double() - want).abs().max()) <= 1e-5 * top + 1e-6
+    else:
+        assert torch.equal(got, plain(x))
+    assert _cuda.captured_launches(scan.KERNEL, lambda: fn(x)) == 1
+    # A view that starts off a 16-byte boundary takes the scalar loads.
+    if m > 1:
+        assert torch.equal(fn(x[1:]), fn(x[1:].clone()))
+    assert torch.equal(fn(x), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,op", [("int32", "add"), ("int32", "max"),
+                                      ("float32", "max"), ("float32", "add")])
+def test_lookback_scan_repeats_on_one_stream_and_on_two(cuda, dtype, op):
+    """200 launches give one result, and so do launches interleaved on two
+    streams (each stream has a scratch of its own)."""
+    fn = scan.cumsum_flat if op == "add" else scan.cummax_flat
+    xs = [_scan_input(2_097_152 - 5 * i, dtype, seed=i).to(cuda)
+          for i in range(2)]
+    want = [fn(x) for x in xs]
+    torch.cuda.synchronize()
+    for _ in range(200):
+        assert torch.equal(fn(xs[0]), want[0])
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = [[], []]
+    for _ in range(100):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(fn(xs[i]))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for o in outs[i]:
+            assert torch.equal(o, want[i])
+    assert len({k for k in scan._scratch if k[1] in
+                {st.cuda_stream for st in streams}}) == 2
 
 
 @pytest.mark.cuda
@@ -99,7 +165,7 @@ def test_pack_and_composite_kernels_match_plain(cuda):
     assert float(1.0 - got[1].min()) > 0.5
 
 
-def _binned_stream(seed, n, w, h, opaque=False, spread=1.0):
+def _binned_stream(seed, n, w, h, opaque=False, spread=1.0, op_scale=1.0):
     """A projected random scene binned on the CPU: (feat stream, bins)."""
     rng = np.random.default_rng(seed)
     means = np.concatenate([rng.standard_normal((n, 2)) * spread,
@@ -110,7 +176,8 @@ def _binned_stream(seed, n, w, h, opaque=False, spread=1.0):
                       - (1.0 if opaque else 2.5)),
         q / np.linalg.norm(q, axis=1, keepdims=True))]
     op = torch.tensor(np.full(n, 0.9995) if opaque
-                      else rng.random(n) * 0.9 + 0.05, dtype=torch.float32)
+                      else (rng.random(n) * 0.9 + 0.05) * op_scale,
+                      dtype=torch.float32)
     colors = torch.tensor(rng.random((n, 4)), dtype=torch.float32)
     cam = Camera.make(100.0, 100.0, w / 2, h / 2, np.eye(3, 4), w, h,
                       device="cpu")
@@ -164,6 +231,62 @@ def test_composite_bwd_kernel_matches_plain(cuda, seed, n, w, h, opaque,
     again = composite.composite_bwd(feat, ts, tc, ntx, nc, g_accum, g_t,
                                     tfin, ncon, accum)
     assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc", [1, 2, 3, 4])
+@pytest.mark.parametrize("with_tin", [False, True])
+@pytest.mark.parametrize("tile0", [0, 13])
+def test_composite_bwd_kernel_every_mode(cuda, nc, with_tin, tile0):
+    """Every instantiation of kernel E on a scene with empty tiles,
+    one-pair tiles and tiles deeper than two staging batches: against the
+    plain version, twice bit-equal, and the same bits into an undefined
+    buffer."""
+    feat, bins = _binned_stream(7, 3000, 200, 120, op_scale=0.15)
+    feat = feat.to(cuda)
+    ntx = bins.num_tiles_x
+    tc = bins.tile_count.clone()
+    tc[::5] = 0
+    tc[1::5] = torch.clamp(tc[1::5], max=1)
+    n_strip = tc.numel() - tile0 - 7 if tile0 else tc.numel()
+    sl = slice(tile0, tile0 + n_strip)
+    ts, tc = bins.tile_start[sl].to(cuda), tc[sl].contiguous().to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(nc)
+    t_in = None
+    if with_tin:
+        t_in = torch.rand((n_strip, 256), device=cuda, generator=g) * 0.9 + 0.1
+        t_in[:, ::7] = 5e-5
+        t_in[:, 1::7] *= -1.0
+        t_in[3::11] = 2e-5
+    accum, tfin, ncon = composite.composite_fwd(feat, ts, tc, ntx, nc,
+                                                t_in=t_in, tile0=tile0)
+    nvis = composite.visited_counts(ncon, tc)
+    assert int(nvis.max()) > 128 and int((nvis == 1).sum()) > 0
+    assert int((tc == 0).sum()) > 0
+    g_accum = torch.randn(accum.shape, device=cuda, generator=g)
+    g_t = torch.randn(tfin.shape, device=cuda, generator=g)
+    args = (feat, ts, tc, ntx, nc, g_accum, g_t, tfin, ncon, accum)
+    got = composite.composite_bwd(*args, t_in=t_in, tile0=tile0)
+    want = composite.composite_bwd_plain(
+        *args[:-1], torch.sum(g_accum * accum, dim=-1), t_in, tile0)
+    torch.cuda.synchronize()
+    top = float(want[:, :10].abs().max())
+    assert top > 0
+    torch.testing.assert_close(got[:, :10], want[:, :10], rtol=1e-4,
+                               atol=1e-5 * top)
+    assert torch.equal(got[:, 10:], want[:, 10:])
+    assert torch.equal(got, composite.composite_bwd(*args, t_in=t_in,
+                                                    tile0=tile0))
+    loose = composite.composite_bwd(*args, t_in=t_in, tile0=tile0,
+                                    zero_fill=False)
+    pair = composite._visited_pairs(ts, nvis)
+    assert torch.equal(loose[pair // 128, :11, pair % 128],
+                       got[pair // 128, :11, pair % 128])
+    evals = torch.zeros(3, dtype=torch.int64, device=cuda)
+    counted = composite.composite_bwd(*args, t_in=t_in, tile0=tile0,
+                                      evals=evals)
+    assert torch.equal(counted, got)
+    assert int(evals[1]) == int(nvis.sum()) and int(evals[0]) >= int(evals[2])
 
 
 @pytest.mark.cuda
@@ -481,7 +604,6 @@ def test_wrappers_raise_on_bad_cuda_input(cuda):
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     """No nvcc: building a kernel raises, it never falls back."""
-    from street_gaussians_ns_tpu_torch.ops import _cuda
 
     monkeypatch.setattr(_cuda, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_cuda.shutil, "which", lambda name: None)
@@ -495,7 +617,6 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_library_is_keyed_by_the_sources():
-    from street_gaussians_ns_tpu_torch.ops import _cuda
 
     paths = {k.library_path() for k in _cuda.KERNELS}
     assert len(paths) == len(_cuda.KERNELS) == 8

@@ -90,7 +90,7 @@ def _both(impl, seed, n, opaque, max_per_tile):
         jax.value_and_grad(jloss, has_aux=True))(
         (jp.xys, jp.conics, colors, opac))
 
-    tbins = ttiles.bins_from_numpy(_bins_arrays(jbins))
+    tbins = ttiles.bins_from_numpy(_bins_arrays(jbins), device="cpu")
     leaves = [T(a).requires_grad_(True)
               for a in (jp.xys, jp.conics, colors, opac)]
     if impl == "chunked":

@@ -154,7 +154,7 @@ def test_owner_by_scatter():
 def test_bins_from_numpy_round_trip():
     p, _, opac = _scene(0, 150, 48, 32)
     jb = jtiles.bin_gaussians(p, 48, 32, 16, 8192, opacities=opac)
-    tb = ttiles.bins_from_numpy(_bins_arrays(jb))
+    tb = ttiles.bins_from_numpy(_bins_arrays(jb), device="cpu")
     _assert_bins_equal(tb, jb)
     assert tb.num_pairs.dtype == torch.int64
     assert tb.gauss_idx.dtype == torch.int32
@@ -166,7 +166,7 @@ def test_build_feat_matches_jax(seed, n, nc):
     jb = jtiles.bin_gaussians(p, 48, 32, 16, MAX_PAIRS, opacities=opac)
     want = np.asarray(jcomp._build_feat(p.xys, p.conics, colors[:, :nc],
                                         opac, jb))
-    tb = ttiles.bins_from_numpy(_bins_arrays(jb))
+    tb = ttiles.bins_from_numpy(_bins_arrays(jb), device="cpu")
     got = tcomp._build_feat(T(p.xys), T(p.conics), T(colors)[:, :nc],
                             T(opac), tb)
     assert got.is_contiguous()
