@@ -1,10 +1,15 @@
-"""Where kernel E's time goes: ablations of its first version and the
-choices of its redesign, timed on the train path's own backward.
+"""Where the time of kernels E, D and F goes: ablations of a kernel's
+first version and of the choices of its redesign, timed on the main path's
+own launch.
 
-    python3 bwd_ablation.py [--first-version PATH] [--out FILE]
+    python3 bwd_ablation.py [--kernel bwd|fwd|rowsum]
+                            [--first-version PATH] [--out FILE]
 
 Measurement only; nothing of the port imports it. Needs one CUDA card and
-nvcc. It builds the flagship scene of chip_smoke.py, captures the arguments
+nvcc.
+
+`--kernel bwd` (the default), kernel E. It builds the flagship scene of
+chip_smoke.py, captures the arguments
 of the one `composite_bwd` call of a full-width training step, and times on
 them (CUDA events, kernel launches only: the output buffer is made once,
 outside the timing, and so is the g . accum that the first version was
@@ -31,10 +36,46 @@ does not find its lines raises):
     the visited counts, the sort that makes the heaviest-first order.
 
 Every variant that is meant to be right is held against the shipped
-kernel's output (1e-4 of the largest gradient; the rank row exact). The
-times of all variants are taken in turns, `--rounds` times over, and the
-median is reported. One JSON object per line on stdout; with `--out FILE`
-the whole report is also written to FILE.
+kernel's output (1e-4 of the largest gradient; the rank row exact).
+
+`--kernel fwd`, kernel D, on the arguments of the full render of one
+full-width eval frame (6,600 tiles), scratch copies of:
+
+  * the first version (one pixel a thread, 256 threads a tile, pairs
+    staged 256 at a time in one shared-memory row per feature), from
+    `--first-version` (default: street_gaussians_ns_tpu_torch/csrc/
+    composite_fwd.cu under build/torch_kernels/parent, where a `git
+    archive` of any commit before kernel D's redesign puts it): as it
+    was; with a pair's features in one 12-float slot fetched by three
+    16-byte loads (the loads' share); with the pixel's step branch-free
+    and the warp leaving a batch by vote (the branches' share); with
+    batches of 64 and of 128 pairs (the batch granularity); with per-CTA
+    clocks (the tail);
+  * the shipped kernel at 1, 2 and 4 pixels a thread, with batches of 32,
+    128 and 256 pairs, held to 20 and 24 resident CTAs an SM
+    (`__launch_bounds__`), without the fused multiply-adds of its colour sums,
+    without its per-pair warp exit, with one or both of two warp-wide
+    shortcuts it does not have (leave a pair far from every live pixel of
+    the warp before its exps, one that none of them considers before the
+    updates), and with per-CTA clocks.
+
+Every variant is held against the shipped kernel: n_contrib and T_final
+bit for bit, accum at atol 2e-5. The report adds the pairs each tile
+needed (from the shipped kernel's `evals`), the pairs a tile walks at each
+batch size, and the per-SM busy spans of both versions.
+
+`--kernel rowsum`, kernel F, on the arguments of the rank sum of the
+full-width training step's backward: its first version (a thread per
+output rank; `ranksum.cu` beside `--first-version`'s default) and the
+shipped kernel as it is, with 10 rows a pass instead of 5, with 2 and 8
+pairs a thread, without its memset (the kernel alone) and without its
+kernel (the memset alone); each timed on the host's clock and behind a
+busy card. The variants that are meant to be right are held to the
+plain version at rtol 1e-4 + atol 1e-5 of the largest |sum|.
+
+The times of all variants are taken in turns, `--rounds` times over, and
+the median is reported. One JSON object per line on stdout; with
+`--out FILE` the whole report is also written to FILE.
 """
 from __future__ import annotations
 
@@ -50,12 +91,16 @@ from pathlib import Path
 import torch
 
 import chip_smoke
-from street_gaussians_ns_tpu_torch.ops import _cuda, composite
+from street_gaussians_ns_tpu_torch.ops import _cuda, composite, segreduce
 
 OUT_DIR = _cuda.BUILD_DIR / "ablation"
 SHIPPED = _cuda.CSRC / "composite_bwd.cu"
 FIRST_VERSION = (_cuda.BUILD_DIR / "parent" / "street_gaussians_ns_tpu_torch"
                  / "csrc" / "composite_bwd.cu")
+FWD_SHIPPED = _cuda.CSRC / "composite_fwd.cu"
+FWD_FIRST_VERSION = FIRST_VERSION.with_name("composite_fwd.cu")
+F_SHIPPED = _cuda.CSRC / "ranksum.cu"
+F_FIRST_VERSION = FIRST_VERSION.with_name("ranksum.cu")
 
 # Both sources get this behind their include: the tile order and the clock
 # buffer reach a patched kernel through two device globals, so that the
@@ -161,6 +206,211 @@ VP, INT = ctypes.c_void_p, ctypes.c_int
 ARGTYPES = [VP, VP, VP, INT, INT, INT, INT, VP, VP, VP, VP, VP, VP, VP, VP,
             VP]
 
+# Kernel D. The first version's batch loop, one pixel a thread, and the
+# same step branch-free: every lane evaluates every pair of the batch
+# until its warp votes that all of its pixels are done.
+V1_STEP = """    if (!done) {
+      for (int j = 0; j < nb; ++j) {
+        float dx, dy, falloff;
+        const float sigma = sg_sigma(sm[0][j], sm[1][j], sm[2][j], sm[3][j],
+                                     sm[4][j], px, py, dx, dy);
+        ++nev;
+        if (sigma < SG_SIGMA_MIN) continue;
+        const float alpha = sg_alpha(sm[5][j], sigma, falloff);
+        if (alpha < SG_ALPHA_THRESH) continue;
+        const float next_T = T * (1.0f - alpha);
+        if (next_T <= SG_T_EPS) {
+          done = true;
+          break;
+        }
+        const float w = alpha * T;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) acc[c] += sm[6 + c][j] * w;
+        T = next_T;
+        last = b0 + j + 1;
+      }
+    }
+"""
+V1_STEP_NOBRANCH = """    for (int j = 0; j < nb; ++j) {
+      if (__all_sync(0xffffffffu, done)) break;
+      float dx, dy, falloff;
+      const float sigma = sg_sigma(sm[0][j], sm[1][j], sm[2][j], sm[3][j],
+                                   sm[4][j], px, py, dx, dy);
+      const float alpha = sg_alpha(sm[5][j], sigma, falloff);
+      const bool live = !done;
+      nev += live;
+      const bool considered = live && !(sigma < SG_SIGMA_MIN) &&
+                              !(alpha < SG_ALPHA_THRESH);
+      const float next_T = T * (1.0f - alpha);
+      const bool ends = considered && next_T <= SG_T_EPS;
+      const bool c = considered && !ends;
+      const float w = c ? alpha * T : 0.0f;
+#pragma unroll
+      for (int ch = 0; ch < NC; ++ch) acc[ch] += sm[6 + ch][j] * w;
+      T = c ? next_T : T;
+      last = c ? b0 + j + 1 : last;
+      done = done || ends;
+    }
+"""
+V1_LOADS = """        const float sigma = sg_sigma(sm[0][j], sm[1][j], sm[2][j], sm[3][j],
+                                     sm[4][j], px, py, dx, dy);
+"""
+V1_LOADS_SLOT = """        const float4 f0 = *reinterpret_cast<const float4*>(&sm[j][0]);
+        const float4 f1 = *reinterpret_cast<const float4*>(&sm[j][4]);
+        const float4 f2 = *reinterpret_cast<const float4*>(&sm[j][8]);
+        const float col[4] = {f1.z, f1.w, f2.x, f2.y};
+        const float sigma = sg_sigma(f0.x, f0.y, f0.z, f0.w, f1.x, px, py, dx,
+                                     dy);
+"""
+# The shipped kernel's step with one of two warp-wide shortcuts: a pair
+# whose sigma exceeds 6 at every live pixel of the warp (at opacity <= 1,
+# alpha < 1/255 there) is left before its exps; a pair that no live pixel
+# of the warp considers is left before the updates.
+SIGMA_ALPHA = """#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        float dx, dy, falloff;
+        sigma[k] = sg_sigma(f0.x, f0.y, f0.z, f0.w, f1.x, px, py[k], dx, dy);
+        alpha[k] = sg_alpha(f1.y, sigma[k], falloff);
+      }
+"""
+SIGMA_FAR_ALPHA = """      bool far = f1.y <= 1.0f;
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        float dx, dy;
+        sigma[k] = sg_sigma(f0.x, f0.y, f0.z, f0.w, f1.x, px, py[k], dx, dy);
+        far = far && (done[k] || sigma[k] > 6.0f);
+      }
+      if (__all_sync(FULL, far)) {
+#pragma unroll
+        for (int k = 0; k < PPT; ++k)
+          if (COUNT) nev[k] += !done[k];
+        continue;
+      }
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        float falloff;
+        alpha[k] = sg_alpha(f1.y, sigma[k], falloff);
+      }
+"""
+SKIP_NONE = """      {
+        bool any = false;
+#pragma unroll
+        for (int k = 0; k < PPT; ++k)
+          any = any || (!done[k] && !(sigma[k] < SG_SIGMA_MIN) &&
+                        !(alpha[k] < SG_ALPHA_THRESH));
+        if (!__any_sync(FULL, any)) {
+#pragma unroll
+          for (int k = 0; k < PPT; ++k)
+            if (COUNT) nev[k] += !done[k];
+          continue;
+        }
+      }
+"""
+FWD_CLOCK_END = CLOCK_END.replace(
+    "template <int NC>\nvoid launch(",
+    "template <int NC, bool TIN, bool COUNT>\nvoid launch_mode(")
+
+FWD_PATCHES = {
+    # The first version.
+    "slot": [
+        ("  __shared__ float sm[6 + NC][BATCH];\n",
+         "  __shared__ __align__(16) float sm[BATCH][12];\n"),
+        ("sm[f][tid] = __ldg(src + f * K);", "sm[tid][f] = __ldg(src + f * K);"),
+        (V1_LOADS, V1_LOADS_SLOT),
+        ("sg_alpha(sm[5][j], sigma, falloff)", "sg_alpha(f1.y, sigma, falloff)"),
+        ("acc[c] += sm[6 + c][j] * w;", "acc[c] += col[c] * w;")],
+    "nobranch": [(V1_STEP, V1_STEP_NOBRANCH)],
+    "v1batch64": [("constexpr int BATCH = PIX;\n", "constexpr int BATCH = 64;\n")],
+    "v1batch128": [("constexpr int BATCH = PIX;\n",
+                    "constexpr int BATCH = 128;\n")],
+    "v1clock": [
+        ("  __shared__ float sm[6 + NC][BATCH];\n",
+         "  const long long clk_start = clock64();\n"
+         "  __shared__ float sm[6 + NC][BATCH];\n"),
+        ("}\n\ntemplate <int NC>\nvoid launch(", CLOCK_END)],
+    # The shipped kernel.
+    "ppt1": [("constexpr int PPT = 4; ", "constexpr int PPT = 1; ")],
+    "ppt2": [("constexpr int PPT = 4; ", "constexpr int PPT = 2; ")],
+    "ppt4": [],
+    "batch32": [("constexpr int BATCH = 64;\n", "constexpr int BATCH = 32;\n")],
+    "batch128": [("constexpr int BATCH = 64;\n",
+                  "constexpr int BATCH = 128;\n")],
+    "batch256": [("constexpr int BATCH = 64;\n",
+                  "constexpr int BATCH = 256;\n")],
+    "nofma": [("  return __fmaf_rn(a, b, c);\n", "  return a * b + c;\n")],
+    "noexit": [("      if (__all_sync(FULL, all_done)) break;\n", "")],
+    "occ20": [("__global__ void __launch_bounds__(THREADS)\n",
+               "__global__ void __launch_bounds__(THREADS, 20)\n")],
+    "occ24": [("__global__ void __launch_bounds__(THREADS)\n",
+               "__global__ void __launch_bounds__(THREADS, 24)\n")],
+    "far": [(SIGMA_ALPHA, SIGMA_FAR_ALPHA)],
+    "skip": [("      all_done = true;\n", SKIP_NONE + "      all_done = true;\n")],
+    "clock": [
+        ("  constexpr int NG = 6 + NC;\n",
+         "  const long long clk_start = clock64();\n"
+         "  constexpr int NG = 6 + NC;\n"),
+        ("}\n\ntemplate <int NC, bool TIN, bool COUNT>\nvoid launch_mode(",
+         FWD_CLOCK_END)],
+}
+
+# name -> (first version?, switches, right results?)
+FWD_VARIANTS = {
+    "v1": (True, (), True),
+    "v1-slot": (True, ("slot",), True),
+    "v1-nobranch": (True, ("nobranch",), True),
+    "v1-batch64": (True, ("v1batch64",), True),
+    "v1-batch128": (True, ("v1batch128",), True),
+    "v1-clock": (True, ("v1clock",), True),
+    "v2-ppt1": (False, ("ppt1",), True),
+    "v2-ppt2": (False, ("ppt2",), True),
+    "v2-ppt4": (False, ("ppt4",), True),
+    "v2-batch32": (False, ("batch32",), True),
+    "v2-batch128": (False, ("batch128",), True),
+    "v2-batch256": (False, ("batch256",), True),
+    "v2-nofma": (False, ("nofma",), True),
+    "v2-noexit": (False, ("noexit",), True),
+    "v2-occ20": (False, ("occ20",), True),
+    "v2-occ24": (False, ("occ24",), True),
+    "v2-far": (False, ("far",), True),
+    "v2-skip": (False, ("skip",), True),
+    "v2-far-skip": (False, ("far", "skip"), True),
+    "v2-clock": (False, ("clock",), True),
+}
+
+# Both versions' entry point: feat, tile_start, tile_count, num_tiles, ntx,
+# nc, tile0, tin, mark_done, accum, tfin, ncon, evals, stream.
+FWD_ARGTYPES = [VP, VP, VP, INT, INT, INT, INT, VP, INT, VP, VP, VP, VP, VP]
+
+# Kernel F.
+F_PATCHES = {
+    "rows10": [("constexpr int ROWS = 5; ", "constexpr int ROWS = 10; ")],
+    "items2": [("constexpr int ITEMS = 4; ", "constexpr int ITEMS = 2; ")],
+    "items8": [("constexpr int ITEMS = 4; ", "constexpr int ITEMS = 8; ")],
+    "nomemset": [("""  const cudaError_t err = cudaMemsetAsync(
+      out, 0, sizeof(float) * (size_t)ng * (size_t)num_out, s);
+""", "  const cudaError_t err = cudaSuccess;\n")],
+    "nokernel": [("  if (p_len == 0) return 0;\n",
+                  "  if (p_len >= 0) return 0;\n")],
+}
+F_VARIANTS = {
+    "v1": (True, (), True),
+    "v2": (False, (), True),
+    "v2-rows10": (False, ("rows10",), True),
+    "v2-items2": (False, ("items2",), True),
+    "v2-items8": (False, ("items8",), True),
+    "v2-nomemset": (False, ("nomemset",), False),
+    "v2-memset-only": (False, ("nokernel",), False),
+}
+# Both versions' entry point: rows, ranks, out, ng, p_len, num_out, stream.
+F_ARGTYPES = [VP, VP, VP, INT, ctypes.c_longlong, INT, VP]
+MODES = {
+    "bwd": (VARIANTS, PATCHES, SHIPPED, "sg_composite_bwd", ARGTYPES),
+    "fwd": (FWD_VARIANTS, FWD_PATCHES, FWD_SHIPPED, "sg_composite_fwd",
+            FWD_ARGTYPES),
+    "rowsum": (F_VARIANTS, F_PATCHES, F_SHIPPED, "sg_rank_rowsum",
+               F_ARGTYPES),
+}
+
 
 def emit(what: str, **fields) -> dict:
     rec = {"what": what, **fields}
@@ -175,9 +425,10 @@ def replace_once(text: str, old: str, new: str, where: str) -> str:
     return text.replace(old, new)
 
 
-def patched(source: Path, switches) -> str:
+def patched(source: Path, switches, patches=None) -> str:
     """The source with the prelude behind its include and the switches'
-    lines replaced."""
+    lines replaced (`patches`: PATCHES, kernel E's, or FWD_PATCHES)."""
+    patches = PATCHES if patches is None else patches
     text = replace_once(source.read_text(), '#include "common.cuh"\n',
                         '#include "common.cuh"\n' + PRELUDE, str(source))
     for sw in switches:
@@ -192,24 +443,29 @@ def patched(source: Path, switches) -> str:
             text = head + loop + body.replace("__syncthreads();",
                                               "__syncwarp();")
             continue
-        for old, new in PATCHES[sw]:
+        for old, new in patches[sw]:
             text = replace_once(text, old, new, f"{source}: {sw}")
     return text
 
 
-def build_all(first_version: Path | None) -> dict:
-    """One nvcc per variant, all started together. Returns name ->
-    (ctypes library, ptxas summary); a variant that fails to build is
-    reported and left out."""
+BUILD_LOGS: dict = {}          # variant -> its nvcc log
+
+
+def build_all(first_version: Path | None, kernel: str = "bwd") -> dict:
+    """One nvcc per variant of `kernel` (a key of MODES), all started
+    together. Returns name -> (ctypes library, ptxas summary); a variant
+    that fails to build is reported and left out."""
+    variants, patches, shipped, entry, argtypes = MODES[kernel]
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, (v1, switches, _) in VARIANTS.items():
+    for name, (v1, switches, _) in variants.items():
         if v1 and first_version is None:
             continue
-        source = first_version if v1 else SHIPPED
-        cu = OUT_DIR / f"{name}.cu"
-        cu.write_text(patched(source, switches))
-        out = OUT_DIR / f"{name}.so"
+        source = first_version if v1 else shipped
+        stem = f"{kernel}-{name}"
+        cu = OUT_DIR / f"{stem}.cu"
+        cu.write_text(patched(source, switches, patches))
+        out = OUT_DIR / f"{stem}.so"
         cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-I", str(source.parent),
                "-o", str(out), str(cu)]
         procs[name] = (out, subprocess.Popen(
@@ -224,13 +480,14 @@ def build_all(first_version: Path | None) -> dict:
         spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores",
                                              log)]
         smem = [int(m) for m in re.findall(r"(\d+) bytes smem", log)]
+        BUILD_LOGS[name] = log
         lib = ctypes.CDLL(str(out))
-        lib.sg_composite_bwd.argtypes = ARGTYPES
-        lib.sg_composite_bwd.restype = INT
+        getattr(lib, entry).argtypes = argtypes
+        getattr(lib, entry).restype = INT
         lib.abl_set.argtypes = [VP, VP]
         lib.abl_set.restype = INT
         libs[name] = (lib, dict(registers=regs, spill_store_bytes=spills,
-                                smem_bytes_max=max(smem)))
+                                smem_bytes_max=max(smem, default=0)))
     return libs
 
 
@@ -247,16 +504,52 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def captured_backward(seed: int):
-    """The arguments of the full-width training step's composite_bwd."""
+def captured_backward(seed: int, kernel: str = "composite_bwd"):
+    """The arguments of the full-width training step's composite_bwd (or
+    rank_rowsum)."""
     chip_smoke.phase_device()
     store, tracks, cfg, rcfg, cam0, _ = chip_smoke.phase_main(seed)
     del store
     state, batch, _ = chip_smoke.phase_train(seed, tracks, cfg, rcfg, cam0)
     calls, _, _ = chip_smoke.capture_train(state, tracks, cfg, rcfg, cam0,
                                            batch)
-    (args, _), = calls["composite_bwd"]
+    (args, _), = calls[kernel]
     return args
+
+
+def in_turns(runs: dict, rounds: int, timer) -> tuple:
+    """Every run timed by `timer(run)` once a round, the runs in turns,
+    `rounds` times over. Returns (medians, all times) by name."""
+    times = {name: [] for name in runs}
+    for _ in range(rounds):
+        for name, run in runs.items():
+            times[name].append(timer(run))
+    return {n: statistics.median(v) for n, v in times.items()}, times
+
+
+def busy_spans(run, clk: torch.Tensor, reps: int) -> dict:
+    """One launch of a clock variant (which writes each CTA's start and
+    end clock and its SM into clk); the per-SM busy spans, in SM cycles."""
+    run()
+    torch.cuda.synchronize()
+    wall_ms = time_ms(run, reps)
+    c = clk.cpu()
+    dur = (c[:, 1] - c[:, 0]).double()
+    spans = []
+    for sm in torch.unique(c[:, 2]).tolist():
+        m = c[:, 2] == sm
+        spans.append(float(c[m, 1].max() - c[m, 0].min()))
+    spans_t = torch.tensor(spans)
+    return dict(
+        sms=len(spans), wall_ms=wall_ms,
+        span_cycles=dict(min=float(spans_t.min()),
+                         mean=float(spans_t.mean()),
+                         max=float(spans_t.max())),
+        mean_span_over_longest=float(spans_t.mean() / spans_t.max()),
+        cta_cycles=dict(sum=float(dur.sum()), mean=float(dur.mean()),
+                        max=float(dur.max())),
+        mean_ctas_resident_per_sm=float(dur.sum() / spans_t.sum()),
+        longest_cta_over_longest_span=float(dur.max() / spans_t.max()))
 
 
 def heaviest_first(nvis: torch.Tensor) -> torch.Tensor:
@@ -265,13 +558,164 @@ def heaviest_first(nvis: torch.Tensor) -> torch.Tensor:
                       stable=True).indices.to(torch.int32)
 
 
+def captured_forward(seed: int):
+    """The arguments of the full render of one full-width eval frame's
+    composite_fwd."""
+    chip_smoke.phase_device()
+    store, tracks, cfg, rcfg, cam0, _ = chip_smoke.phase_main(seed)
+    calls = chip_smoke.capture(store, tracks, cfg, rcfg, cam0)
+    args, _ = calls["composite_fwd"][0]
+    return args
+
+
+def main_fwd(args, report: list) -> None:
+    first_version = args.first_version or FWD_FIRST_VERSION
+    if not first_version.exists():
+        report.append(emit("first_version_missing", path=str(first_version),
+                           left_out=[k for k, v in FWD_VARIANTS.items()
+                                     if v[0]]))
+        first_version = None
+    libs = build_all(first_version, "fwd")
+    feat, ts, tc, ntx, nc = captured_forward(args.seed)
+    # The launched instantiation's ptxas line (no t_in, no counting).
+    report.append(emit("build", variants={
+        k: dict(v[1], launched={
+            n: e for n, e in chip_smoke.ptxas_entries(BUILD_LOGS[k]).items()
+            if f"ILi{nc}ELb0E" in n and "ELb1EE" not in n})
+        for k, v in libs.items()}))
+    dev = feat.device
+    num_tiles = ts.numel()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    clk = torch.zeros((num_tiles, 3), dtype=torch.int64, device=dev)
+    accum = torch.empty((num_tiles, composite.PIX, nc), dtype=torch.float32,
+                        device=dev)
+    tfin = torch.empty((num_tiles, composite.PIX), dtype=torch.float32,
+                       device=dev)
+    ncon = torch.empty((num_tiles, composite.PIX), dtype=torch.int32,
+                       device=dev)
+
+    def runner(name):
+        lib, _ = libs[name]
+        rc = lib.abl_set(None, clk.data_ptr())
+        if rc != 0:
+            raise RuntimeError(f"{name}: CUDA error {rc}")
+        a = (feat.data_ptr(), ts.data_ptr(), tc.data_ptr(), num_tiles, ntx,
+             nc, 0, None, 0, accum.data_ptr(), tfin.data_ptr(),
+             ncon.data_ptr(), None, stream)
+
+        def run():
+            rc = lib.sg_composite_fwd(*a)
+            if rc != 0:
+                raise RuntimeError(f"{name}: CUDA error {rc}")
+        return run
+
+    runs = {name: runner(name) for name in libs}
+
+    # Agreement with the shipped kernel: n_contrib and T_final bit for
+    # bit, accum at atol 2e-5 (the colour sums' rounding differs).
+    evals = torch.zeros((2 + num_tiles,), dtype=torch.int64, device=dev)
+    want = composite.composite_fwd(feat, ts, tc, ntx, nc, evals=evals)
+    agree = {}
+    for name, run in runs.items():
+        run()
+        torch.cuda.synchronize()
+        err = float((accum - want[0]).abs().max())
+        same = (torch.equal(tfin, want[1]), torch.equal(ncon, want[2]))
+        agree[name] = dict(accum_max_abs_err=err, t_final_equal=same[0],
+                           n_contrib_equal=same[1])
+        if err > 2e-5 or not all(same):
+            raise AssertionError(f"{name} disagrees with the shipped "
+                                 f"kernel: {agree[name]}")
+    report.append(emit("agreement", variants=agree))
+
+    ms, times = in_turns(runs, args.rounds, lambda r: time_ms(r, args.reps))
+    report.append(emit("kernel_ms", reps=args.reps, rounds=args.rounds,
+                       median=ms, all=times))
+
+    # What the tiles need, and what a CTA that leaves only at a batch's end
+    # walks at each batch size.
+    need = evals[2:].to(torch.int64)
+    count = tc.to(torch.int64)
+    walked = {b: int(torch.minimum(count, (need + b - 1) // b * b).sum())
+              for b in (32, 64, 128, 256)}
+    report.append(emit(
+        "pairs_needed_per_tile", **chip_smoke.visited_histogram(need),
+        evaluations=int(evals[0]), needed=int(evals[1]),
+        in_stream=int(count.sum()), walked_by_batch=walked,
+        tiles_over_1024=int((need > 1024).sum()),
+        tiles_unsaturated_over_1024=int(((need == count) & (count > 1024))
+                                        .sum()),
+        max_count=int(count.max())))
+
+    # The tail: per-SM busy spans, in SM cycles.
+    for name in ("v1-clock", "v2-clock"):
+        if name in runs:
+            report.append(emit("tail", variant=name,
+                               **busy_spans(runs[name], clk, args.reps)))
+
+
+def main_rowsum(args, report: list) -> None:
+    first_version = args.first_version or F_FIRST_VERSION
+    if not first_version.exists():
+        report.append(emit("first_version_missing", path=str(first_version),
+                           left_out=["v1"]))
+        first_version = None
+    libs = build_all(first_version, "rowsum")
+    report.append(emit("build", variants={k: v[1] for k, v in libs.items()}))
+    rows11, ranks, n_out = captured_backward(args.seed, "rank_rowsum")
+    ng, p_len = rows11.shape[0] - 1, rows11.shape[1]
+    out = torch.empty((ng, n_out), dtype=torch.float32, device=rows11.device)
+    stream = torch.cuda.current_stream(rows11.device).cuda_stream
+
+    def runner(name):
+        lib, _ = libs[name]
+        a = (rows11.data_ptr(), ranks.data_ptr(), out.data_ptr(), ng, p_len,
+             n_out, stream)
+
+        def run():
+            rc = lib.sg_rank_rowsum(*a)
+            if rc != 0:
+                raise RuntimeError(f"{name}: CUDA error {rc}")
+        return run
+
+    runs = {name: runner(name) for name in libs}
+    want = segreduce.rank_rowsum_plain(rows11, ranks, n_out)
+    top = float(want.abs().max())
+    agree = {}
+    for name, run in runs.items():
+        if not F_VARIANTS[name][2]:
+            continue
+        run()
+        torch.cuda.synchronize()
+        err = float((out - want).abs().max())
+        rel = float(((out - want).abs()
+                     / (1e-4 * want.abs() + 1e-5 * top)).max())
+        agree[name] = dict(max_abs_err=err, of_tolerance=rel)
+        if rel > 1.0:
+            raise AssertionError(f"{name} disagrees with the plain version: "
+                                 f"{agree[name]} (largest |sum| {top})")
+    report.append(emit("agreement", largest_sum=top, variants=agree))
+    ms, host = in_turns(runs, args.rounds, lambda r: time_ms(r, args.reps))
+    ms_q, queued = in_turns(runs, args.rounds,
+                            lambda r: chip_smoke.time_ms_queued(r, args.reps))
+    report.append(emit(
+        "kernel_ms", reps=args.reps, rounds=args.rounds, median=ms,
+        median_behind_a_busy_card=ms_q, all=host,
+        all_behind_a_busy_card=queued,
+        bound_ms=chip_smoke.bound(4 * ((ng + 1) * p_len + ng * n_out))[0],
+        shape=[ng + 1, p_len, n_out]))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=tuple(MODES), default="bwd",
+                    help="kernel E (bwd), D (fwd) or F (rowsum)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--rounds", type=int, default=3)
-    ap.add_argument("--first-version", type=Path, default=FIRST_VERSION,
-                    help="composite_bwd.cu as it stood before the redesign")
+    ap.add_argument("--first-version", type=Path, default=None,
+                    help="the kernel's source as it stood before its "
+                         "redesign")
     ap.add_argument("--out", type=Path, default=None,
                     help="also write the whole report to this file")
     args = ap.parse_args()
@@ -279,7 +723,15 @@ def main():
         print("bwd_ablation: needs a CUDA card", file=sys.stderr)
         sys.exit(1)
     report = []
-    first_version = args.first_version
+    {"fwd": main_fwd, "rowsum": main_rowsum,
+     "bwd": main_bwd}[args.kernel](args, report)
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(report, indent=1))
+
+
+def main_bwd(args, report: list) -> None:
+    first_version = args.first_version or FIRST_VERSION
     if not first_version.exists():
         report.append(emit("first_version_missing", path=str(first_version),
                            left_out=[k for k, v in VARIANTS.items() if v[0]]))
@@ -339,11 +791,7 @@ def main():
     report.append(emit("agreement", largest_grad=top, variants=agree))
 
     # Times, in turns.
-    times = {name: [] for name in runs}
-    for _ in range(args.rounds):
-        for name, run in runs.items():
-            times[name].append(time_ms(run, args.reps))
-    ms = {name: statistics.median(v) for name, v in times.items()}
+    ms, times = in_turns(runs, args.rounds, lambda r: time_ms(r, args.reps))
     report.append(emit("kernel_ms", reps=args.reps, rounds=args.rounds,
                        median=ms, all=times))
 
@@ -367,34 +815,12 @@ def main():
 
     # The tail: per-SM busy spans of the first version, in SM cycles.
     if "v1-clock" in runs:
-        runs["v1-clock"]()
-        torch.cuda.synchronize()
-        wall_ms = time_ms(runs["v1-clock"], args.reps)
-        c = clk.cpu()
-        dur = (c[:, 1] - c[:, 0]).double()
-        spans = []
-        for sm in torch.unique(c[:, 2]).tolist():
-            m = c[:, 2] == sm
-            spans.append(float(c[m, 1].max() - c[m, 0].min()))
-        spans_t = torch.tensor(spans)
-        report.append(emit(
-            "tail", sms=len(spans), wall_ms=wall_ms,
-            span_cycles=dict(min=float(spans_t.min()),
-                             mean=float(spans_t.mean()),
-                             max=float(spans_t.max())),
-            mean_span_over_longest=float(spans_t.mean() / spans_t.max()),
-            cta_cycles=dict(sum=float(dur.sum()), mean=float(dur.mean()),
-                            max=float(dur.max())),
-            mean_ctas_resident_per_sm=float(dur.sum() / spans_t.sum()),
-            longest_cta_over_longest_span=float(dur.max() / spans_t.max())))
+        report.append(emit("tail", **busy_spans(runs["v1-clock"], clk,
+                                                args.reps)))
 
     # Visited pairs a tile.
     report.append(emit("visited_pairs_per_tile",
                        **chip_smoke.visited_histogram(nvis)))
-
-    if args.out is not None:
-        args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(json.dumps(report, indent=1))
 
 
 if __name__ == "__main__":

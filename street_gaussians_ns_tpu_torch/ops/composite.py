@@ -24,12 +24,14 @@ the (rows_pad, 16, 128) stream, the JAX layout kept bit for bit; rows past
 the pair capacity are zero sentinels. Bound by memory bandwidth.
 
 Kernel D, `composite_fwd` (replaces `composite_pallas.py:_fwd_kernel`,
-CUDA in `csrc/composite_fwd.cu`): one CTA per 16x16 tile, one thread per
-pixel, a running transmittance product per pixel, pairs staged through
-shared memory, the CTA exits when all its pixels are done. Its bound is
-the larger of the stream's bytes and ~16 float32 operations per evaluated
-(pixel, pair); at full width the bytes are larger, and the kernel runs
-~4x above them, its densest tiles (18k pairs) each serialized on one SM.
+CUDA in `csrc/composite_fwd.cu`): one CTA per 16x16 tile, a running
+transmittance product per pixel, the CTA exits when all its pixels are
+done. Its bound is the larger of the needed pairs' bytes and ~16 float32
+operations per evaluated (pixel, pair); on the card it is bound by
+instruction issue, so, as in kernel E, a thread owns four pixels of its
+tile (64 threads a tile) and evaluates them branch-free, a pair's features
+are staged as 12 adjacent floats (three 16-byte loads), pairs come in
+batches of 64 and a warp leaves a batch once its pixels are done.
 
 Kernel E, `composite_bwd` (replaces `composite_pallas.py:_bwd_kernel`,
 CUDA in `csrc/composite_bwd.cu`): the forward replayed per pixel up to its
@@ -83,6 +85,7 @@ K = 128               # pairs per stream row
 NFEAT = 16            # feature rows per stream row
 RANK_ROW = 10         # stream row that carries the pair's depth rank
 NGRAD = 10            # gradient rows: x, y, conic (3), opacity, 4 colours
+FWD_THREADS = PIX // 4    # kernel D's CTA: four pixels a thread
 BWD_THREADS = PIX // 4    # kernel E's CTA: four pixels a thread
 
 PACK_KERNEL = _cuda.register(_cuda.Kernel(
@@ -260,10 +263,11 @@ def composite_fwd(feat, tile_start, tile_count, ntx: int, nc: int,
     of launches that hands T_final on as the next t_in then ends every
     pixel where one launch over all the pairs would.
     tile0 places the T tiles at [tile0, tile0 + T) of the image's tile
-    grid; the ranges and outputs stay indexed from 0. `evals` (a (2,)
+    grid; the ranges and outputs stay indexed from 0. `evals` (a (2 + T,)
     int64 CUDA tensor), when given, has the evaluated (pixel, pair) count
-    added to [0] and the pairs the tiles needed (per tile the most any
-    pixel evaluated) to [1]; it is a measurement aid, CUDA only."""
+    added to [0], the pairs the tiles needed (per tile the most any pixel
+    evaluated) added to [1], and tile t's own need written to [2 + t]; it
+    is a measurement aid, CUDA only."""
     if feat.dim() != 3 or tuple(feat.shape[1:]) != (NFEAT, K):
         raise ValueError(f"feat must be (rows, {NFEAT}, {K}), got "
                          f"{tuple(feat.shape)}")
@@ -286,7 +290,7 @@ def composite_fwd(feat, tile_start, tile_count, ntx: int, nc: int,
     for name, t in (("tile_start", tile_start), ("tile_count", tile_count)):
         _cuda.check(t, name, torch.int32)
     if evals is not None:
-        _cuda.check(evals, "evals", torch.int64, shape=(2,))
+        _cuda.check(evals, "evals", torch.int64, shape=(2 + num_tiles,))
     dev = feat.device
     accum = torch.empty((num_tiles, PIX, nc), dtype=torch.float32,
                         device=dev)

@@ -7,19 +7,20 @@ tile) pair; `rank_rowsum` sums them per gaussian, keyed by the depth rank
 that rides the feature stream. It replaces
 `segreduce_pallas.py:_ranksum_kernel`, a rank-equality one-hot matmul on
 the MXU. The CUDA kernel (`csrc/ranksum.cu`) uses that the ranks are
-sorted: one thread per output rank finds its contiguous run by binary
-search and sums it in pair order, a warp sharing the long runs. It is
-bound by memory bandwidth (the rows once, the sums once) and uses no
-atomics, so its sums do not change from run to run.
+sorted, so every rank's pairs are one contiguous run: it zeroes the output
+and launches over the pairs, a block owning the runs that start in its
+span of 1,024 pairs, and a segmented scan keyed on the run heads sums each
+run in one fixed order (coalesced loads, no search per rank). It is bound
+by memory bandwidth (the rows once, the sums once) and uses no atomics,
+so its sums do not change from run to run.
 
 The unfused rasterizer's backward brings its gradient rows back to
 expansion order, where every gaussian's pairs are one contiguous run
 whose bounds the bins carry; `segment_rowsum` sums the runs. It replaces
 `segreduce_pallas.py:_segsum_kernel` (a one-hot of the bounds contracted
-on the MXU, bf16 inputs). The CUDA kernel (`csrc/segsum.cu`) is kernel F
-without the search: one thread per segment sums its run in pair order in
-float32, a warp sharing the long runs; bound by memory bandwidth, no
-atomics.
+on the MXU, bf16 inputs). The CUDA kernel (`csrc/segsum.cu`): one thread
+per segment sums its run in pair order in float32, a warp sharing the
+long runs; bound by memory bandwidth, no atomics.
 """
 from __future__ import annotations
 

@@ -6,17 +6,20 @@ so they run on a machine with a card and no JAX:
 
 Without a card they skip. Tolerances: the scan, the expansion and the
 pack are exact; the compositor is built without multiply-add contraction
-(ops/_cuda.py) and so rounds as its plain version does: n_contrib equal,
-accum and T at atol 2e-5. The flat scan is one launch with look-back
+(ops/_cuda.py) and so forms sigma, alpha and T as its plain version does:
+n_contrib equal on every pixel, accum (whose colour sums use fused
+multiply-adds) and T at atol 2e-5. The flat scan is one launch with look-back
 between its blocks: int32 sums, int32 and float32 maxima are exact and
 repeat bit for bit on one stream or two; the float32 sum is held at rtol
 1e-5 of the largest running sum against a float64 sum and repeats bit for
 bit. The backward compositor replays the forward bit
 for bit but adds its 256 pixels in registers and a shuffle tree where the
 plain version uses torch.sum: rtol 1e-4 with atol 1e-5 of the largest
-gradient, the rank row exact. The rank sum adds a run in pair order like index_add_ on the
-CPU, but a warp shares runs above 32 pairs: rtol 1e-5 / atol 1e-5; the
-segment sum likewise. The row scans: int32 exact, the float32 sum at rtol
+gradient, the rank row exact. The rank sum adds a run in another order
+than index_add_ on the CPU: rtol 1e-5 / atol 1e-5 against it, and bit for
+bit the numpy model of its order (tests/test_torch_redesign_df.py); the
+segment sum adds a run in pair order, a warp sharing runs above 32 pairs:
+rtol 1e-5 / atol 1e-5. The row scans: int32 exact, the float32 sum at rtol
 1e-5 of the column's largest running magnitude. The compositors' t_in
 mode is held as the plain launches are; a tile0 strip must equal the same
 tiles of the full launch bit for bit."""
@@ -29,6 +32,7 @@ from street_gaussians_ns_tpu_torch.core.projection import project
 from street_gaussians_ns_tpu_torch.ops import (_cuda, composite, expand, scan,
                                                segreduce)
 from street_gaussians_ns_tpu_torch.ops.tiles import bin_and_pack
+from test_torch_redesign_df import F_CASES, _case, ranksum_model
 
 
 @pytest.fixture
@@ -289,6 +293,120 @@ def test_composite_bwd_kernel_every_mode(cuda, nc, with_tin, tile0):
     assert int(evals[1]) == int(nvis.sum()) and int(evals[0]) >= int(evals[2])
 
 
+def _fwd_case(cuda, scene):
+    """A stream for kernel D: "faint" has tiles deeper than two 64-pair
+    batches and pixels that never saturate, "opaque" pixels that saturate
+    within a few pairs; every fifth tile's count is 0."""
+    if scene == "faint":
+        feat, bins = _binned_stream(7, 3000, 200, 120, op_scale=0.15)
+    else:
+        feat, bins = _binned_stream(2, 1500, 70, 50, opaque=True)
+    tc = bins.tile_count.clone()
+    tc[::5] = 0
+    return (feat.to(cuda), bins.tile_start.to(cuda), tc.to(cuda),
+            bins.num_tiles_x)
+
+
+def _fwd_against_plain(feat, ts, tc, ntx, nc, **kw):
+    """Kernel D once, counted, against its plain version; the strip of the
+    tiles from 13 on, bit for bit; two launches bit for bit. Returns the
+    kernel's outputs and each tile's need."""
+    evals = torch.zeros(2 + ts.numel(), dtype=torch.int64, device=ts.device)
+    before = composite.FWD_KERNEL.launches
+    got = composite.composite_fwd(feat, ts, tc, ntx, nc, evals=evals, **kw)
+    assert composite.FWD_KERNEL.launches == before + 1
+    want = composite.composite_fwd_plain(feat, ts, tc, ntx, nc, **kw)
+    assert torch.equal(got[2], want[2])             # every pixel
+    for g, x in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, x, atol=2e-5, rtol=0)
+    assert torch.equal(got[1] < 0, want[1] < 0)
+    again = composite.composite_fwd(feat, ts, tc, ntx, nc, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+    t0 = 13
+    sl = slice(t0, ts.numel() - 7)
+    t_in = kw.get("t_in")
+    part = composite.composite_fwd(
+        feat, ts[sl].contiguous(), tc[sl].contiguous(), ntx, nc, tile0=t0,
+        t_in=t_in[sl].contiguous() if t_in is not None else None,
+        mark_done=kw.get("mark_done", False))
+    assert all(torch.equal(a, b[sl]) for a, b in zip(part, got))
+    need = evals[2:]
+    assert int(need.sum()) == int(evals[1]) and bool((need <= tc).all())
+    assert int(evals[0]) <= 256 * int(evals[1])
+    return got, need
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc", [1, 2, 3, 4])
+@pytest.mark.parametrize("scene", ["faint", "opaque"])
+def test_composite_fwd_kernel_every_case(cuda, scene, nc):
+    """Kernel D at every colour count: n_contrib equal to the plain
+    version on every pixel, tiles of count 0, tiles deeper than a batch
+    whose pixels never saturate (the tile walks its whole range), tiles
+    that leave early, strips and repeats bit for bit."""
+    feat, ts, tc, ntx = _fwd_case(cuda, scene)
+    (acc, tfin, ncon), need = _fwd_against_plain(feat, ts, tc, ntx, nc)
+    empty = tc == 0
+    assert bool(empty.any()) and not need[empty].any()
+    assert not acc[empty].any() and not ncon[empty].any()
+    assert bool((tfin[empty] == 1.0).all())
+    if scene == "faint":
+        assert int(need.max()) > 2 * 64
+        never = (need == tc) & (tc > 64)        # walked the whole range
+        assert bool(never.any()) and bool((tfin[never] > 1e-4).all())
+    else:
+        assert bool(((need < tc) & (tc > 64)).any())   # left early
+        assert float(tfin.median()) < 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc", [1, 2, 3, 4])
+@pytest.mark.parametrize("mark_done", [False, True])
+def test_composite_fwd_kernel_t_in_every_case(cuda, nc, mark_done):
+    """Kernel D continuing a transmittance: pixels that arrive done
+    (<= 1e-4, or negative), tiles whose every pixel arrives done, and a
+    t_in with every pixel of every tile done, which leaves every tile at
+    once."""
+    feat, ts, tc, ntx = _fwd_case(cuda, "faint")
+    g = torch.Generator(device=cuda).manual_seed(nc)
+    t_in = torch.rand((ts.numel(), 256), device=cuda, generator=g) * 0.9 + 0.1
+    t_in[:, ::7] = 5e-5
+    t_in[:, 1::7] *= -1.0
+    t_in[3::11] = 2e-5
+    kw = dict(mark_done=mark_done)
+    (acc, tfin, ncon), need = _fwd_against_plain(feat, ts, tc, ntx, nc,
+                                                 t_in=t_in, **kw)
+    arrived = t_in <= 1e-4
+    assert torch.equal(tfin[arrived].abs(), t_in[arrived].abs())
+    assert not acc[arrived].any() and not ncon[arrived].any()
+    assert not need[3::11].any() and bool(need.any())
+    done = -t_in.abs()
+    (acc, tfin, ncon), need = _fwd_against_plain(feat, ts, tc, ntx, nc,
+                                                 t_in=done, **kw)
+    assert not need.any() and not acc.any() and not ncon.any()
+    assert torch.equal(tfin, done if mark_done else t_in.abs())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", F_CASES)
+def test_ranksum_kernel_equals_its_model(cuda, name):
+    """Kernel F on the CPU model's cases: bit for bit the model's order
+    of additions, the plain version at rtol 1e-4 + atol 1e-5 of the
+    largest |sum|, two launches bit-equal."""
+    rows, ranks, num_out = _case(name)
+    r = torch.from_numpy(rows).to(cuda)
+    k = torch.from_numpy(ranks).to(cuda)
+    before = segreduce.KERNEL.launches
+    got = segreduce.rank_rowsum(r, k, num_out)
+    assert segreduce.KERNEL.launches == before + 1
+    assert torch.equal(got.cpu(),
+                       torch.from_numpy(ranksum_model(rows, ranks, num_out)))
+    want = segreduce.rank_rowsum_plain(r.cpu(), k.cpu(), num_out)
+    top = float(want.abs().max())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5 * top)
+    assert torch.equal(got, segreduce.rank_rowsum(r, k, num_out))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("p_len,n_out,long_run", [
     (0, 50, 0), (1, 1, 0), (12345, 700, 0), (40000, 3000, 9000),
@@ -297,7 +415,7 @@ def test_ranksum_kernel_matches_plain(cuda, p_len, n_out, long_run):
     rng = np.random.default_rng(p_len)
     ranks = rng.integers(0, n_out + 1, size=p_len)
     if long_run:
-        ranks[:long_run] = n_out // 3          # one rank owns a long run
+        ranks[:long_run] = n_out // 3          # a run over several blocks
     if n_out > 100:
         ranks[ranks == 7] = 8                  # a rank with no pairs
     ranks = np.sort(ranks).astype(np.int32)
@@ -311,6 +429,8 @@ def test_ranksum_kernel_matches_plain(cuda, p_len, n_out, long_run):
     want = segreduce.rank_rowsum_plain(rows.cpu(), r.cpu(), n_out)
     assert tuple(got.shape) == (10, n_out)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got.cpu(), torch.from_numpy(ranksum_model(
+        rows.cpu().numpy(), ranks, n_out)))
     if n_out > 100:
         assert not got[:, 7].any()
     assert torch.equal(got, segreduce.rank_rowsum(rows, r, n_out))
