@@ -1,8 +1,8 @@
-"""Where the time of kernels E, D and F goes: ablations of a kernel's
+"""Where the time of kernels E, D, F, G and H goes: ablations of a kernel's
 first version and of the choices of its redesign, timed on the main path's
 own launch.
 
-    python3 bwd_ablation.py [--kernel bwd|fwd|rowsum]
+    python3 bwd_ablation.py [--kernel bwd|fwd|rowsum|segsum|rowscan]
                             [--first-version PATH] [--out FILE]
 
 Measurement only; nothing of the port imports it. Needs one CUDA card and
@@ -64,6 +64,29 @@ bit for bit, accum at atol 2e-5. The report adds the pairs each tile
 needed (from the shipped kernel's `evals`), the pairs a tile walks at each
 batch size, and the per-SM busy spans of both versions.
 
+`--kernel segsum`, kernel G, on the arguments of the unfused route's
+segment sum (camera 0 of the flagship scene, one render and backward):
+its first version (a thread per segment; `segsum.cu` beside
+`--first-version`'s default) and the shipped kernel (4 warps over 128
+segments) as it is, with 8 warps over 256 segments (built for 3 and for 5
+blocks an SM), groups of 64 and 256 segments, 2 warps over 64, built for
+6 and 8 blocks an SM (`__launch_bounds__`), 2 and 10 rows a pass, 2 and
+8 pairs a lane, and with per-CTA clocks (the per-SM busy spans); the
+groups' spans. Every variant is held
+to the plain version at rtol 1e-4 + atol 1e-5 of the largest |sum|.
+
+`--kernel rowscan`, kernel H, at the three shapes of chip_smoke.py's
+row_scan_path: its first version (the three-launch tree; `scan_rows.cu`
+beside `--first-version`'s default) and the shipped kernel as it is, with
+16 elements a thread (twice the tiles), with 1, 2 and 8 look-back rounds
+kept, built for 1 and 3 blocks an SM, without its look-back (every tile
+taking the identity as its prefix: wrong by design, the streaming floor),
+and with per-tile counters of the look-back (its clock cycles, rounds,
+the distance to the INCLUSIVE met, the re-polls of a round that met an
+EMPTY, the first round's cycles, the cycles from the ticket to the
+look-back). int32 and max are held bit for bit to the shipped kernel,
+the float32 sum at rtol 1e-5 of the column's largest against float64.
+
 `--kernel rowsum`, kernel F, on the arguments of the rank sum of the
 full-width training step's backward: its first version (a thread per
 output rank; `ranksum.cu` beside `--first-version`'s default) and the
@@ -91,7 +114,8 @@ from pathlib import Path
 import torch
 
 import chip_smoke
-from street_gaussians_ns_tpu_torch.ops import _cuda, composite, segreduce
+from street_gaussians_ns_tpu_torch.ops import (_cuda, composite, scan,
+                                               segreduce)
 
 OUT_DIR = _cuda.BUILD_DIR / "ablation"
 SHIPPED = _cuda.CSRC / "composite_bwd.cu"
@@ -101,6 +125,10 @@ FWD_SHIPPED = _cuda.CSRC / "composite_fwd.cu"
 FWD_FIRST_VERSION = FIRST_VERSION.with_name("composite_fwd.cu")
 F_SHIPPED = _cuda.CSRC / "ranksum.cu"
 F_FIRST_VERSION = FIRST_VERSION.with_name("ranksum.cu")
+G_SHIPPED = _cuda.CSRC / "segsum.cu"
+G_FIRST_VERSION = FIRST_VERSION.with_name("segsum.cu")
+H_SHIPPED = _cuda.CSRC / "scan_rows.cu"
+H_FIRST_VERSION = FIRST_VERSION.with_name("scan_rows.cu")
 
 # Both sources get this behind their include: the tile order and the clock
 # buffer reach a patched kernel through two device globals, so that the
@@ -403,12 +431,130 @@ F_VARIANTS = {
 }
 # Both versions' entry point: rows, ranks, out, ng, p_len, num_out, stream.
 F_ARGTYPES = [VP, VP, VP, INT, ctypes.c_longlong, INT, VP]
+# Kernel G.
+G_CLOCK_START = "  const int nseg = (int)min((long long)GROUP, num_seg - g0);\n"
+G_PATCHES = {
+    "t64": [("constexpr int THREADS = 128;\n", "constexpr int THREADS = 64;\n")],
+    "t256": [("constexpr int THREADS = 128;\n",
+              "constexpr int THREADS = 256;\n")],
+    "group64": [("constexpr int GROUP = 128; ", "constexpr int GROUP = 64; ")],
+    "group256": [("constexpr int GROUP = 128; ",
+                  "constexpr int GROUP = 256; ")],
+    "mb3": [("constexpr int MIN_BLOCKS = 5; ",
+             "constexpr int MIN_BLOCKS = 3; ")],
+    "mb6": [("constexpr int MIN_BLOCKS = 5; ",
+             "constexpr int MIN_BLOCKS = 6; ")],
+    "mb8": [("constexpr int MIN_BLOCKS = 5; ",
+             "constexpr int MIN_BLOCKS = 8; ")],
+    "rows2": [("constexpr int ROWS = 5; ", "constexpr int ROWS = 2; ")],
+    "rows10": [("constexpr int ROWS = 5; ", "constexpr int ROWS = 10; ")],
+    "items2": [("constexpr int ITEMS = 4; ", "constexpr int ITEMS = 2; ")],
+    "items8": [("constexpr int ITEMS = 4; ", "constexpr int ITEMS = 8; ")],
+    "clock": [
+        (G_CLOCK_START,
+         G_CLOCK_START + "  const long long clk_start = clock64();\n"),
+        ("      }\n    }\n  }\n}\n\n}  // namespace",
+         "      }\n    }\n  }\n" + CLOCK_END.split("\n\ntemplate")[0]
+         + "\n\n}  // namespace")],
+}
+# The shipped kernel: 4 warps over 128 segments, up to 102 registers.
+G_VARIANTS = {
+    "v1": (True, (), True),
+    "v2": (False, (), True),
+    "v2-t256-group256-mb3": (False, ("t256", "group256", "mb3"), True),
+    "v2-t256-group256": (False, ("t256", "group256"), True),
+    "v2-group64": (False, ("group64",), True),
+    "v2-group256": (False, ("group256",), True),
+    "v2-t64-group64": (False, ("t64", "group64"), True),
+    "v2-mb6": (False, ("mb6",), True),
+    "v2-mb8": (False, ("mb8",), True),
+    "v2-rows2": (False, ("rows2",), True),
+    "v2-rows10": (False, ("rows10",), True),
+    "v2-items2": (False, ("items2",), True),
+    "v2-items8": (False, ("items8",), True),
+    "v2-clock": (False, ("clock",), True),
+}
+# Both versions' entry point: rows, starts, ends, out, nrows, p_len,
+# num_seg, stream.
+G_ARGTYPES = [VP, VP, VP, VP, INT, ctypes.c_longlong, INT, VP]
+
+# Kernel H. "stats" writes, per tile, the look-back's clock cycles, its
+# rounds (re-polls included) and how far back column 0 met an INCLUSIVE.
+H_PATCHES = {
+    "pt16": [("constexpr int PER_THREAD = 32; ",
+              "constexpr int PER_THREAD = 16; ")],
+    "win1": [("constexpr int WINDOWS = 4; ", "constexpr int WINDOWS = 1; ")],
+    "win2": [("constexpr int WINDOWS = 4; ", "constexpr int WINDOWS = 2; ")],
+    "win8": [("constexpr int WINDOWS = 4; ", "constexpr int WINDOWS = 8; ")],
+    "lb1": [("constexpr int MIN_BLOCKS = 4; ",
+             "constexpr int MIN_BLOCKS = 1; ")],
+    "lb3": [("constexpr int MIN_BLOCKS = 4; ",
+             "constexpr int MIN_BLOCKS = 3; ")],
+    "nolookback": [("    if (tile > 0) {\n      // The whole block looks back",
+                    "    if (false) {\n      // The whole block looks back")],
+    "stats": [
+        ("  unsigned tile = 0, tag = 0;\n",
+         "  unsigned tile = 0, tag = 0;\n"
+         "  const long long abl_start = clock64();\n"),
+        ("      unsigned todo = (1u << C) - 1u;\n",
+         "      unsigned todo = (1u << C) - 1u;\n"
+         "      const long long abl_t0 = clock64();\n"
+         "      long long abl_first = -1;\n"
+         "      int abl_rounds = 0, abl_empty = 0;\n"),
+        ("        const int slot = w < WINDOWS ? w : WINDOWS - 1;\n",
+         "        const int slot = w < WINDOWS ? w : WINDOWS - 1;\n"
+         "        ++abl_rounds;\n"),
+        ("          if (!__syncthreads_or(empty)) break;\n",
+         "          if (!__syncthreads_or(empty)) break;\n"
+         "          ++abl_empty;\n"),
+        ("        // A column already settled keeps",
+         "        if (abl_first < 0) abl_first = clock64() - abl_t0;\n"
+         "        // A column already settled keeps"),
+        ("      if (warp == 0 && lane < C) {\n        // Forward from",
+         "      if (tid == 0) {\n"
+         "        long long* r = abl_clk + H_STATS * (long long)tile;\n"
+         "        r[0] = clock64() - abl_t0;\n"
+         "        r[1] = abl_rounds;\n"
+         "        r[2] = 1 + s_near[0];\n"
+         "        r[3] = abl_empty;\n"
+         "        r[4] = abl_first;\n"
+         "        r[5] = abl_t0 - abl_start;\n"
+         "      }\n"
+         "      if (warp == 0 && lane < C) {\n        // Forward from"),
+        ("constexpr int MAX_C = 16;\n",
+         "constexpr int MAX_C = 16;\nconstexpr int H_STATS = 6;\n")],
+}
+# The per-tile fields the "stats" variant writes.
+H_STATS = ("lookback_cycles", "rounds", "distance", "empty_repolls",
+           "first_round_cycles", "cycles_to_lookback")
+H_VARIANTS = {
+    "v1": (True, (), True),
+    "v2": (False, (), True),
+    "v2-pt16": (False, ("pt16",), True),
+    "v2-win1": (False, ("win1",), True),
+    "v2-win2": (False, ("win2",), True),
+    "v2-win8": (False, ("win8",), True),
+    "v2-lb1": (False, ("lb1",), True),
+    "v2-lb3": (False, ("lb3",), True),
+    "v2-nolookback": (False, ("nolookback",), False),
+    "v2-stats": (False, ("stats",), True),
+}
+# The shipped entry point: x, out, scratch, scratch_words, m, c, dtype, op,
+# stream; the first version's had no scratch_words and took a scratch of
+# its own layout (H_V1_ARGTYPES).
+H_ARGTYPES = [VP, VP, VP, ctypes.c_longlong, ctypes.c_longlong, INT, INT,
+              INT, VP]
+H_V1_ARGTYPES = [VP, VP, VP, ctypes.c_longlong, INT, INT, INT, VP]
 MODES = {
     "bwd": (VARIANTS, PATCHES, SHIPPED, "sg_composite_bwd", ARGTYPES),
     "fwd": (FWD_VARIANTS, FWD_PATCHES, FWD_SHIPPED, "sg_composite_fwd",
             FWD_ARGTYPES),
     "rowsum": (F_VARIANTS, F_PATCHES, F_SHIPPED, "sg_rank_rowsum",
                F_ARGTYPES),
+    "segsum": (G_VARIANTS, G_PATCHES, G_SHIPPED, "sg_segment_rowsum",
+               G_ARGTYPES),
+    "rowscan": (H_VARIANTS, H_PATCHES, H_SHIPPED, "sg_scan_rows",
+                H_ARGTYPES),
 }
 
 
@@ -695,21 +841,193 @@ def main_rowsum(args, report: list) -> None:
             raise AssertionError(f"{name} disagrees with the plain version: "
                                  f"{agree[name]} (largest |sum| {top})")
     report.append(emit("agreement", largest_sum=top, variants=agree))
+    _in_turns_both(
+        runs, args, report,
+        bound_ms=chip_smoke.bound(4 * ((ng + 1) * p_len + ng * n_out))[0],
+        shape=[ng + 1, p_len, n_out])
+
+
+def captured_unfused(seed: int):
+    """The arguments of the unfused route's segment_rowsum at full width
+    (camera 0 of the flagship scene, one render and backward)."""
+    chip_smoke.phase_device()
+    store, tracks, cfg, rcfg, cam0, _ = chip_smoke.phase_main(seed)
+    calls, _ = chip_smoke.phase_unfused(store, tracks, cfg, rcfg, cam0)
+    args, _ = calls["segment_rowsum"]
+    return args
+
+
+def _in_turns_both(runs, args, report, **fields):
+    """Times on the host's clock and behind a busy card, in turns."""
     ms, host = in_turns(runs, args.rounds, lambda r: time_ms(r, args.reps))
     ms_q, queued = in_turns(runs, args.rounds,
                             lambda r: chip_smoke.time_ms_queued(r, args.reps))
-    report.append(emit(
-        "kernel_ms", reps=args.reps, rounds=args.rounds, median=ms,
-        median_behind_a_busy_card=ms_q, all=host,
-        all_behind_a_busy_card=queued,
-        bound_ms=chip_smoke.bound(4 * ((ng + 1) * p_len + ng * n_out))[0],
-        shape=[ng + 1, p_len, n_out]))
+    report.append(emit("kernel_ms", reps=args.reps, rounds=args.rounds,
+                       median=ms, median_behind_a_busy_card=ms_q, all=host,
+                       all_behind_a_busy_card=queued, **fields))
+
+
+def main_segsum(args, report: list) -> None:
+    first_version = args.first_version or G_FIRST_VERSION
+    if not first_version.exists():
+        report.append(emit("first_version_missing", path=str(first_version),
+                           left_out=["v1"]))
+        first_version = None
+    libs = build_all(first_version, "segsum")
+    report.append(emit("build", variants={k: v[1] for k, v in libs.items()}))
+    rows, starts, ends = captured_unfused(args.seed)
+    c, p_len = rows.shape
+    n_seg = starts.shape[0]
+    out = torch.empty((c, n_seg), dtype=torch.float32, device=rows.device)
+    stream = torch.cuda.current_stream(rows.device).cuda_stream
+    blocks = -(-n_seg // 64)          # the most any variant launches
+    clk = torch.zeros((blocks, 3), dtype=torch.int64, device=rows.device)
+
+    def runner(name):
+        lib, _ = libs[name]
+        rc = lib.abl_set(None, clk.data_ptr())
+        if rc != 0:
+            raise RuntimeError(f"{name}: CUDA error {rc}")
+        a = (rows.data_ptr(), starts.data_ptr(), ends.data_ptr(),
+             out.data_ptr(), c, p_len, n_seg, stream)
+
+        def run():
+            rc = lib.sg_segment_rowsum(*a)
+            if rc != 0:
+                raise RuntimeError(f"{name}: CUDA error {rc}")
+        return run
+
+    runs = {name: runner(name) for name in libs}
+    want = segreduce.segment_rowsum_plain(rows, starts, ends)
+    top = float(want.abs().max())
+    agree = {}
+    for name, run in runs.items():
+        run()
+        torch.cuda.synchronize()
+        err = float((out - want).abs().max())
+        rel = float(((out - want).abs()
+                     / (1e-4 * want.abs() + 1e-5 * top)).max())
+        agree[name] = dict(max_abs_err=err, of_tolerance=rel)
+        if rel > 1.0:
+            raise AssertionError(f"{name} disagrees with the plain version: "
+                                 f"{agree[name]} (largest |sum| {top})")
+    report.append(emit("agreement", largest_sum=top, variants=agree))
+    lens = (ends - starts).to(torch.int64)
+    covered = int(lens.sum())
+    _in_turns_both(runs, args, report, shape=[c, p_len, n_seg],
+                   bound_ms=chip_smoke.bound(
+                       4 * (c * covered + 2 * n_seg + c * n_seg))[0])
+    # The groups' spans (pairs a block walks) and their windows of 128
+    # pairs at the shipped group size.
+    g = int(re.search(r"constexpr int GROUP = (\d+);",
+                      G_SHIPPED.read_text()).group(1))
+    nz = lens > 0
+    lo = torch.where(nz, starts.to(torch.int64), torch.full_like(lens, 1 << 40))
+    hi = torch.where(nz, ends.to(torch.int64), torch.full_like(lens, -1))
+    pad = (-n_seg) % g
+    lo = torch.cat([lo, lo.new_full((pad,), 1 << 40)]).view(-1, g).amin(1)
+    hi = torch.cat([hi, hi.new_full((pad,), -1)]).view(-1, g).amax(1)
+    span = (hi - lo).clamp(min=0)
+    report.append(emit("spans", groups=int(span.numel()),
+                       **chip_smoke.quantiles(span.double()),
+                       windows=int(((span + 127) // 128).sum()),
+                       empty_groups=int((span == 0).sum())))
+    if "v2-clock" in runs:
+        report.append(emit("tail", variant="v2-clock",
+                           **busy_spans(runs["v2-clock"], clk[:-(-n_seg // g)],
+                                        args.reps)))
+
+
+def main_rowscan(args, report: list) -> None:
+    first_version = args.first_version or H_FIRST_VERSION
+    if not first_version.exists():
+        report.append(emit("first_version_missing", path=str(first_version),
+                           left_out=["v1"]))
+        first_version = None
+    libs = build_all(first_version, "rowscan")
+    if "v1" in libs:
+        libs["v1"][0].sg_scan_rows.argtypes = H_V1_ARGTYPES
+    report.append(emit("build", variants={k: v[1] for k, v in libs.items()}))
+    chip_smoke.phase_device()
+    calls, _ = chip_smoke.phase_row_scans(args.seed)
+    dev = torch.device("cuda")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for op, x in calls["scan_rows"]:
+        m, c = x.shape
+        dtype = 0 if x.dtype == torch.int32 else 1
+        opc = 0 if op == "add" else 1
+        out = torch.empty_like(x)
+        rows_per_tile = 256 * (32 // c)
+        tiles = -(-m // (256 * (16 // c)))        # the most any variant has
+        scratch = torch.zeros(2 + 16 * tiles, dtype=torch.int64, device=dev)
+        # The first version's scratch: its three-level tree of totals.
+        v1_scratch = torch.empty(2 * tiles * c, dtype=x.dtype, device=dev)
+        clk = torch.zeros((tiles, len(H_STATS)), dtype=torch.int64,
+                          device=dev)
+
+        def runner(name, x=x, out=out, scratch=scratch, clk=clk,
+                   v1_scratch=v1_scratch, m=m, c=c, dtype=dtype, opc=opc):
+            lib, _ = libs[name]
+            rc = lib.abl_set(None, clk.data_ptr())
+            if rc != 0:
+                raise RuntimeError(f"{name}: CUDA error {rc}")
+            if name == "v1":
+                a = (x.data_ptr(), out.data_ptr(), v1_scratch.data_ptr(), m,
+                     c, dtype, opc, stream)
+            else:
+                a = (x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                     scratch.numel(), m, c, dtype, opc, stream)
+
+            def run():
+                rc = lib.sg_scan_rows(*a)
+                if rc != 0:
+                    raise RuntimeError(f"{name}: CUDA error {rc}")
+            return run
+
+        runs = {name: runner(name) for name in libs}
+        want = (scan.cummax_rows(x) if op == "max" else scan.cumsum_rows(x))
+        exact = x.dtype == torch.int32 or op == "max"
+        # The float32 sum against float64 (torch.cumsum along dim 0 takes
+        # about a second here: once per shape).
+        ref = want.double() if exact else torch.cumsum(x.double(), 0)
+        top = ref.abs().amax(dim=0, keepdim=True)
+        agree = {}
+        for name, run in runs.items():
+            run()
+            torch.cuda.synchronize()
+            if not H_VARIANTS[name][2]:
+                continue
+            same = torch.equal(out, want)
+            rel = float(((out.double() - ref).abs() / (1e-5 * top + 1e-6))
+                        .max())
+            agree[name] = dict(bit_equal_to_shipped=same, of_tolerance=rel)
+            if (exact and not same) or rel > 1.0:
+                raise AssertionError(f"{name} disagrees: {agree[name]}")
+        del ref, top
+        report.append(emit("agreement", shape=[m, c], op=op,
+                           variants=agree))
+        _in_turns_both(runs, args, report, shape=[m, c], op=op,
+                       dtype=str(x.dtype),
+                       bound_ms=chip_smoke.bound(2 * 4 * x.numel())[0])
+        if "v2-stats" in runs:
+            clk.zero_()
+            runs["v2-stats"]()
+            torch.cuda.synchronize()
+            n = -(-m // rows_per_tile)
+            st = clk[1:n].double().cpu()
+            report.append(emit(
+                "lookback", shape=[m, c], op=op, tiles=n,
+                **{f: chip_smoke.quantiles(st[:, i])
+                   for i, f in enumerate(H_STATS)},
+                tiles_past_one_round=int((st[:, 2] > 32).sum())))
+        del out, scratch, v1_scratch, clk
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=tuple(MODES), default="bwd",
-                    help="kernel E (bwd), D (fwd) or F (rowsum)")
+                    help="kernel E (bwd), D (fwd), F (rowsum), G (segsum) "
+                         "or H (rowscan)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--rounds", type=int, default=3)
@@ -723,8 +1041,8 @@ def main():
         print("bwd_ablation: needs a CUDA card", file=sys.stderr)
         sys.exit(1)
     report = []
-    {"fwd": main_fwd, "rowsum": main_rowsum,
-     "bwd": main_bwd}[args.kernel](args, report)
+    {"fwd": main_fwd, "rowsum": main_rowsum, "segsum": main_segsum,
+     "rowscan": main_rowscan, "bwd": main_bwd}[args.kernel](args, report)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(report, indent=1))

@@ -68,10 +68,13 @@ Phases, each printing one JSON line:
                 every pixel; E also as the fused routes call it (into an
                 undefined buffer), with the time of the zero fill it
                 spares; F also behind a busy card, beside index_add_, with
-                the pairs a rank owns. A line of its own before the
-                `kernels` line quotes the times rows A, E, D and F had
-                before their redesign; every number in the `kernels` line
-                itself is this run's.
+                the pairs a rank owns; G and H counted for device launches
+                a call (1) and also timed behind a busy card, G beside
+                index_add_, H's float32 sum repeated 200 times over two
+                streams. A line of its own before the `kernels` line
+                quotes the times rows A, E, D, F, G and H had before their
+                redesign; every number in the `kernels` line itself is
+                this run's.
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
@@ -153,12 +156,16 @@ class Size:
 
 FLAGSHIP = Size()
 REPS = 20                          # launches per kernel timing
-# Quoted, not measured here: the times of rows A, E, D and F before the
-# kernels were redesigned (PERF.md section 6; NVIDIA H100 80GB HBM3, 700 W).
-# Printed on a line of their own, never in the `kernels` line.
+# Quoted, not measured here: the times of rows A, E, D, F, G and H before
+# the kernels were redesigned (PERF.md section 6; NVIDIA H100 80GB HBM3,
+# 700 W). Printed on a line of their own, never in the `kernels` line.
 EARLIER_MS = {"flat_scan": 0.111, "composite_bwd": 1.298,
               "composite_bwd[t_in]": 0.135, "composite_fwd": 0.367,
-              "composite_fwd[t_in]": 0.0376, "rank_rowsum": 0.162}
+              "composite_fwd[t_in]": 0.0376, "rank_rowsum": 0.162,
+              "segment_rowsum": 0.187,
+              "scan_rows[(4456448, 6) int32 max]": 0.227,
+              "scan_rows[(4456448, 8) int32 max]": 0.283,
+              "scan_rows[(4456448, 16) float32 add]": 0.600}
 SCAN_REPEATS = 200                 # launches of the look-back race check
 E_PLAIN_DEPTH = 3072               # deepest tile the plain backward replays
 
@@ -1549,6 +1556,30 @@ def scan_race_check(x, repeats: int = SCAN_REPEATS) -> None:
                              f"two streams differ from the first")
 
 
+def rows_race_check(fn, x, repeats: int = SCAN_REPEATS) -> None:
+    """Kernel H's tiles hand their totals on through global memory:
+    `repeats` launches alternating between two streams (each with a
+    scratch of its own) must all give the first launch's bits. Each
+    result is compared on its own stream and dropped, so at most a few
+    are alive at once."""
+    want = fn(x)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    bad = [torch.zeros((), dtype=torch.int64, device=x.device)
+           for _ in streams]
+    for i in range(repeats):
+        with torch.cuda.stream(streams[i % 2]):
+            got = fn(x)
+            bad[i % 2] += (got.view(torch.int32)
+                           != want.view(torch.int32)).any()
+            del got
+    torch.cuda.synchronize()
+    n_bad = int(sum(b.item() for b in bad))
+    if n_bad:
+        raise AssertionError(f"scan_rows: {n_bad} of {repeats} launches on "
+                             f"two streams differ from the first")
+
+
 def ptxas_entries(log: str) -> dict:
     """Mangled kernel name -> (registers, spill store bytes, static shared
     memory bytes) from an `nvcc -Xptxas -v` log."""
@@ -2013,8 +2044,16 @@ def phase_kernels(calls, launches, train_launches, sliced_launches,
     if not torch.equal(got, segreduce.segment_rowsum(rows_cm, starts, ends)):
         raise AssertionError("segment_rowsum: two launches on the same "
                              "inputs differ")
+    per_call = _cuda.captured_launches(
+        segreduce.SEG_KERNEL,
+        lambda: segreduce.segment_rowsum(rows_cm, starts, ends))
+    if per_call != 1:
+        raise AssertionError(f"segment_rowsum: a call made {per_call} "
+                             f"device launches, expected 1")
     ms = time_ms(lambda: segreduce.segment_rowsum(rows_cm, starts, ends),
                  reps)
+    queued = time_ms_queued(lambda: segreduce.segment_rowsum(
+        rows_cm, starts, ends), reps)
     plain = time_ms(lambda: segreduce.segment_rowsum_plain(rows_cm, starts,
                                                            ends), reps)
     lens = (ends - starts).to(torch.int64)
@@ -2028,9 +2067,12 @@ def phase_kernels(calls, launches, train_launches, sliced_launches,
         raise AssertionError("segment_rowsum: the captured runs do not tile "
                              "[0, covered)")
     vals = rows_cm[:, :covered]
-    lib = time_ms(lambda: torch.zeros(
-        (rows_cm.shape[0], n_seg), dtype=torch.float32,
-        device=vals.device).index_add_(1, seg_ids, vals), reps)
+
+    def index_add():
+        return torch.zeros((rows_cm.shape[0], n_seg), dtype=torch.float32,
+                           device=vals.device).index_add_(1, seg_ids, vals)
+    lib = time_ms(index_add, reps)
+    lib_queued = time_ms_queued(index_add, reps)
     b, by = bound(4 * (rows_cm.shape[0] * covered + 2 * n_seg
                        + rows_cm.shape[0] * n_seg))
     rows.append(dict(name="segment_rowsum", route="cuda",
@@ -2044,6 +2086,9 @@ def phase_kernels(calls, launches, train_launches, sliced_launches,
                      bound_by=by, library_ms=lib,
                      library="torch.Tensor.index_add_ (segment ids prepared "
                              "outside the timing)",
+                     device_launches_per_call=[per_call],
+                     ms_behind_a_busy_card=queued,
+                     library_ms_behind_a_busy_card=lib_queued,
                      shapes=[list(rows_cm.shape), n_seg],
                      covered_pairs=covered, longest_run=int(lens.max()),
                      runs_over_32=int((lens > 32).sum()),
@@ -2053,8 +2098,8 @@ def phase_kernels(calls, launches, train_launches, sliced_launches,
     # micro-benchmark. int32 exact; the float32 sum at rtol 1e-5 of the
     # column's largest running magnitude (its association differs from
     # torch.cumsum's).
-    ms = plain = lib = nbytes = err = 0.0
-    shapes = []
+    ms = plain = lib = nbytes = err = queued_ms = 0.0
+    shapes, per_call = [], []
     for op, x in calls["scan_rows"]:
         fn, fn_plain = ((scan.cummax_rows, scan.cummax_rows_plain)
                         if op == "max" else
@@ -2088,18 +2133,29 @@ def phase_kernels(calls, launches, train_launches, sliced_launches,
         if not torch.equal(got, fn(x)):
             raise AssertionError("scan_rows: two launches differ")
         del got, want
+        if x.dtype == torch.float32 and op == "add":
+            rows_race_check(fn, x)
+        n_dev = _cuda.captured_launches(scan.ROWS_KERNEL, lambda: fn(x))
+        per_call.append(n_dev)
         one = time_ms(lambda: fn(x), reps)
+        one_q = time_ms_queued(lambda: fn(x), reps)
+        queued_ms += one_q
         ms += one
         plain += one_plain
         lib += one_plain      # the plain version is the library call
         nbytes += 2 * 4 * x.numel()
         shapes.append(dict(shape=list(x.shape), dtype=str(x.dtype), op=op,
-                           ms=one, library_ms=one_plain,
+                           ms=one, ms_behind_a_busy_card=one_q,
+                           device_launches_per_call=n_dev,
+                           library_ms=one_plain,
                            plain_float32_abs_err=(
                                plain_err if x.dtype == torch.float32
                                else None),
                            bound_ms=2 * 4 * x.numel() / HBM_BYTES_PER_S
                            * 1e3))
+    if any(n != 1 for n in per_call):
+        raise AssertionError(f"scan_rows: a call made {per_call} device "
+                             f"launches, expected 1 each")
     b, by = bound(nbytes)
     rows.append(dict(name="scan_rows", route="cuda",
                      source=_rel(_cuda.CSRC / scan.ROWS_KERNEL.source),
@@ -2108,7 +2164,10 @@ def phase_kernels(calls, launches, train_launches, sliced_launches,
                      tolerance="int32 exact; float32 sum rtol 1e-5 of the "
                                "column's largest, against the plain version "
                                "in float64; two launches bit-equal",
-                     ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                     ms=ms, ms_behind_a_busy_card=queued_ms,
+                     device_launches_per_call=per_call,
+                     repeats_on_two_streams_equal=SCAN_REPEATS,
+                     plain_ms=plain, bound_ms=b, bound_by=by,
                      library_ms=lib,
                      library="torch.cummax / torch.cumsum along dim 0",
                      on_render_path=False, shapes=shapes))

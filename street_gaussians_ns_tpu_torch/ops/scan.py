@@ -25,11 +25,17 @@ tensors.
 Kernel H, `cumsum_rows`/`cummax_rows`, scans a row-major (M, C) array
 along axis 0 and replaces `scan_pallas.py:_scan_kernel`, whose one carry
 row passes from grid step to grid step. The CUDA kernel
-(`csrc/scan_rows.cu`) is a three-phase tree (slab scans writing slab
-totals, a scan of the totals, then the offsets) over slabs of rows
-staged through shared memory; int32 results are exact (sums wrap), the
-float32 sum's association differs from a serial sum's. No render path of
-either package calls the row scans.
+(`csrc/scan_rows.cu`) is kernel A's design for rows: one launch, tiles of
+256 x (32 // C) rows taken by ticket and staged through shared memory,
+each tile's C column totals published as one 8-byte {tag, state, value}
+word a column and its prefix found by looking back; the output is
+written once. Its scratch is kept per (device, stream) as A's is; the
+descriptors carry the launch's tag, so only the two counter words are
+reset (by the last block), and a call allocates and clears nothing. int32 results are exact (sums wrap);
+the float32 sum folds the tile totals left to right from the nearest
+published running total, so it is the same from launch to launch (its
+association differs from a serial sum's). No render path of either
+package calls the row scans.
 """
 from __future__ import annotations
 
@@ -69,17 +75,19 @@ def _scratch_len(n: int) -> int:
 _scratch: dict = {}
 
 
-def _scratch_for(device: torch.device, stream: int,
-                 words: int) -> torch.Tensor:
-    """The calling stream's scratch, grown to at least `words` words. It
-    is allocated (and zeroed) on the current stream, which is the stream
-    it is keyed by."""
+def _scratch_for(device: torch.device, stream: int, words: int,
+                 table: dict | None = None) -> torch.Tensor:
+    """The calling stream's scratch, grown to at least `words` 8-byte
+    words, from `table` (kernel A's `_scratch` unless given). It is
+    allocated (and zeroed) on the current stream, which is the stream it
+    is keyed by."""
+    table = _scratch if table is None else table
     key = (device.index, stream)
-    buf = _scratch.get(key)
+    buf = table.get(key)
     if buf is None or buf.numel() < words:
         size = max(_MIN_SCRATCH, 1 << (words - 1).bit_length())
         buf = torch.zeros(size, dtype=torch.int64, device=device)
-        _scratch[key] = buf
+        table[key] = buf
     return buf
 
 
@@ -140,23 +148,30 @@ ROWS_KERNEL = _cuda.register(_cuda.Kernel(
     replaces="street_gaussians_ns_tpu/ops/scan_pallas.py:126 _scan_kernel",
     entries={"sg_scan_rows": (ctypes.c_void_p, ctypes.c_void_p,
                               ctypes.c_void_p, ctypes.c_longlong,
-                              ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                              ctypes.c_void_p)},
+                              ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_int, ctypes.c_void_p)},
 ))
 
 ROWS_MAX_C = 16
-_ROWS_THREADS, _ROWS_PER_THREAD = 256, 32   # csrc/scan_rows.cu
+# csrc/scan_rows.cu: threads a block, elements a thread at most, counter
+# words, descriptor words a tile.
+_ROWS_THREADS, _ROWS_PER_THREAD, _ROWS_HEAD, _ROWS_SLOTS = 256, 32, 2, 16
+
+# (device index, stream handle) -> the stream's row-scan scratch, kept as
+# kernel A's is.
+_rows_scratch: dict = {}
+
+
+def rows_per_tile(c: int) -> int:
+    return _ROWS_THREADS * (_ROWS_PER_THREAD // c)
 
 
 def _rows_scratch_len(m: int, c: int) -> int:
-    """Column totals of every recursion level of
-    csrc/scan_rows.cu:scan_rows_rec."""
-    rows_per_block = _ROWS_THREADS * (_ROWS_PER_THREAD // c)
-    total = 0
-    while m > rows_per_block:
-        m = -(-m // rows_per_block)
-        total += m * c
-    return max(total, 1)
+    """8-byte words of look-back scratch an (m, c) scan needs: two counter
+    words and 16 descriptor words a tile; none where one tile holds the
+    array."""
+    tiles = -(-m // rows_per_tile(c))
+    return _ROWS_HEAD + _ROWS_SLOTS * tiles if tiles > 1 else 0
 
 
 def _check_rows(x: torch.Tensor) -> None:
@@ -181,11 +196,14 @@ def _scan_rows(x: torch.Tensor, op: str) -> torch.Tensor:
     m, c = x.shape
     if m == 0:
         return out
-    scratch = torch.empty(_rows_scratch_len(m, c), dtype=x.dtype,
-                          device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    words = _rows_scratch_len(m, c)
+    scratch = (_scratch_for(x.device, stream, words, _rows_scratch)
+               if words else None)
     ROWS_KERNEL.launch("sg_scan_rows", _cuda.ptr(x), _cuda.ptr(out),
-                       _cuda.ptr(scratch), m, c, _DTYPES[x.dtype], _OPS[op],
-                       _cuda.stream(x))
+                       scratch.data_ptr() if words else None,
+                       scratch.numel() if words else 0, m, c,
+                       _DTYPES[x.dtype], _OPS[op], stream)
     return out
 
 

@@ -18,9 +18,13 @@ The unfused rasterizer's backward brings its gradient rows back to
 expansion order, where every gaussian's pairs are one contiguous run
 whose bounds the bins carry; `segment_rowsum` sums the runs. It replaces
 `segreduce_pallas.py:_segsum_kernel` (a one-hot of the bounds contracted
-on the MXU, bf16 inputs). The CUDA kernel (`csrc/segsum.cu`): one thread
-per segment sums its run in pair order in float32, a warp sharing the
-long runs; bound by memory bandwidth, no atomics.
+on the MXU, bf16 inputs). The CUDA kernel (`csrc/segsum.cu`) is kernel
+F's design without its search: a block takes 128 consecutive segments,
+its warps take the windows of 128 pairs of their covered span in turn,
+each summing the runs whose head lies in it, coalesced, with the run
+heads and ends marked from the bounds and the same segmented scan in one
+fixed order; empty runs are written as 0 by the thread that loads them. Bound by
+memory bandwidth; every output written once, so no memset and no atomics.
 """
 from __future__ import annotations
 

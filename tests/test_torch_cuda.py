@@ -18,9 +18,11 @@ plain version uses torch.sum: rtol 1e-4 with atol 1e-5 of the largest
 gradient, the rank row exact. The rank sum adds a run in another order
 than index_add_ on the CPU: rtol 1e-5 / atol 1e-5 against it, and bit for
 bit the numpy model of its order (tests/test_torch_redesign_df.py); the
-segment sum adds a run in pair order, a warp sharing runs above 32 pairs:
-rtol 1e-5 / atol 1e-5. The row scans: int32 exact, the float32 sum at rtol
-1e-5 of the column's largest running magnitude. The compositors' t_in
+segment sum likewise (rtol 1e-4 + atol 1e-5 of the largest |sum|, and bit
+for bit its model in tests/test_torch_redesign_gh.py). The row scans:
+int32 exact, the float32 sum at rtol 1e-5 of the column's largest running
+magnitude against float64, bit for bit their model, one device launch a
+call, 200 launches over two streams equal. The compositors' t_in
 mode is held as the plain launches are; a tile0 strip must equal the same
 tiles of the full launch bit for bit."""
 import numpy as np
@@ -33,6 +35,8 @@ from street_gaussians_ns_tpu_torch.ops import (_cuda, composite, expand, scan,
                                                segreduce)
 from street_gaussians_ns_tpu_torch.ops.tiles import bin_and_pack
 from test_torch_redesign_df import F_CASES, _case, ranksum_model
+from test_torch_redesign_gh import (G_CASES, g_case, h_rows, rowscan_model,
+                                    segsum_model)
 
 
 @pytest.fixture
@@ -533,6 +537,123 @@ def test_scan_rows_kernel_matches_plain(cuda, m, c):
     assert bool(((got.double() - want).abs() <= 1e-5 * top + 1e-6).all())
     assert torch.equal(got, scan.cumsum_rows(xf))
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", G_CASES)
+def test_segsum_kernel_equals_its_model(cuda, name):
+    """Kernel G on the CPU model's cases: bit for bit the model's order of
+    additions, the plain version at rtol 1e-4 + atol 1e-5 of the largest
+    |sum|, two launches bit-equal, one device launch a call."""
+    rows, starts, ends = g_case(name)
+    r = torch.from_numpy(rows).to(cuda)
+    st, en = torch.from_numpy(starts).to(cuda), torch.from_numpy(ends).to(cuda)
+    before = segreduce.SEG_KERNEL.launches
+    got = segreduce.segment_rowsum(r, st, en)
+    assert segreduce.SEG_KERNEL.launches == before + 1
+    assert torch.equal(got.cpu(), torch.from_numpy(
+        segsum_model(rows, starts, ends)))
+    want = segreduce.segment_rowsum_plain(r.cpu(), st.cpu(), en.cpu())
+    top = max(float(want.abs().max()) if want.numel() else 0.0, 1.0)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5 * top)
+    assert torch.equal(got, segreduce.segment_rowsum(r, st, en))
+    assert _cuda.captured_launches(
+        segreduce.SEG_KERNEL,
+        lambda: segreduce.segment_rowsum(r, st, en)) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", list(range(1, 17)))
+def test_segsum_kernel_every_width(cuda, c):
+    rng = np.random.default_rng(100 + c)
+    counts = rng.integers(0, 12, 5000)
+    counts[rng.random(5000) < 0.25] = 0
+    counts[2000] = 3000
+    ends = np.cumsum(counts).astype(np.int32)
+    starts = (ends - counts).astype(np.int32)
+    rows = rng.standard_normal((c, int(ends[-1]))).astype(np.float32)
+    got = segreduce.segment_rowsum(torch.from_numpy(rows).to(cuda),
+                                   torch.from_numpy(starts).to(cuda),
+                                   torch.from_numpy(ends).to(cuda))
+    assert torch.equal(got.cpu(), torch.from_numpy(
+        segsum_model(rows, starts, ends)))
+
+
+ROWSCAN_SHAPES = [(c, m) for c in range(1, 17)
+                  for m in (1, h_rows(c) - 3, 5 * h_rows(c) + 17)] + \
+    [(6, 700_001), (8, 700_001), (16, 700_001), (1, 2_000_003)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,m", ROWSCAN_SHAPES)
+def test_scan_rows_kernel_equals_its_model(cuda, c, m):
+    """Kernel H: bit for bit its numpy model (the float32 sum too), the
+    plain version exact for int32 and float32 max, the float32 sum at
+    rtol 1e-5 of the column's largest against float64; two launches
+    bit-equal; one device launch a call, counted once."""
+    rng = np.random.default_rng(m + c)
+    xi = rng.integers(-50, 1000, size=(m, c)).astype(np.int32)
+    xi[rng.random((m, c)) < 0.7] = -1
+    xf = rng.standard_normal((m, c)).astype(np.float32)
+    for x in (xi, xf):
+        xd = torch.from_numpy(x).to(cuda)
+        for opname, fn, plain in (
+                ("add", scan.cumsum_rows, scan.cumsum_rows_plain),
+                ("max", scan.cummax_rows, scan.cummax_rows_plain)):
+            before = scan.ROWS_KERNEL.launches
+            got = fn(xd)
+            assert scan.ROWS_KERNEL.launches == before + 1
+            model, _ = rowscan_model(x, opname)
+            assert torch.equal(got.cpu(), torch.from_numpy(model)), \
+                (opname, x.dtype)
+            if x.dtype == np.float32 and opname == "add":
+                want = plain(xd.double())
+                top = want.abs().amax(dim=0, keepdim=True)
+                assert bool(((got.double() - want).abs()
+                             <= 1e-5 * top + 1e-6).all())
+            else:
+                assert torch.equal(got, plain(xd))
+            assert torch.equal(fn(xd), got)
+            assert _cuda.captured_launches(scan.ROWS_KERNEL,
+                                           lambda: fn(xd)) == 1
+    # A view that starts off a 16-byte boundary takes the scalar loads.
+    if m > 2:
+        xv = torch.from_numpy(xf).to(cuda).reshape(-1)[1:1 + (m - 1) * c]
+        xv = xv.view(m - 1, c)
+        assert torch.equal(scan.cummax_rows(xv),
+                           scan.cummax_rows(xv.clone()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,op", [("int32", "add"), ("int32", "max"),
+                                      ("float32", "max"), ("float32", "add")])
+def test_scan_rows_repeats_on_one_stream_and_on_two(cuda, dtype, op):
+    """200 launches give one result, and so do launches interleaved on two
+    streams (each stream has a scratch of its own)."""
+    fn = scan.cumsum_rows if op == "add" else scan.cummax_rows
+    rng = np.random.default_rng(0)
+    xs = []
+    for i, c in enumerate((16, 6)):
+        m = 600_000 - 7 * i
+        x = (rng.integers(-9, 9, (m, c)).astype(np.int32) if dtype == "int32"
+             else rng.standard_normal((m, c)).astype(np.float32))
+        xs.append(torch.from_numpy(x).to(cuda))
+    want = [fn(x) for x in xs]
+    torch.cuda.synchronize()
+    for _ in range(200):
+        assert torch.equal(fn(xs[0]), want[0])
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = [[], []]
+    for _ in range(100):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                outs[i].append(fn(xs[i]))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for o in outs[i]:
+            assert torch.equal(o, want[i])
+    assert len({k for k in scan._rows_scratch if k[1] in
+                {st.cuda_stream for st in streams}}) == 2
 
 def _two_window_streams(cuda, seed=0, n=3000, w=200, h=120, opaque=False):
     """A scene binned in two depth windows of equal gaussian count, on the

@@ -81,10 +81,11 @@ def test_int32_sum_wraps():
 
 
 def test_row_scan_scratch_and_bad_input():
-    # One level of block totals per 256 * (32 // C) rows, then the totals'.
-    assert tscan._rows_scratch_len(100, 6) == 1
-    assert tscan._rows_scratch_len(1281, 6) == 2 * 6
-    assert tscan._rows_scratch_len(4_456_448, 16) == (8704 + 17) * 16
+    # A tile of 256 * (32 // C) rows needs no scratch alone; more tiles
+    # need 2 counter words and 16 descriptor words a tile (8 bytes each).
+    assert tscan._rows_scratch_len(100, 6) == 0
+    assert tscan._rows_scratch_len(1281, 6) == 2 + 2 * 16
+    assert tscan._rows_scratch_len(4_456_448, 16) == 2 + 8704 * 16
     assert tuple(tscan.cumsum_rows(torch.zeros((0, 3),
                                                dtype=torch.int32)).shape) \
         == (0, 3)
