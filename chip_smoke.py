@@ -55,10 +55,33 @@ Phases, each printing one JSON line:
  12. row_scan_path  kernel H, which no render path of either package
                 calls, through its entry points cumsum_rows / cummax_rows at
                 the three shapes of the JAX package's micro-benchmark;
- 13. kernels    every kernel of these paths, on the inputs captured from
+ 13. cli_path   the entry points a user runs, on a clip on disk at full
+                width: write_clip writes 10 frames of 1600x1056 (PNG renders
+                of a seeded truth scene by the port, segs with the top third
+                sky), a COLMAP model with 1,000,000 points in the corridor,
+                annotation.json with 4 moving vehicles and 30,000 LiDAR
+                points each; then scripts.train.main (the defaults but the
+                paths, 100 steps, a checkpoint every 50: SH degree 3, Fourier
+                dims 1 / 5, the 1024 sky cubemap, capacities 2^20 / 2^15;
+                the refine pass at step 100, the eval split at the end),
+                scripts.eval.main, scripts.render.main (rgb, accumulation,
+                background_rgb, object_rgb, gt-rgb, and depth where OpenCV
+                imports), scripts.export.main. Checks: the loss finite and
+                falling, both checkpoints, finite PSNR / SSIM / LPIPS, the
+                PSNR equal to a direct render of the restored state (1e-3
+                dB), a PNG per eval frame and head, the exported rows equal
+                to the active counts, kernels A-F launched in training and
+                A-D in eval + render (the counts set to 0 before each), no
+                capacity overflow, the native COLMAP reader used. Prints the
+                trainer's construction split, steps/s, the refine pass,
+                checkpoint, eval_setup, eval, render and export times, the
+                peak memory and the card machine's Pillow and OpenCV;
+ 14. kernels    every kernel of these paths, on the inputs captured from
                 them, against its plain version, with its time, the plain
                 version's time, a PyTorch library call's time where one
-                computes the same function, and its bound; D and E also in
+                computes the same function (for C the JAX package's own
+                off-TPU formulation: a stack and a transposing copy), and
+                its bound; D and E also in
                 their t_in mode and with a tile0 strip held bit for bit
                 against the full launch; A also in float32, counted for
                 device launches a call (1) and repeated 200 times over two
@@ -85,8 +108,10 @@ import dataclasses
 import json
 import math
 import re
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -102,8 +127,12 @@ from street_gaussians_ns_tpu_torch.core.cameras import (  # noqa: E402
 from street_gaussians_ns_tpu_torch.core.cameras import viewmat_from_c2w  # noqa: E402
 from street_gaussians_ns_tpu_torch.core.projection import (  # noqa: E402
     coverage_q, project)
+from street_gaussians_ns_tpu_torch.data import colmap_io  # noqa: E402
+from street_gaussians_ns_tpu_torch.data.ply_io import (  # noqa: E402
+    read_ply, write_ply)
 from street_gaussians_ns_tpu_torch.engine import optimizers  # noqa: E402
 from street_gaussians_ns_tpu_torch.engine import scene_train_step as sts  # noqa: E402
+from street_gaussians_ns_tpu_torch.engine import trainer as trainer_mod  # noqa: E402
 from street_gaussians_ns_tpu_torch.engine.checkpoints import (  # noqa: E402
     store_from_numpy, tracks_from_numpy, train_state_from_numpy)
 from street_gaussians_ns_tpu_torch.models import refinement  # noqa: E402
@@ -116,6 +145,12 @@ from street_gaussians_ns_tpu_torch.ops import (  # noqa: E402
     composite, expand, scan, segreduce, tiles)
 from street_gaussians_ns_tpu_torch.ops.render import (  # noqa: E402
     RenderConfig, rasterize, render)
+from street_gaussians_ns_tpu_torch.ops.ssim import psnr  # noqa: E402
+from street_gaussians_ns_tpu_torch.scripts import eval as eval_cli  # noqa: E402
+from street_gaussians_ns_tpu_torch.scripts import export as export_cli  # noqa: E402
+from street_gaussians_ns_tpu_torch.scripts import render as render_cli  # noqa: E402
+from street_gaussians_ns_tpu_torch.scripts import train as train_cli  # noqa: E402
+from street_gaussians_ns_tpu_torch.utils.optional import pillow_image  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
@@ -1507,6 +1542,361 @@ def phase_row_scans(seed: int, rows: int = ROW_SCAN_ROWS, dev="cuda"):
     return {"scan_rows": inputs}, launches
 
 
+# ---------------------------------------------------------------------------
+# The entry points on a clip on disk.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Clip:
+    """The clip cli_path writes and how long it trains."""
+
+    frames: int = 10
+    points: int = 1_000_000        # points3D.bin, under the 2^20 default
+    objects: int = 4
+    obj_points: int = 30_000       # each vehicle's LiDAR, under 2^15
+    steps: int = 100
+    save_every: int = 50
+    size: Size = FLAGSHIP
+    train_flags: tuple = ()        # more sgnt-train flags (the rehearsal's)
+
+
+CLIP = Clip()
+CLIP_TS0 = 1_557_000_000_000_000   # 16-digit microsecond stamps
+CLIP_DT_US = 100_000               # 0.1 s between frames
+CLIP_HEADS = ["rgb", "accumulation", "background_rgb", "object_rgb",
+              "gt-rgb"]
+SKY_ID = 27                        # Mapillary sky
+
+
+def clip_truth(seed: int, clip: Clip = CLIP):
+    """The seeded scene graph a clip is made from: make_scene's corridor
+    with clip.points background gaussians and clip.objects vehicles of
+    clip.obj_points, on tracks over the clip's frames; the times are the
+    clip's stamps as the data parser maps them (seconds from the first)."""
+    store, _ = make_scene(seed, clip.points, clip.objects, clip.obj_points,
+                          env_res=64)
+    f32 = np.float32
+    F, O = clip.frames, clip.objects
+    lanes = np.array([-3.0, 3.0, -1.5, 1.5], f32)
+    centers = np.zeros((F, O, 3), f32)
+    quats = np.zeros((F, O, 4), f32)
+    for f in range(F):
+        for o in range(O):
+            centers[f, o] = (lanes[o % 4], -1.2, -(10.0 + 9.0 * o) - 1.2 * f)
+            yaw = 0.1 * (o - 1.5) + 0.03 * f
+            quats[f, o] = (math.cos(yaw / 2), 0.0, math.sin(yaw / 2), 0.0)
+    stamps = CLIP_TS0 + CLIP_DT_US * np.arange(F, dtype=np.int64)
+    tracks = {
+        "times": ((stamps - stamps[0]).astype(np.float64) * 1e-6).astype(f32),
+        "centers": centers, "quats": quats,
+        "valid": np.ones((F, O), bool),
+        "sizes": np.tile(np.array([[2.4, 1.6, 4.8]], f32), (O, 1)),
+        "obj_first": np.zeros((O,), f32),
+        "obj_last": np.full((O,), F - 1, f32),
+    }
+    store["delta_center"] = np.zeros((F, O, 3), f32)
+    store["delta_yaw"] = np.zeros((F, O), f32)
+    store["delta_rot"] = np.zeros((F, O, 3), f32)
+    return store, tracks, stamps
+
+
+def _rgb8(dc0: np.ndarray) -> np.ndarray:
+    """SH DC row -> the uint8 colour it renders at."""
+    return (np.clip(dc0 * SH_C0 + 0.5, 0.0, 1.0) * 255).astype(np.uint8)
+
+
+def write_clip(root: Path, seed: int, clip: Clip = CLIP, dev="cuda"):
+    """A clip in tests/test_data.write_clip's layout, at full width, from
+    clip_truth(seed): COLMAP binary model (one PINHOLE camera, the frames,
+    points3D.bin of the background means), transform.json, PNG images
+    rendered from the truth by the port on the card, segs/ with the top
+    third sky, annotation.json with the vehicles' boxes, and each
+    vehicle's LiDAR as aggregate_lidar/dynamic_objects/<gid>.ply. Returns
+    the seconds it took, by part."""
+    Image = pillow_image()
+    t0 = time.perf_counter()
+    store_np, tracks_np, stamps = clip_truth(seed, clip)
+    names = [f"cam1/{s}.png" for s in stamps]
+    recon = root / "colmap" / "sparse" / "0"
+    recon.mkdir(parents=True)
+    w, h, focal = clip.size.width, clip.size.height, clip.size.focal
+    with open(recon / "cameras.bin", "wb") as f:
+        f.write(struct.pack("<Q", 1))
+        f.write(struct.pack("<iiQQ", 1, 1, w, h))          # PINHOLE
+        f.write(struct.pack("<4d", focal, focal, w / 2, h / 2))
+    c2ws = []
+    with open(recon / "images.bin", "wb") as f:
+        f.write(struct.pack("<Q", len(names)))
+        for i, name in enumerate(names):
+            c2w = np.eye(4)
+            c2w[2, 3] = -1.5 * i                   # OpenGL, down the corridor
+            c2ws.append(c2w[:3].astype(np.float32))
+            cv = c2w.copy()
+            cv[:3, 1:3] *= -1                      # OpenGL -> OpenCV
+            w2c = np.linalg.inv(cv)
+            f.write(struct.pack("<idddddddi", i + 1,
+                                *colmap_io.rotmat2qvec(w2c[:3, :3]),
+                                *w2c[:3, 3], 1))
+            f.write(name.encode() + b"\x00")
+            f.write(struct.pack("<Q", 0))
+    rec = np.zeros(clip.points, np.dtype([
+        ("id", "<u8"), ("xyz", "<f8", 3), ("rgb", "u1", 3), ("err", "<f8"),
+        ("track", "<u8")]))
+    rec["id"] = np.arange(clip.points)
+    rec["xyz"] = store_np["background/params/means"]
+    rec["rgb"] = _rgb8(store_np["background/params/features_dc"][:, 0])
+    rec["err"] = 0.5
+    with open(recon / "points3D.bin", "wb") as f:
+        f.write(struct.pack("<Q", clip.points))
+        f.write(rec.tobytes())
+    with open(root / "transform.json", "w") as f:
+        json.dump({"frames": [
+            {"file_path": f"images/{n}", "timestamp": int(s),
+             "transform_matrix": np.eye(4).tolist()}
+            for n, s in zip(names, stamps)]}, f)
+    lidar = root / "aggregate_lidar" / "dynamic_objects"
+    lidar.mkdir(parents=True)
+    boxes = []
+    for f_idx, s in enumerate(stamps):
+        boxes.append({"timestamp": int(s), "objects": [
+            {"gid": f"veh{o}", "type": "car", "is_moving": True,
+             "translation": tracks_np["centers"][f_idx, o].tolist(),
+             "rotation": tracks_np["quats"][f_idx, o].tolist(),
+             "size": tracks_np["sizes"][o].tolist()}
+            for o in range(clip.objects)]})
+    with open(root / "annotation.json", "w") as f:
+        json.dump({"frames": boxes}, f)
+    for o in range(clip.objects):
+        xyz = store_np["objects/params/means"][o]
+        rgb = _rgb8(store_np["objects/params/features_dc"][o, :, 0])
+        write_ply(lidar / f"veh{o}.ply", {
+            "x": xyz[:, 0], "y": xyz[:, 1], "z": xyz[:, 2],
+            "red": rgb[:, 0], "green": rgb[:, 1], "blue": rgb[:, 2]})
+    seg = np.zeros((h, w), np.uint8)
+    seg[: h // 3] = SKY_ID
+    files_s = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    cfg = scene_config(3, 64, 5)
+    store = store_from_numpy(store_np, cfg, device=dev)
+    tracks = tracks_from_numpy(tracks_np, device=dev)
+    del store_np
+    cams = [Camera.make(focal, focal, w / 2, h / 2, c2w, w, h, time=t,
+                        device=dev)
+            for c2w, t in zip(c2ws, tracks_np["times"])]
+    max_pairs, max_rowruns, _, _ = size_capacity(store, tracks, cfg, cams)
+    rcfg = RenderConfig(max_pairs=max_pairs, max_rowruns=max_rowruns)
+    for name, cam in zip(names, cams):
+        with torch.no_grad():
+            rgb = forward_scene(store, tracks, cam, 0, cfg, rcfg)[0]["rgb"]
+        img = root / "images" / name
+        img.parent.mkdir(parents=True, exist_ok=True)
+        Image.fromarray((rgb.cpu().numpy() * 255).astype(np.uint8)).save(img)
+        sp = root / "segs" / name
+        sp.parent.mkdir(parents=True, exist_ok=True)
+        Image.fromarray(seg).save(sp)
+    del store
+    return {"files_s": files_s, "render_and_png_s": time.perf_counter() - t1,
+            "frames": len(names)}
+
+
+class Timed:
+    """Times every call of a module-level function (or a class's method)
+    while active, on the host's clock; with sync=True the card's work of
+    the call is waited for before the clock stops."""
+
+    def __init__(self, owner, name, sync: bool = False):
+        self.owner, self.name, self.sync = owner, name, sync
+        self.orig = getattr(owner, name)
+        self.seconds = []
+
+    def __enter__(self):
+        def timed(*args, **kw):
+            t = time.perf_counter()
+            out = self.orig(*args, **kw)
+            if self.sync:
+                torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t)
+            return out
+        setattr(self.owner, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+
+
+def _image_libraries() -> dict:
+    out = {}
+    for name, module in (("pillow", "PIL"), ("opencv", "cv2")):
+        try:
+            out[name] = __import__(module).__version__
+        except ImportError:
+            out[name] = None
+    return out
+
+
+def phase_cli(seed: int, clip: Clip = CLIP, dev="cuda"):
+    """sgnt-train / eval / render / export of the port, through their
+    main() functions with the defaults but the data path, the output
+    directory, clip.steps steps and a checkpoint every clip.save_every, on
+    a full-width clip written to a temporary directory (write_clip). The
+    launch counts are set to 0 before training and read after it, then
+    again around eval + render. dev="cpu" rehearses it on the plain
+    versions (no launch counts, no device memory there)."""
+    cuda = dev == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    libs = _image_libraries()
+    heads = CLIP_HEADS + (["depth"] if libs["opencv"] else [])
+    with tempfile.TemporaryDirectory(prefix="sgnt_cli_") as tmp:
+        root, run = Path(tmp) / "clip", Path(tmp) / "run"
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        made = write_clip(root, seed + 101, clip, dev)
+        sync()
+        colmap_io.POINTS3D_READERS.clear()
+        timers = {"refine": Timed(trainer_mod, "scene_refine_step",
+                                  sync=cuda),
+                  "checkpoint": Timed(trainer_mod, "save_checkpoint"),
+                  "batch_to_device": Timed(trainer_mod.Trainer,
+                                           "_device_batch"),
+                  "next_batch": Timed(trainer_mod.FullImageDatamanager,
+                                      "next_train"),
+                  "metrics_sync": Timed(trainer_mod, "_scalars"),
+                  "eval_setup_eval": Timed(eval_cli, "eval_setup"),
+                  "eval_setup_render": Timed(render_cli, "eval_setup"),
+                  "eval_setup_export": Timed(export_cli, "eval_setup")}
+        for t in timers.values():
+            t.__enter__()
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                reset_launches()
+                t = time.perf_counter()
+                trainer = train_cli.main([
+                    "--data", str(root), "--trainer.output-dir", str(run),
+                    "--trainer.max-num-iterations", str(clip.steps),
+                    "--trainer.steps-per-save", str(clip.save_every),
+                    "--device", dev, *clip.train_flags])
+                sync()
+                train_s = time.perf_counter() - t
+                train_launches = read_launches()
+                reset_launches()
+                t = time.perf_counter()
+                evaluated = eval_cli.main(["--load-dir", str(run),
+                                           "--device", dev])
+                eval_s = time.perf_counter() - t
+                t = time.perf_counter()
+                served = render_cli.main([
+                    "--load-dir", str(run), "--output-path",
+                    str(run / "renders"), "--device", dev,
+                    "--rendered-output-names", *heads])
+                sync()
+                render_s = time.perf_counter() - t
+                eval_launches = read_launches()
+                t = time.perf_counter()
+                exported = export_cli.main(["--load-dir", str(run),
+                                            "--device", dev, "--output-dir",
+                                            str(run / "exports")])
+                export_s = time.perf_counter() - t
+        finally:
+            for t in timers.values():
+                t.__exit__()
+        peak = torch.cuda.max_memory_allocated() if cuda else None
+        readers = dict(colmap_io.POINTS3D_READERS)
+        overflow = [str(w.message) for w in caught
+                    if "capacity overflow" in str(w.message)]
+        rows = [json.loads(r) for r in
+                (run / "metrics.jsonl").read_text().splitlines()]
+        steps = [r for r in rows if "train/loss" in r]
+        losses = [r["train/loss"] for r in steps]
+        ckpts = sorted(p.name for p in (run / "checkpoints").glob("*.npz"))
+        res = evaluated["results"]
+        n_eval = served.dm.num_eval
+        pngs = {h: len(list((run / "renders" / h).glob("*.png")))
+                for h in heads}
+
+        # The eval CLI's PSNR against a direct forward_scene of the
+        # restored state (the render CLI's trainer) on the same frames.
+        direct = []
+        with torch.no_grad():
+            for cam, batch in served.dm.fixed_indices_eval():
+                out, _, _ = forward_scene(
+                    served.state.store, served.tracks, cam,
+                    served.state.step, served.config, served.render_config)
+                gt = torch.as_tensor(batch["image"]).to(dev)
+                direct.append(float(psnr(out["rgb"], gt)))
+        store = served.state.store
+        active = {"background": int(store.background.active.sum())}
+        for i in range(store.num_objects):
+            active[f"object_veh{i}"] = int(store.objects.active[i].sum())
+        ply_rows = {p.stem.replace("point_cloud_", ""): len(read_ply(p)["x"])
+                    for p in (run / "exports").glob("*.ply")}
+
+    fails = []
+    if not np.isfinite(losses).all() or len(losses) < 6:
+        fails.append(f"losses {losses}")
+    elif not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        fails.append(f"the loss did not fall: {losses}")
+    want_ckpts = [f"step-{s:09d}.ckpt.npz"
+                  for s in range(clip.save_every, clip.steps + 1,
+                                 clip.save_every)]
+    if ckpts != want_ckpts:
+        fails.append(f"checkpoints {ckpts}")
+    if not all(math.isfinite(res.get(k, math.nan))
+               for k in ("psnr", "ssim", "lpips")):
+        fails.append(f"eval results {res}")
+    if abs(float(np.mean(direct)) - res["psnr"]) > 1e-3:
+        fails.append(f"eval PSNR {res['psnr']} vs direct {direct}")
+    if any(n != n_eval for n in pngs.values()) or n_eval < 1:
+        fails.append(f"PNGs {pngs} for {n_eval} eval frames")
+    if ply_rows != active or exported != active:
+        fails.append(f"exported rows {ply_rows} / {exported}, active "
+                     f"{active}")
+    for name in ("flat_scan", "expand_ragged", "pack_feat_cols",
+                 "composite_fwd", "composite_bwd", "rank_rowsum"):
+        if cuda and train_launches.get(name, 0) == 0:
+            fails.append(f"training launched no {name}")
+    for name in ("flat_scan", "expand_ragged", "pack_feat_cols",
+                 "composite_fwd"):
+        if cuda and eval_launches.get(name, 0) == 0:
+            fails.append(f"eval + render launched no {name}")
+    if overflow:
+        fails.append(f"capacity overflow: {overflow[:2]}")
+    if readers.get("native", 0) < 1 or readers.get("python", 0):
+        fails.append(f"the native COLMAP reader did not parse every "
+                     f"points3D.bin: {readers}")
+    sps = [r["train/steps_per_sec"] for r in steps]
+    timing = {k: t.seconds for k, t in timers.items()}
+    emit("cli_path", frames=made["frames"], points=clip.points,
+         objects=clip.objects, object_points=clip.obj_points,
+         size=[clip.size.width, clip.size.height], steps=clip.steps,
+         clip=made, image_libraries=libs, heads=heads,
+         construction_s=trainer.setup_seconds,
+         eval_setup_construction_s=served.setup_seconds,
+         render_config=[trainer.render_config.max_pairs,
+                        trainer.render_config.max_rowruns],
+         train_s=train_s, steps_per_s_rows=sps,
+         steps_per_s_median=float(np.median(sps)),
+         loss_rows=losses, refine_ms=[s * 1e3 for s in timing["refine"]],
+         checkpoint_s=timing["checkpoint"],
+         pairs_rows=[r["train/num_pairs"] for r in steps],
+         batch_to_device_ms_total=1e3 * sum(timing["batch_to_device"]),
+         next_batch_ms_total=1e3 * sum(timing["next_batch"]),
+         metrics_sync_ms_total=1e3 * sum(timing["metrics_sync"]),
+         eval_setup_s={k[len("eval_setup_"):]: v[0] for k, v in
+                       timing.items() if k.startswith("eval_setup_")},
+         eval_results=res, eval_fps=res["fps"], eval_s=eval_s,
+         direct_psnr=direct, render_s=render_s,
+         render_ms_per_frame=1e3 * (render_s - timing["eval_setup_render"][0])
+         / max(n_eval, 1), pngs=pngs, export_s=export_s,
+         export_rows=ply_rows, active=active,
+         max_memory_allocated=peak, points3d_readers=readers,
+         train_launches=train_launches, eval_render_launches=eval_launches,
+         failures=fails)
+    if fails:
+        raise AssertionError("cli_path: " + "; ".join(fails))
+
+
 def capture(store, tracks, cfg, rcfg, cam):
     """Inputs of every kernel in one full-width render (the full render of
     forward_scene on `cam`)."""
@@ -1954,13 +2344,24 @@ def phase_kernels(calls, launches, train_launches, sliced_launches,
     ms = time_ms(lambda: composite.pack_feat_cols(feats, max_pairs), reps)
     plain = time_ms(lambda: composite.pack_feat_cols_plain(feats,
                                                            max_pairs), reps)
+    # The library formulation: the JAX package's off-TPU pack
+    # (composite_pallas.py:1497-1502), a stack of the 16 columns (zeros
+    # past the live ones, made outside the clock) and one transposing copy.
+    cols16 = list(feats) + [torch.zeros_like(feats[0])] * (16 - len(feats))
+    rows_true = max_pairs // 128
+    lib = time_ms(lambda: torch.stack(cols16, dim=-1).reshape(
+        rows_true, 128, 16).transpose(1, 2).contiguous(), reps)
+    del cols16
     b, by = bound(4 * (len(feats) * max_pairs + got.numel()))
     rows.append(dict(name="pack_feat_cols", route="cuda",
                      source=_rel(_cuda.CSRC / composite.PACK_KERNEL.source),
                      replaces=composite.PACK_KERNEL.replaces,
                      launches=launches["pack_feat_cols"], max_abs_err=err,
                      tolerance="exact", ms=ms, plain_ms=plain, bound_ms=b,
-                     bound_by=by, library_ms=None,
+                     bound_by=by, library_ms=lib,
+                     library="torch.stack of the 16 columns, then "
+                             ".reshape(rows, 128, 16).transpose(1, 2)"
+                             ".contiguous() (composite_pallas.py:1497-1502)",
                      shapes=[len(feats), max_pairs, list(got.shape)]))
 
     # D and E: the compositors, whole-image launches of the fused path.
@@ -2212,6 +2613,7 @@ def main():
     del state
     scan_calls, scan_launches = phase_row_scans(args.seed)
     calls.update(scan_calls)
+    phase_cli(args.seed)
     rows = phase_kernels(calls, launches, train_launches, sliced_launches,
                          unfused_launches, scan_launches)
     for r in rows:

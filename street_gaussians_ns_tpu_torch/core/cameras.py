@@ -86,8 +86,10 @@ def pixel_directions(camera: Camera,
     by the raw OpenGL c2w rotation, as the JAX package does."""
     if camera.model != PERSPECTIVE:
         raise NotImplementedError(
-            "only PERSPECTIVE cameras are ported; FISHEYE rays are a "
-            "queue item (ROADMAP.md)")
+            "pixel rays are pinhole rays, in this package and the JAX one: "
+            "the data layer undistorts FISHEYE and FISHEYE624 frames to "
+            "pinhole at load time (data/dataset.py), so a camera reaches "
+            "the renderer as PERSPECTIVE")
     H, W = camera.height, camera.width
     dev = camera.device
     u = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)

@@ -1,2 +1,2 @@
-"""Runtime around the models: checkpoints carried across from the JAX
-package."""
+"""Runtime around the models: the training step, the optimizer, the
+trainer loop, run directories and checkpoints."""

@@ -1,25 +1,35 @@
-"""Carry the JAX package's checkpoints across (counterpart of
+"""Checkpoints of the port, in the JAX package's layout (counterpart of
 street_gaussians_ns_tpu/engine/checkpoints.py).
 
-A JAX checkpoint is one `step-{:09d}.ckpt.npz` whose keys are the
-tree-path strings of the saved state ("store/background/params/means",
-"store/env_map", "opt/...", "step", ...). `store_from_numpy` builds the
-port's SceneGraphStore from the store's arrays, keyed relative to the
-store ("background/params/means", ...); `tracks_from_numpy` builds
-ObjectTracks from a JAX ObjectTracks' arrays ("times", "centers", ...);
-`load_checkpoint` reads an npz and selects the store under a prefix.
+A checkpoint is one `step-{:09d}.ckpt.npz` whose keys are the tree-path
+strings of the saved state ("store/background/params/means",
+"store/env_map", "opt/<group>/mu/bg", "opt/<group>/count", "step", ...),
+so either package reads the other's:
 
-A whole train state crosses the same way: `train_state_from_numpy` /
-`load_train_checkpoint` read the JAX trainer's keys ("store/...",
-"opt/<group>/mu/bg", "opt/<group>/nu/obj", "opt/<group>/count",
-"opt/sky_sphere/mu", "opt/bbox_opt/mu/delta_center", "step") into a
-`SceneTrainState`, and `state_to_numpy` writes the same keys back. The JAX
-"rng" key has no counterpart (the port draws from a `torch.Generator`,
-seeded by the caller) and is ignored.
+- `save_checkpoint` writes the state under those keys, plus an "rng" leaf
+  of a JAX PRNG key's shape and dtype (the JAX `restore_checkpoint` needs
+  every leaf of its target; the port draws from a `torch.Generator`, so it
+  holds the JAX key of the generator's seed) and, under keys the JAX
+  package never reads, the generator's state ("torch/generator_state")
+  and whatever the caller adds (the trainer's sampler, "dm/...");
+- `restore_checkpoint` reads one into the structure of a target state,
+  every leaf required and its shape checked, as the JAX function does;
+  the generator continues from the saved state where there is one;
+- `latest_checkpoint` finds the newest in a directory.
+
+The JAX package's arrays also cross on their own: `store_from_numpy` /
+`tracks_from_numpy` build a SceneGraphStore / ObjectTracks from a JAX
+store's or tracks' arrays, `train_state_from_numpy` /
+`load_train_checkpoint` a SceneTrainState from a JAX train state's
+(checked against a config's SH degree and Fourier dims, missing Adam
+groups starting from zero), and `state_to_numpy` writes a state's arrays
+back under the JAX keys (no "rng").
 """
 from __future__ import annotations
 
+import re
 from pathlib import Path
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,24 +77,28 @@ def _check_width(store: GaussianStore, cfg, name: str) -> None:
                          f"config says {cfg.fourier_features_dim}")
 
 
+def _store(arrays, device) -> SceneGraphStore:
+    f32 = torch.float32
+    return SceneGraphStore(
+        background=_gaussian_store(arrays, "background", device),
+        objects=_gaussian_store(arrays, "objects", device),
+        env_map=(_tensor(arrays, "env_map", device, f32)
+                 if "env_map" in arrays else None),
+        delta_center=_tensor(arrays, "delta_center", device, f32),
+        delta_yaw=_tensor(arrays, "delta_yaw", device, f32),
+        delta_rot=_tensor(arrays, "delta_rot", device, f32),
+    )
+
+
 def store_from_numpy(arrays, config: SceneGraphConfig,
                      device="cuda") -> SceneGraphStore:
     """The JAX SceneGraphStore's arrays (keys relative to the store) ->
     the port's SceneGraphStore on `device`, checked against `config`'s
     SH degree and Fourier dims."""
-    bg = _gaussian_store(arrays, "background", device)
-    obj = _gaussian_store(arrays, "objects", device)
-    _check_width(bg, config.background, "background")
-    _check_width(obj, config.object_template, "objects")
-    env = (_tensor(arrays, "env_map", device, torch.float32)
-           if "env_map" in arrays else None)
-    f32 = torch.float32
-    return SceneGraphStore(
-        background=bg, objects=obj, env_map=env,
-        delta_center=_tensor(arrays, "delta_center", device, f32),
-        delta_yaw=_tensor(arrays, "delta_yaw", device, f32),
-        delta_rot=_tensor(arrays, "delta_rot", device, f32),
-    )
+    store = _store(arrays, device)
+    _check_width(store.background, config.background, "background")
+    _check_width(store.objects, config.object_template, "objects")
+    return store
 
 
 def tracks_from_numpy(arrays, device="cuda") -> ObjectTracks:
@@ -114,16 +128,16 @@ def load_checkpoint(path: Path, prefix: str = "store/",
     return store_from_numpy(arrays, config, device)
 
 
-def train_state_from_numpy(arrays, config: SceneGraphConfig, device="cuda",
-                           seed: int = 0) -> SceneTrainState:
-    """A JAX SceneTrainState's arrays (keyed by its checkpoint tree paths)
-    -> the port's SceneTrainState on `device`. Adam groups missing from
-    `arrays` start from zero moments; the generator is seeded with `seed`."""
-    store = store_from_numpy(
-        {k[len("store/"):]: v for k, v in arrays.items()
-         if k.startswith("store/")}, config, device)
-    generator = torch.Generator(device=device)
-    generator.manual_seed(seed)
+def _sub(arrays, prefix: str) -> dict:
+    return {k[len(prefix):]: v for k, v in arrays.items()
+            if k.startswith(prefix)}
+
+
+def _train_state(arrays, store: SceneGraphStore,
+                 generator: torch.Generator) -> SceneTrainState:
+    """A SceneTrainState around `store` with the Adam groups of `arrays`
+    (groups missing there start from zero moments)."""
+    device = store.background.active.device
     state = init_scene_train_state(store, generator)
 
     def moments(like, path: str):
@@ -149,6 +163,17 @@ def train_state_from_numpy(arrays, config: SceneGraphConfig, device="cuda",
                            generator=generator)
 
 
+def train_state_from_numpy(arrays, config: SceneGraphConfig, device="cuda",
+                           seed: int = 0) -> SceneTrainState:
+    """A JAX SceneTrainState's arrays (keyed by its checkpoint tree paths)
+    -> the port's SceneTrainState on `device`. Adam groups missing from
+    `arrays` start from zero moments; the generator is seeded with `seed`."""
+    store = store_from_numpy(_sub(arrays, "store/"), config, device)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+    return _train_state(arrays, store, generator)
+
+
 def load_train_checkpoint(path: Path,
                           config: SceneGraphConfig = SceneGraphConfig(),
                           device="cuda", seed: int = 0) -> SceneTrainState:
@@ -159,31 +184,114 @@ def load_train_checkpoint(path: Path,
     return train_state_from_numpy(arrays, config, device, seed)
 
 
-def state_to_numpy(state: SceneTrainState) -> dict:
-    """The state's arrays under the JAX trainer's checkpoint keys (the way
-    back of train_state_from_numpy; no "rng")."""
-    out = {}
-
-    def put(path: str, tree):
+def _state_leaves(state: SceneTrainState
+                  ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """(checkpoint key, tensor) of every array of a state, in the JAX
+    package's tree paths; the Adam counts and the step come as 0-d int32
+    tensors."""
+    def walk(path: str, tree):
         if isinstance(tree, dict):
             for k, v in tree.items():
-                put(f"{path}/{k}", v)
+                yield from walk(f"{path}/{k}", v)
         elif tree is not None:
-            out[path] = tree.detach().cpu().numpy()
+            yield path, tree
 
     store = state.store
     for prefix, part in (("background", store.background),
                          ("objects", store.objects)):
-        put(f"store/{prefix}/params", part.params.as_dict())
-        put(f"store/{prefix}/active", part.active)
+        yield from walk(f"store/{prefix}/params", part.params.as_dict())
+        yield f"store/{prefix}/active", part.active
         for name in _STATS:
-            put(f"store/{prefix}/{name}", getattr(part, name))
-    put("store/env_map", store.env_map)
+            yield f"store/{prefix}/{name}", getattr(part, name)
+    yield from walk("store/env_map", store.env_map)
     for name in BBOX_PARAMS:
-        put(f"store/{name}", getattr(store, name))
+        yield f"store/{name}", getattr(store, name)
     for name, s in state.opt.items():
-        put(f"opt/{name}/mu", s.mu)
-        put(f"opt/{name}/nu", s.nu)
-        out[f"opt/{name}/count"] = np.asarray(s.count, np.int32)
-    out["step"] = np.asarray(state.step, np.int32)
+        yield from walk(f"opt/{name}/mu", s.mu)
+        yield from walk(f"opt/{name}/nu", s.nu)
+        yield f"opt/{name}/count", torch.tensor(s.count, dtype=torch.int32)
+    yield "step", torch.tensor(state.step, dtype=torch.int32)
+
+
+def state_to_numpy(state: SceneTrainState) -> dict:
+    """The state's arrays under the JAX trainer's checkpoint keys (the way
+    back of train_state_from_numpy; no "rng")."""
+    return {k: t.detach().cpu().numpy() for k, t in _state_leaves(state)}
+
+
+GENERATOR_KEY = "torch/generator_state"
+
+
+def _jax_key(generator: torch.Generator) -> np.ndarray:
+    """The legacy JAX PRNG key (2,) uint32 of the generator's seed, as
+    jax.random.PRNGKey(seed) lays it out: [high word, low word]."""
+    seed = generator.initial_seed()
+    return np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF],
+                    np.uint32)
+
+
+def save_checkpoint(ckpt_dir: Path, step: int, state: SceneTrainState,
+                    extra: Optional[Dict[str, np.ndarray]] = None) -> Path:
+    """Write <ckpt_dir>/step-{step:09d}.ckpt.npz: the state under the JAX
+    keys, "rng", the generator's state, and `extra` (keys the JAX package
+    never reads). The file appears whole or not at all."""
+    ckpt_dir = Path(ckpt_dir)
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    arrays = state_to_numpy(state)
+    arrays["rng"] = _jax_key(state.generator)
+    arrays[GENERATOR_KEY] = state.generator.get_state().numpy()
+    for k in extra or {}:
+        if k in arrays:
+            raise KeyError(f"extra array {k!r} would replace a state leaf")
+    arrays.update(extra or {})
+    out = ckpt_dir / f"step-{step:09d}.ckpt.npz"
+    tmp = ckpt_dir / f".step-{step:09d}.partial.npz"
+    np.savez(tmp, **arrays)
+    tmp.replace(out)
     return out
+
+
+def restore_checkpoint(path: Path, target: SceneTrainState
+                       ) -> SceneTrainState:
+    """Read a checkpoint of either package into the structure of
+    `target`: every leaf of the target must be there with its shape. The
+    generator continues from the saved state where the port wrote one,
+    else from the target's."""
+    with np.load(path, allow_pickle=False) as data:
+        arrays = {}
+        for key, leaf in _state_leaves(target):
+            if key not in data.files:
+                raise KeyError(f"checkpoint {path} missing leaf {key}")
+            arr = data[key]
+            if tuple(arr.shape) != tuple(leaf.shape):
+                raise ValueError(f"shape mismatch for {key}: ckpt "
+                                 f"{arr.shape} vs target {tuple(leaf.shape)}")
+            arrays[key] = arr
+        saved_gen = (data[GENERATOR_KEY] if GENERATOR_KEY in data.files
+                     else None)
+    device = target.store.background.active.device
+    generator = torch.Generator(device=device)
+    generator.set_state(torch.from_numpy(saved_gen) if saved_gen is not None
+                        else target.generator.get_state())
+    return _train_state(arrays, _store(_sub(arrays, "store/"), device),
+                        generator)
+
+
+def checkpoint_extra(path: Path, prefix: str) -> Dict[str, np.ndarray]:
+    """The arrays of a checkpoint under `prefix` (prefix stripped); empty
+    when it has none, as a JAX-written one."""
+    with np.load(path, allow_pickle=False) as data:
+        return {k[len(prefix):]: data[k] for k in data.files
+                if k.startswith(prefix)}
+
+
+def latest_checkpoint(ckpt_dir: Path) -> Optional[Path]:
+    ckpt_dir = Path(ckpt_dir)
+    if not ckpt_dir.exists():
+        return None
+    best, best_step = None, -1
+    for p in ckpt_dir.glob("step-*.ckpt.npz"):
+        m = re.fullmatch(r"step-(\d+)\.ckpt\.npz", p.name)
+        if m and int(m.group(1)) > best_step:
+            best, best_step = p, int(m.group(1))
+    return best

@@ -1,0 +1,487 @@
+"""Training runtime: the host loop around the scene-graph step (counterpart
+of street_gaussians_ns_tpu/engine/trainer.py).
+
+Per step: the next train batch, `scene_train_step` (forward, losses,
+backward through the fused rasterizer, 9-group Adam, densification
+statistics); every refine_every steps `scene_refine_step`; an eval image
+every steps_per_eval_image, the whole eval split every
+steps_per_eval_all_images and at the end; a checkpoint every
+steps_per_save and at the end. The single-model pipeline is the scene
+graph with zero objects.
+
+The device is an argument of `Trainer` (default "cuda"), not a config
+field, so config.json keeps the JAX schema; asking for "cuda" without a
+card raises. `render_impl="pallas"` (the default) is the port's fused
+kernel route; `render_precision="auto"` resolves to "f32", as it does off
+a TPU. Randomness comes from one `torch.Generator` on the device seeded
+with `TrainerConfig.seed`: the store's init noise first, then the sky
+jitter and the split noise of training, so its numbers differ from the JAX
+package's by design (parity tests hand the JAX draws to `build_stores` and
+to the step).
+
+Not ported (each raises NotImplementedError): the live viewer
+(`viewer_port`, ROADMAP.md queue 1 item 6), the camera optimizer
+(`camera_opt_mode != "off"`, item 5) and bf16 rendering
+(`render_precision="bf16"`, item 8).
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import functools
+import time
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core.cameras import viewmat_from_c2w
+from ..core.projection import project
+from ..data.datamanager import DataManagerConfig, FullImageDatamanager
+from ..data.dataparser import DataParserConfig, ParsedScene, parse_scene
+from ..models.gaussians import GaussianStore, draw_init_noise, init_gaussians
+from ..models.scene_graph import (SceneGraphConfig, compose, empty_tracks,
+                                  forward_scene, init_scene_graph_store)
+from ..ops.render import RenderConfig
+from ..ops.ssim import psnr, ssim
+from ..ops.tiles import count_pairs
+from ..utils.writer import MetricsWriter
+from .checkpoints import (checkpoint_extra, latest_checkpoint,
+                          restore_checkpoint, save_checkpoint)
+from .scene_train_step import (init_scene_train_state, scene_refine_step,
+                               scene_train_step)
+from .setup import save_run_config
+
+SAMPLER_PREFIX = "dm/"     # checkpoint keys of the datamanager's sampler
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    """The JAX package's TrainerConfig: the same fields and defaults."""
+
+    max_num_iterations: int = 30000
+    steps_per_save: int = 2000
+    steps_per_eval_image: int = 500
+    steps_per_eval_all_images: int = 30000
+    background_capacity: int = 2 ** 20
+    object_capacity: int = 2 ** 15
+    max_pairs: int = 2 ** 22
+    # Pre-size pair/rowrun capacities from an exact counting probe over a
+    # few train cameras (ops.tiles.count_pairs): initial capacity =
+    # next_pow2(presize_headroom x probed max). False starts at max_pairs.
+    presize_pairs: bool = True
+    presize_headroom: float = 2.0
+    seed: int = 42
+    output_dir: Path = Path("outputs/run")
+    resume: bool = True
+    render_impl: str = "pallas"     # the fused kernel route; or "chunked",
+    #                                 "scan" (plain PyTorch compositors)
+    render_precision: str = "auto"  # "auto" -> "f32" off a TPU
+    viewer_port: Optional[int] = None   # live viewer: not ported
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device(device); raises when a CUDA device is asked for and
+    there is no card (no silent CPU run)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} asked for, but torch.cuda.is_available() "
+            f"is False; pass device='cpu' (--device cpu) to run on the CPU")
+    return dev
+
+
+def _next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+@torch.no_grad()
+def scene_pair_counts(store, tracks, camera, config: SceneGraphConfig,
+                      tile_size: int = 16):
+    """Exact, capacity-free (num_pairs, num_rowruns) for one composed
+    scene view (ops.tiles.count_pairs over the compose -> project ->
+    inactive-mask pipeline of the train step), as 0-d int64 tensors."""
+    flat, active, _ = compose(store, tracks, camera.time, config=config)
+    op = torch.sigmoid(flat["opacities"][:, 0])
+    opac = torch.where(active, op, torch.zeros_like(op))
+    proj = project(flat["means"], torch.exp(flat["scales"]), flat["quats"],
+                   viewmat_from_c2w(camera.c2w), camera.fx, camera.fy,
+                   camera.cx, camera.cy, camera.width, camera.height,
+                   tile_size=tile_size, opacities=opac)
+    proj = dataclasses.replace(
+        proj, radii=torch.where(active, proj.radii, 0),
+        num_tiles_hit=torch.where(active, proj.num_tiles_hit, 0))
+    return count_pairs(proj, camera.width, camera.height, tile_size,
+                       opacities=opac)
+
+
+def _init_count(n_points: Optional[int], capacity: int,
+                num_random: int) -> int:
+    """Gaussians init_gaussians fills for a seed cloud of n_points (None:
+    a random cloud of num_random)."""
+    return min(n_points if n_points is not None else num_random, capacity)
+
+
+def draw_store_noise(scene: ParsedScene, config: SceneGraphConfig,
+                     trainer: TrainerConfig, generator: torch.Generator,
+                     device="cuda") -> dict:
+    """The uniform draws of build_stores from `generator`: {"bg": ...,
+    "obj": [one per tracked object]}, each models.gaussians.
+    draw_init_noise's dict."""
+    bgc = config.background
+    n_bg = _init_count(
+        None if bgc.random_init or scene.points_xyz is None
+        else len(scene.points_xyz),
+        trainer.background_capacity, bgc.num_random)
+    bg = draw_init_noise(n_bg, generator, device)
+    db = scene.annotations
+    obj = []
+    if db is not None:
+        for gid in db.track_ids:
+            n = _init_count(len(db.seed_points[gid][0]),
+                            trainer.object_capacity, 0)
+            obj.append(draw_init_noise(n, generator, device))
+    return {"bg": bg, "obj": obj}
+
+
+def build_stores(scene: ParsedScene, config: SceneGraphConfig,
+                 trainer: TrainerConfig, noise: dict, device="cuda"):
+    """Background store from the SfM/LiDAR seeds, stacked object stores
+    from each track's aggregated LiDAR (scene_graph populate_modules
+    :49-96), and the tracks. `noise`: see draw_store_noise."""
+    bgc = config.background
+    bg = init_gaussians(
+        trainer.background_capacity,
+        scene.points_xyz if not bgc.random_init else None,
+        scene.points_rgb if not bgc.random_init else None,
+        sh_degree=config.base.sh_degree,
+        fourier_dim=bgc.fourier_features_dim,
+        num_random=bgc.num_random, random_scale=bgc.random_scale,
+        noise=noise["bg"], device=device)
+
+    db = scene.annotations
+    if db is None or db.num_objects == 0:
+        # The zero-object scene graph: an empty leading object axis.
+        obj = _map_store(bg, lambda x: x[None][:0])
+        tracks = (scene.tracks if scene.tracks is not None
+                  else empty_tracks(device=device))
+        return bg, obj, tracks
+
+    stores = []
+    for i, gid in enumerate(db.track_ids):
+        xyz, rgb = db.seed_points[gid]
+        stores.append(init_gaussians(
+            trainer.object_capacity, xyz, rgb,
+            sh_degree=config.base.sh_degree,
+            fourier_dim=config.object_template.fourier_features_dim,
+            noise=noise["obj"][i], device=device))
+    return bg, _stack_stores(stores), scene.tracks
+
+
+def _map_store(store: GaussianStore, fn) -> GaussianStore:
+    return GaussianStore(
+        params=dataclasses.replace(store.params, **{
+            k: fn(v) for k, v in store.params.as_dict().items()}),
+        active=fn(store.active), xys_grad_norm=fn(store.xys_grad_norm),
+        vis_counts=fn(store.vis_counts), max_2dsize=fn(store.max_2dsize))
+
+
+def _stack_stores(stores) -> GaussianStore:
+    """Stores -> one store with a leading (O,) axis on every leaf."""
+    first = stores[0]
+    params = {k: torch.stack([s.params.as_dict()[k] for s in stores])
+              for k in first.params.as_dict()}
+    return GaussianStore(
+        params=dataclasses.replace(first.params, **params),
+        **{k: torch.stack([getattr(s, k) for s in stores])
+           for k in ("active", "xys_grad_norm", "vis_counts", "max_2dsize")})
+
+
+class Trainer:
+    def __init__(
+        self,
+        data_config: DataParserConfig,
+        scene_config: SceneGraphConfig = SceneGraphConfig(),
+        trainer_config: TrainerConfig = TrainerConfig(),
+        dm_config: DataManagerConfig = DataManagerConfig(),
+        device="cuda",
+    ):
+        self.device = resolve_device(device)
+        if trainer_config.viewer_port is not None:
+            raise NotImplementedError(
+                "the live viewer (TrainerConfig.viewer_port, utils/viewer) "
+                "is not ported yet (ROADMAP.md queue 1 item 6)")
+        if scene_config.camera_opt_mode != "off":
+            raise NotImplementedError(
+                f"camera_opt_mode={scene_config.camera_opt_mode!r}: the "
+                f"camera optimizer is not ported yet (ROADMAP.md queue 1 "
+                f"item 5)")
+        precision = trainer_config.render_precision
+        if precision == "auto":
+            precision = "f32"
+        if precision != "f32":
+            raise NotImplementedError(
+                f"render_precision={precision!r}: bf16 rendering is not "
+                f"ported yet (ROADMAP.md queue 1 item 8)")
+        self.data_config = data_config
+        self.config = scene_config
+        self.tc = trainer_config
+        # Host seconds of each construction stage (read by chip_smoke.py).
+        self.setup_seconds = {}
+        self.writer = MetricsWriter(trainer_config.output_dir)
+        save_run_config(Path(trainer_config.output_dir), data_config,
+                        scene_config, trainer_config, dm_config)
+
+        self.writer.log(f"parsing scene {data_config.data}")
+        with self._timed("parse"):
+            self.scene = parse_scene(data_config, device=self.device)
+        with self._timed("frame_cache"):
+            self.dm = FullImageDatamanager(self.scene, dm_config,
+                                           device=self.device)
+        n_obj = (0 if self.scene.annotations is None
+                 else self.scene.annotations.num_objects)
+        self.writer.log(f"{self.dm.num_train} train / {self.dm.num_eval} "
+                        f"eval frames, {n_obj} objects")
+
+        with self._timed("build_stores"):
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(trainer_config.seed)
+            noise = draw_store_noise(self.scene, scene_config,
+                                     trainer_config, generator, self.device)
+            bg, obj, self.tracks = build_stores(
+                self.scene, scene_config, trainer_config, noise, self.device)
+            store = init_scene_graph_store(bg, obj, self.tracks,
+                                           scene_config, self.device)
+            self.state = init_scene_train_state(store, generator)
+        self.start_step = 0
+
+        self.ckpt_dir = Path(trainer_config.output_dir) / "checkpoints"
+        if trainer_config.resume:
+            latest = latest_checkpoint(self.ckpt_dir)
+            if latest is not None:
+                self.state = restore_checkpoint(latest, self.state)
+                sampler = checkpoint_extra(latest, SAMPLER_PREFIX)
+                if sampler:
+                    self.dm.set_sampler_state(sampler)
+                self.start_step = self.state.step
+                self.writer.log(f"resumed from {latest} @ {self.start_step}")
+
+        self.render_config = RenderConfig(max_pairs=trainer_config.max_pairs,
+                                          impl=trainer_config.render_impl,
+                                          precision=precision)
+        if trainer_config.presize_pairs:
+            with self._timed("presize"):
+                self._presize_pairs()
+        # Running max of the pair / row-run counts between the 10-step
+        # capacity checks (see _maybe_grow_pairs), kept on the device.
+        self._pair_max = None
+        self._rowrun_max = None
+        self._last_hw = None
+
+    @contextlib.contextmanager
+    def _timed(self, name: str):
+        """Host seconds of a construction stage, the device's work
+        included, into setup_seconds[name]."""
+        t0 = time.perf_counter()
+        yield
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.setup_seconds[name] = time.perf_counter() - t0
+
+    def _presize_pairs(self):
+        """Exact pair / row-run counts for a spread of train cameras
+        (scene_pair_counts, no pair-shaped buffers), then max_pairs /
+        max_rowruns = next_pow2(headroom x probed max). Growth past that
+        rides _maybe_grow_pairs' doubling. The cameras come from the
+        fixed train indices: the probe consumes no epoch samples."""
+        n = self.dm.num_train
+        if n == 0:
+            return
+        idxs = list(range(0, n, max(n // 4, 1)))
+        max_p, max_r = 0, 0
+        for i in idxs:
+            p, r = scene_pair_counts(self.state.store, self.tracks,
+                                     self.dm.train_camera(i), self.config,
+                                     self.render_config.tile_size)
+            max_p = max(max_p, int(p))
+            max_r = max(max_r, int(r))
+        if max_p == 0:
+            return
+        head = self.tc.presize_headroom
+        new_cap = _next_pow2(max(int(max_p * head), 1024))
+        new_rcap = max(_next_pow2(max(int(max_r * head), 512)), new_cap // 4)
+        self.render_config = dataclasses.replace(
+            self.render_config, max_pairs=new_cap, max_rowruns=new_rcap)
+        self.writer.log(
+            f"pre-sized pair capacity: probed {max_p} pairs / {max_r} "
+            f"rowruns over {len(idxs)} cameras -> max_pairs={new_cap}, "
+            f"max_rowruns={new_rcap}")
+
+    def _step_fn(self, step: int):
+        """The step for this step number. The entropy loss (and with it
+        the object / background accumulation renders) is live only past
+        the background's stop_split_at: before it the step renders once
+        (subset_accs=False) instead of three times."""
+        subset_accs = (self.config.object_acc_entropy_loss_mult > 0
+                       and step > self.config.background.stop_split_at)
+        return functools.partial(scene_train_step, config=self.config,
+                                 render_config=self.render_config,
+                                 subset_accs=subset_accs)
+
+    def _device_batch(self, batch):
+        return {k: torch.as_tensor(batch[k]).to(self.device)
+                for k in ("image", "mask", "semantic") if k in batch}
+
+    def _maybe_grow_pairs(self, metrics) -> bool:
+        """Pair-capacity schedule: when the running max of the true pair
+        count OR of the true row-run count since the last check passes
+        0.9 of its capacity, double that capacity until it fits (gsplat
+        never drops pairs, so neither may we). Both counts are
+        capacity-independent, so overflow is seen in the step it happens
+        (rasterize also warns then). Returns True if capacity grew."""
+        num_pairs = int(self._pair_max) if self._pair_max is not None \
+            else int(metrics.get("num_pairs", 0))
+        num_rowruns = int(self._rowrun_max) if self._rowrun_max is not None \
+            else int(metrics.get("num_rowruns", 0))
+        self._pair_max = None
+        self._rowrun_max = None
+        cap = self.render_config.max_pairs
+        rcap = self.render_config.max_rowruns or cap // 2
+        if num_pairs <= 0.9 * cap and num_rowruns <= 0.9 * rcap:
+            return False
+        new_cap = cap
+        while num_pairs > 0.9 * new_cap:
+            new_cap *= 2
+        new_rcap = rcap
+        while num_rowruns > 0.9 * new_rcap:
+            new_rcap *= 2
+        new_rcap = max(new_rcap, new_cap // 2)
+        self.render_config = dataclasses.replace(
+            self.render_config, max_pairs=new_cap, max_rowruns=new_rcap)
+        self.writer.log(
+            f"pair capacity grown {cap} -> {new_cap} "
+            f"(step saw {num_pairs} pairs)")
+        return True
+
+    def _run_step(self, step: int):
+        """One training step: fetch data, run the step."""
+        camera, batch = self.dm.next_train(step)
+        fn = self._step_fn(step)
+        self.state, metrics = fn(self.state, self.tracks, camera,
+                                 self._device_batch(batch))
+        self._last_hw = (camera.height, camera.width)
+        return metrics
+
+    def _track_max(self, metrics):
+        if "num_pairs" in metrics:
+            self._pair_max = (metrics["num_pairs"] if self._pair_max is None
+                              else torch.maximum(self._pair_max,
+                                                 metrics["num_pairs"]))
+        if "num_rowruns" in metrics:
+            self._rowrun_max = (
+                metrics["num_rowruns"] if self._rowrun_max is None
+                else torch.maximum(self._rowrun_max, metrics["num_rowruns"]))
+
+    def train(self, num_iterations: Optional[int] = None):
+        total = num_iterations or self.tc.max_num_iterations
+        refine_every = self.config.background.refine_every
+        t_last = time.time()
+        for step in range(self.start_step, total):
+            metrics = self._run_step(step)
+            self._track_max(metrics)
+            if (step + 1) % refine_every == 0:
+                self.state, info = scene_refine_step(
+                    self.state, self.config, self.dm.num_train,
+                    max(*self._last_hw))
+                metrics.update(info)
+            if step % 10 == 0:
+                self._maybe_grow_pairs(metrics)
+                m = _scalars(metrics)
+                if (not self.render_config.kernel_impl
+                        and m.get("max_tile_count", 0)
+                        > self.render_config.max_per_tile):
+                    self.writer.log(
+                        "WARNING: densest tile has "
+                        f"{int(m['max_tile_count'])} pairs > max_per_tile="
+                        f"{self.render_config.max_per_tile}; the "
+                        f"'{self.render_config.impl}' compositor is "
+                        "truncating splats: raise RenderConfig.max_per_tile "
+                        "or use render_impl='pallas'.")
+                dt = time.time() - t_last
+                t_last = time.time()
+                m["steps_per_sec"] = (10 if step else 1) / max(dt, 1e-9)
+                self.writer.write(step, m)
+                if step % 100 == 0:
+                    self.writer.log(
+                        f"step {step}: loss={m.get('loss', 0):.4f} "
+                        f"psnr={m.get('psnr', 0):.2f} "
+                        f"N={int(m.get('gaussian_count', 0))} "
+                        f"({m['steps_per_sec']:.2f} it/s)")
+            if (step + 1) % self.tc.steps_per_eval_image == 0:
+                self.eval_image(step)
+            if ((step + 1) % self.tc.steps_per_eval_all_images == 0
+                    or step + 1 == total):
+                self.eval_all_images(step)
+            if (step + 1) % self.tc.steps_per_save == 0 or step + 1 == total:
+                path = self.save(step + 1)
+                self.writer.log(f"saved {path}")
+        return self.state
+
+    def save(self, step: int) -> Path:
+        """Checkpoint the state and the datamanager's sampler."""
+        extra = {SAMPLER_PREFIX + k: v
+                 for k, v in self.dm.sampler_state().items()}
+        return save_checkpoint(self.ckpt_dir, step, self.state, extra=extra)
+
+    def _eval_one(self, camera, batch):
+        with torch.no_grad():
+            outputs, _, _ = forward_scene(
+                self.state.store, self.tracks, camera, self.state.step,
+                self.config, self.render_config, training=False)
+            gt = torch.as_tensor(batch["image"]).to(self.device)
+            return {k: float(v) for k, v in (
+                ("psnr", psnr(outputs["rgb"], gt)),
+                ("ssim", ssim(gt, outputs["rgb"])))}
+
+    def eval_image(self, step: int):
+        camera, batch = self.dm.next_eval(step)
+        if camera is None:
+            return {}
+        m = self._eval_one(camera, batch)
+        self.writer.write(step, m, prefix="eval")
+        self.writer.log(f"eval @ {step}: psnr={m['psnr']:.2f} "
+                        f"ssim={m['ssim']:.4f}")
+        return m
+
+    def eval_all_images(self, step: int):
+        """Full eval over the eval split (the reference's
+        steps_per_eval_all_images cadence, sgn_config.py:24-27)."""
+        if self.dm.num_eval == 0:
+            return {}
+        rows = [self._eval_one(camera, batch)
+                for camera, batch in self.dm.fixed_indices_eval()]
+        m = {f"all_{k}": float(np.mean([r[k] for r in rows]))
+             for k in rows[0]}
+        m["all_images"] = len(rows)
+        self.writer.write(step, m, prefix="eval")
+        self.writer.log(
+            f"full eval @ {step} ({len(rows)} images): "
+            f"psnr={m['all_psnr']:.2f} ssim={m['all_ssim']:.4f}")
+        return m
+
+
+def _scalars(metrics: dict) -> dict:
+    """The 0-d entries of a step's metrics as floats, read from the device
+    in one copy."""
+    names = [k for k, v in metrics.items()
+             if not isinstance(v, torch.Tensor) or v.dim() == 0]
+    tensors = [metrics[k] for k in names if isinstance(metrics[k],
+                                                        torch.Tensor)]
+    values = iter(torch.stack([t.to(torch.float64) for t in tensors]).tolist()
+                  if tensors else [])
+    return {k: (next(values) if isinstance(metrics[k], torch.Tensor)
+                else float(metrics[k])) for k in names}

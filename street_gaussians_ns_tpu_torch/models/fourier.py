@@ -20,6 +20,11 @@ def idft_basis(t: torch.Tensor, dim: int) -> torch.Tensor:
 
 def fourier_dc(features_dc: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Collapse Fourier coefficients (..., N, F, 3) at time t (...,) to SH
-    DC (..., N, 3); leading object axes of features_dc match t's shape."""
+    DC (..., N, 3); leading object axes of features_dc match t's shape.
+    The F terms are added first to last, the order of the JAX package's
+    einsum on the CPU, so a static export (t = 0) is bit-equal to its."""
     basis = idft_basis(t, features_dc.shape[-2])          # (..., F)
-    return torch.einsum("...nfc,...f->...nc", features_dc, basis)
+    out = features_dc[..., 0, :] * basis[..., 0, None, None]
+    for k in range(1, features_dc.shape[-2]):
+        out = out + features_dc[..., k, :] * basis[..., k, None, None]
+    return out

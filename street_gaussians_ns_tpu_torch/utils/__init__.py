@@ -1,0 +1,2 @@
+"""Host-side utilities: metrics writer, the dataclass CLI bridge, the
+optional image libraries."""
