@@ -55,7 +55,23 @@ Phases, each printing one JSON line:
  12. row_scan_path  kernel H, which no render path of either package
                 calls, through its entry points cumsum_rows / cummax_rows at
                 the three shapes of the JAX package's micro-benchmark;
- 13. cli_path   the entry points a user runs, on a clip on disk at full
+ 13. splatfacto_path  the single-model pipeline at full width: the
+                flagship's background alone (1,048,576 gaussians, SH degree
+                3, Fourier dim 1, the 6x1024x1024 sky) through
+                models.splatfacto.forward(training=False) for 4 cameras of
+                1600x1056, then 3 engine.train_step.train_step steps from
+                step 3600 and one refine_step, each counted; first the same
+                pipeline at 64x48 on the card against the CPU (heads, loss,
+                gradients, statistics, refine counts);
+ 14. camopt_path  the flagship train state with the camera optimizer,
+                "SO3xR3", then "SE3" with bbox_mode="SE3" and
+                bbox_differentiable=True: 3 counted steps each on rows 0, 3,
+                5 of 8 pose deltas (calls 3, the accumulator non-zero on
+                those rows only, the delta_rot gradient finite), the step
+                time beside train_path's; first 100 calls at 64x48 on the
+                card and on the CPU (the deltas still through call 99,
+                moved at call 100, the two equal);
+ 15. cli_path   the entry points a user runs, on a clip on disk at full
                 width: write_clip writes 10 frames of 1600x1056 (PNG renders
                 of a seeded truth scene by the port, segs with the top third
                 sky), a COLMAP model with 1,000,000 points in the corridor,
@@ -76,7 +92,18 @@ Phases, each printing one JSON line:
                 trainer's construction split, steps/s, the refine pass,
                 checkpoint, eval_setup, eval, render and export times, the
                 peak memory and the card machine's Pillow and OpenCV;
- 14. kernels    every kernel of these paths, on the inputs captured from
+ 16. viewer_path  the live viewer on cli_path's run: eval_setup +
+                attach_viewer(port=0) on 127.0.0.1 serving /, /init, /state
+                and 8 frames (4 at 480x270, 4 at 960x540) to a client
+                thread while this thread services them (JPEGs of the
+                ladder's size, renders bit for bit a direct forward_scene,
+                A-D counted, each request's client latency and each
+                render's device ms, one frame's torch.profiler trace in
+                chiprun_out/viewer_trace/ holding kernel D's launches);
+                then a Trainer on the clip with viewer_port=0 and
+                camera_opt_mode="SE3" answering 4 requests between its 20
+                steps;
+ 17. kernels    every kernel of these paths, on the inputs captured from
                 them, against its plain version, with its time, the plain
                 version's time, a PyTorch library call's time where one
                 computes the same function (for C the JAX package's own
@@ -97,7 +124,9 @@ Phases, each printing one JSON line:
                 streams. A line of its own before the `kernels` line
                 quotes the times rows A, E, D, F, G and H had before their
                 redesign; every number in the `kernels` line itself is
-                this run's.
+                this run's. Each row's `launches` is the main path's;
+                `launches_on_later_paths` adds those of phases 13, 14 (its
+                SE3 mode) and 16.
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
@@ -105,6 +134,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import io
 import json
 import math
 import re
@@ -112,9 +142,13 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.parse
+import urllib.request
 import warnings
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -132,10 +166,16 @@ from street_gaussians_ns_tpu_torch.data.ply_io import (  # noqa: E402
     read_ply, write_ply)
 from street_gaussians_ns_tpu_torch.engine import optimizers  # noqa: E402
 from street_gaussians_ns_tpu_torch.engine import scene_train_step as sts  # noqa: E402
+from street_gaussians_ns_tpu_torch.engine import train_step as ts_mod  # noqa: E402
 from street_gaussians_ns_tpu_torch.engine import trainer as trainer_mod  # noqa: E402
 from street_gaussians_ns_tpu_torch.engine.checkpoints import (  # noqa: E402
     store_from_numpy, tracks_from_numpy, train_state_from_numpy)
+from street_gaussians_ns_tpu_torch.engine.setup import (  # noqa: E402
+    eval_setup, load_run_config)
 from street_gaussians_ns_tpu_torch.models import refinement  # noqa: E402
+from street_gaussians_ns_tpu_torch.models import splatfacto  # noqa: E402
+from street_gaussians_ns_tpu_torch.models.gaussians import (  # noqa: E402
+    GaussianParams, GaussianStore, zeros_stats)
 from street_gaussians_ns_tpu_torch.models.scene_graph import (  # noqa: E402
     SceneGraphConfig, compose, forward_scene, scene_loss_dict)
 from street_gaussians_ns_tpu_torch.models.splatfacto import (  # noqa: E402
@@ -150,7 +190,9 @@ from street_gaussians_ns_tpu_torch.scripts import eval as eval_cli  # noqa: E402
 from street_gaussians_ns_tpu_torch.scripts import export as export_cli  # noqa: E402
 from street_gaussians_ns_tpu_torch.scripts import render as render_cli  # noqa: E402
 from street_gaussians_ns_tpu_torch.scripts import train as train_cli  # noqa: E402
+from street_gaussians_ns_tpu_torch.utils import profiling  # noqa: E402
 from street_gaussians_ns_tpu_torch.utils.optional import pillow_image  # noqa: E402
+from street_gaussians_ns_tpu_torch.utils.viewer import RES_LADDER  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
@@ -338,9 +380,18 @@ def train_arrays(store_np: dict, step: int, every: int = 16) -> dict:
 def size_capacity(store, tracks, cfg, cams, step: int = 8192):
     """max_pairs / max_rowruns from count_pairs over the cameras (the
     largest of them), rounded up to a multiple of `step`."""
+    def cloud(cam):
+        flat, active, _ = compose(store, tracks, cam.time, config=cfg)
+        return flat, active
+    return _capacity(cloud, cams, step)
+
+
+def _capacity(cloud, cams, step: int):
+    """size_capacity over `cloud(cam)` -> (params dict with means, log
+    scales, quats and logit opacities; active mask)."""
     pairs = rowruns = 0
     for cam in cams:
-        flat, active, _ = compose(store, tracks, cam.time, config=cfg)
+        flat, active = cloud(cam)
         op = torch.sigmoid(flat["opacities"][:, 0])
         op = torch.where(active, op, torch.zeros_like(op))
         proj = project(flat["means"], torch.exp(flat["scales"]),
@@ -708,8 +759,9 @@ def phase_main(seed: int, size: Size = FLAGSHIP, dev="cuda"):
 def phase_train(seed: int, tracks, cfg, rcfg, cam, size: Size = FLAGSHIP,
                 dev="cuda"):
     """The training path: 3 steps with subset_accs=False, 1 step with
-    subset_accs=True, one refinement pass. dev="cpu" rehearses it on the
-    plain versions (no launch counts there)."""
+    subset_accs=True, one refinement pass. Returns (state, batch,
+    launches, median ms of the subset_accs=False steps). dev="cpu"
+    rehearses it on the plain versions (no launch counts there)."""
     t0 = time.perf_counter()
     store_np, _ = make_scene(seed, size.bg, size.objects, size.per_object,
                              size.env_res)
@@ -841,7 +893,7 @@ def phase_train(seed: int, tracks, cfg, rcfg, cam, size: Size = FLAGSHIP,
          max_memory_allocated=peak, setup_seconds=setup_s,
          grad_absmax=grad_absmax, moved=moved, refine_ms=refine_ms,
          refine=info, gaussians_after_refine=n_active, launches=launches)
-    return state, batch, launches
+    return state, batch, launches, ms
 
 
 def capture_train(state, tracks, cfg, rcfg, cam, batch):
@@ -1735,11 +1787,12 @@ def _image_libraries() -> dict:
     return out
 
 
-def phase_cli(seed: int, clip: Clip = CLIP, dev="cuda"):
+def phase_cli(seed: int, workdir: Path, clip: Clip = CLIP, dev="cuda"):
     """sgnt-train / eval / render / export of the port, through their
     main() functions with the defaults but the data path, the output
     directory, clip.steps steps and a checkpoint every clip.save_every, on
-    a full-width clip written to a temporary directory (write_clip). The
+    a full-width clip written to workdir/clip (write_clip); the run goes
+    to workdir/run, which is returned. The
     launch counts are set to 0 before training and read after it, then
     again around eval + render. dev="cpu" rehearses it on the plain
     versions (no launch counts, no device memory there)."""
@@ -1747,90 +1800,89 @@ def phase_cli(seed: int, clip: Clip = CLIP, dev="cuda"):
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     libs = _image_libraries()
     heads = CLIP_HEADS + (["depth"] if libs["opencv"] else [])
-    with tempfile.TemporaryDirectory(prefix="sgnt_cli_") as tmp:
-        root, run = Path(tmp) / "clip", Path(tmp) / "run"
-        if cuda:
-            torch.cuda.reset_peak_memory_stats()
-        made = write_clip(root, seed + 101, clip, dev)
-        sync()
-        colmap_io.POINTS3D_READERS.clear()
-        timers = {"refine": Timed(trainer_mod, "scene_refine_step",
-                                  sync=cuda),
-                  "checkpoint": Timed(trainer_mod, "save_checkpoint"),
-                  "batch_to_device": Timed(trainer_mod.Trainer,
-                                           "_device_batch"),
-                  "next_batch": Timed(trainer_mod.FullImageDatamanager,
-                                      "next_train"),
-                  "metrics_sync": Timed(trainer_mod, "_scalars"),
-                  "eval_setup_eval": Timed(eval_cli, "eval_setup"),
-                  "eval_setup_render": Timed(render_cli, "eval_setup"),
-                  "eval_setup_export": Timed(export_cli, "eval_setup")}
+    root, run = Path(workdir) / "clip", Path(workdir) / "run"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    made = write_clip(root, seed + 101, clip, dev)
+    sync()
+    colmap_io.POINTS3D_READERS.clear()
+    timers = {"refine": Timed(trainer_mod, "scene_refine_step",
+                              sync=cuda),
+              "checkpoint": Timed(trainer_mod, "save_checkpoint"),
+              "batch_to_device": Timed(trainer_mod.Trainer,
+                                       "_device_batch"),
+              "next_batch": Timed(trainer_mod.FullImageDatamanager,
+                                  "next_train"),
+              "metrics_sync": Timed(trainer_mod, "_scalars"),
+              "eval_setup_eval": Timed(eval_cli, "eval_setup"),
+              "eval_setup_render": Timed(render_cli, "eval_setup"),
+              "eval_setup_export": Timed(export_cli, "eval_setup")}
+    for t in timers.values():
+        t.__enter__()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            reset_launches()
+            t = time.perf_counter()
+            trainer = train_cli.main([
+                "--data", str(root), "--trainer.output-dir", str(run),
+                "--trainer.max-num-iterations", str(clip.steps),
+                "--trainer.steps-per-save", str(clip.save_every),
+                "--device", dev, *clip.train_flags])
+            sync()
+            train_s = time.perf_counter() - t
+            train_launches = read_launches()
+            reset_launches()
+            t = time.perf_counter()
+            evaluated = eval_cli.main(["--load-dir", str(run),
+                                       "--device", dev])
+            eval_s = time.perf_counter() - t
+            t = time.perf_counter()
+            served = render_cli.main([
+                "--load-dir", str(run), "--output-path",
+                str(run / "renders"), "--device", dev,
+                "--rendered-output-names", *heads])
+            sync()
+            render_s = time.perf_counter() - t
+            eval_launches = read_launches()
+            t = time.perf_counter()
+            exported = export_cli.main(["--load-dir", str(run),
+                                        "--device", dev, "--output-dir",
+                                        str(run / "exports")])
+            export_s = time.perf_counter() - t
+    finally:
         for t in timers.values():
-            t.__enter__()
-        try:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                reset_launches()
-                t = time.perf_counter()
-                trainer = train_cli.main([
-                    "--data", str(root), "--trainer.output-dir", str(run),
-                    "--trainer.max-num-iterations", str(clip.steps),
-                    "--trainer.steps-per-save", str(clip.save_every),
-                    "--device", dev, *clip.train_flags])
-                sync()
-                train_s = time.perf_counter() - t
-                train_launches = read_launches()
-                reset_launches()
-                t = time.perf_counter()
-                evaluated = eval_cli.main(["--load-dir", str(run),
-                                           "--device", dev])
-                eval_s = time.perf_counter() - t
-                t = time.perf_counter()
-                served = render_cli.main([
-                    "--load-dir", str(run), "--output-path",
-                    str(run / "renders"), "--device", dev,
-                    "--rendered-output-names", *heads])
-                sync()
-                render_s = time.perf_counter() - t
-                eval_launches = read_launches()
-                t = time.perf_counter()
-                exported = export_cli.main(["--load-dir", str(run),
-                                            "--device", dev, "--output-dir",
-                                            str(run / "exports")])
-                export_s = time.perf_counter() - t
-        finally:
-            for t in timers.values():
-                t.__exit__()
-        peak = torch.cuda.max_memory_allocated() if cuda else None
-        readers = dict(colmap_io.POINTS3D_READERS)
-        overflow = [str(w.message) for w in caught
-                    if "capacity overflow" in str(w.message)]
-        rows = [json.loads(r) for r in
-                (run / "metrics.jsonl").read_text().splitlines()]
-        steps = [r for r in rows if "train/loss" in r]
-        losses = [r["train/loss"] for r in steps]
-        ckpts = sorted(p.name for p in (run / "checkpoints").glob("*.npz"))
-        res = evaluated["results"]
-        n_eval = served.dm.num_eval
-        pngs = {h: len(list((run / "renders" / h).glob("*.png")))
-                for h in heads}
+            t.__exit__()
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    readers = dict(colmap_io.POINTS3D_READERS)
+    overflow = [str(w.message) for w in caught
+                if "capacity overflow" in str(w.message)]
+    rows = [json.loads(r) for r in
+            (run / "metrics.jsonl").read_text().splitlines()]
+    steps = [r for r in rows if "train/loss" in r]
+    losses = [r["train/loss"] for r in steps]
+    ckpts = sorted(p.name for p in (run / "checkpoints").glob("*.npz"))
+    res = evaluated["results"]
+    n_eval = served.dm.num_eval
+    pngs = {h: len(list((run / "renders" / h).glob("*.png")))
+            for h in heads}
 
-        # The eval CLI's PSNR against a direct forward_scene of the
-        # restored state (the render CLI's trainer) on the same frames.
-        direct = []
-        with torch.no_grad():
-            for cam, batch in served.dm.fixed_indices_eval():
-                out, _, _ = forward_scene(
-                    served.state.store, served.tracks, cam,
-                    served.state.step, served.config, served.render_config)
-                gt = torch.as_tensor(batch["image"]).to(dev)
-                direct.append(float(psnr(out["rgb"], gt)))
-        store = served.state.store
-        active = {"background": int(store.background.active.sum())}
-        for i in range(store.num_objects):
-            active[f"object_veh{i}"] = int(store.objects.active[i].sum())
-        ply_rows = {p.stem.replace("point_cloud_", ""): len(read_ply(p)["x"])
-                    for p in (run / "exports").glob("*.ply")}
+    # The eval CLI's PSNR against a direct forward_scene of the
+    # restored state (the render CLI's trainer) on the same frames.
+    direct = []
+    with torch.no_grad():
+        for cam, batch in served.dm.fixed_indices_eval():
+            out, _, _ = forward_scene(
+                served.state.store, served.tracks, cam,
+                served.state.step, served.config, served.render_config)
+            gt = torch.as_tensor(batch["image"]).to(dev)
+            direct.append(float(psnr(out["rgb"], gt)))
+    store = served.state.store
+    active = {"background": int(store.background.active.sum())}
+    for i in range(store.num_objects):
+        active[f"object_veh{i}"] = int(store.objects.active[i].sum())
+    ply_rows = {p.stem.replace("point_cloud_", ""): len(read_ply(p)["x"])
+                for p in (run / "exports").glob("*.ply")}
 
     fails = []
     if not np.isfinite(losses).all() or len(losses) < 6:
@@ -1895,6 +1947,740 @@ def phase_cli(seed: int, clip: Clip = CLIP, dev="cuda"):
          failures=fails)
     if fails:
         raise AssertionError("cli_path: " + "; ".join(fails))
+    return run
+
+
+# ---------------------------------------------------------------------------
+# The single-model Splatfacto pipeline.
+# ---------------------------------------------------------------------------
+
+def splat_config(sh_degree: int, env_res: int) -> SplatfactoConfig:
+    """Splatfacto's defaults with the sky and the scene's SH degree."""
+    return SplatfactoConfig(use_sky_sphere=True, sh_degree=sh_degree,
+                            env_map_res=env_res, fourier_features_dim=1)
+
+
+def splat_arrays(seed: int, n: int, env_res: int, sh_degree: int = 3):
+    """make_scene's background cloud alone (the corridor, Fourier dim 1),
+    its arrays keyed as a GaussianStore's, and the sky cubemap."""
+    store_np, _ = make_scene(seed, n, 0, 1, env_res, sh_degree=sh_degree)
+    cloud = {k[len("background/"):]: v for k, v in store_np.items()
+             if k.startswith("background/")}
+    return cloud, store_np["env_map"]
+
+
+def gaussian_store(arrays: dict, device, every: int = 0) -> GaussianStore:
+    """A GaussianStore from arrays keyed as its leaves; with every > 0,
+    one slot in `every` inactive (a trainer's headroom)."""
+    active = arrays["active"].copy()
+    if every:
+        active[every - 1::every] = False
+    params = GaussianParams(**{
+        k: torch.from_numpy(arrays[f"params/{k}"]).to(device)
+        for k in sts.GAUSSIAN_GROUPS})
+    g, v, m = zeros_stats(active.shape[0], device)
+    return GaussianStore(params=params,
+                         active=torch.from_numpy(active).to(device),
+                         xys_grad_norm=g, vis_counts=v, max_2dsize=m)
+
+
+def splat_capacity(store: GaussianStore, cams, step: int = 8192):
+    """max_pairs / max_rowruns of one cloud over the cameras, as
+    size_capacity sizes a scene graph's."""
+    return _capacity(lambda cam: (store.params.as_dict(), store.active),
+                     cams, step)
+
+
+def splat_reference(seed: int, devices=("cpu", "cuda")) -> dict:
+    """The Splatfacto pipeline at a small size (600 gaussians, 64x48) on
+    the card against the CPU, from the same cloud, jitter and split noise,
+    at reference_train's tolerances: the eval heads (atol 2e-5, depth
+    rtol 1e-4), one step's loss (atol 2e-5) and gradients (1e-4 of the
+    group's largest |g|), the statistics (counts exact) and one refine
+    pass's counts (exact)."""
+    cloud, env_np = splat_arrays(seed + 1, 600, 16, sh_degree=1)
+    cfg = splat_config(1, 16)
+    rcfg = RenderConfig(max_pairs=1 << 14)
+    jitter = np.random.default_rng(seed + 3).random((2, 48, 64),
+                                                    dtype=np.float32)
+    res = {}
+    for dev in devices:
+        cam = Camera.make(60.0, 60.0, 32.0, 24.0,
+                          np.eye(3, 4, dtype=np.float32), 64, 48, device=dev)
+        env = torch.from_numpy(env_np).to(dev)
+        state = dataclasses.replace(ts_mod.init_train_state(
+            gaussian_store(cloud, dev, every=16), env,
+            torch.Generator(device=dev).manual_seed(seed)), step=TRAIN_STEP0)
+        batch = make_batch(seed, 64, 48, dev)
+        jit = torch.from_numpy(jitter).to(dev)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", RuntimeWarning)
+            with torch.no_grad():
+                heads = splatfacto.forward(state.store.params,
+                                           state.store.active, cam, 0, cfg,
+                                           rcfg, env_map=env,
+                                           training=False)[0]
+            total, _, _, _, grads = ts_mod.loss_and_grads(
+                state, cam, batch, cfg, rcfg, jitter=jit)
+            state, metrics = ts_mod.train_step(state, cam, batch, cfg, rcfg,
+                                               jitter=jit)
+        noise = refinement.draw_split_noise(
+            cfg, state.store.capacity, torch.Generator().manual_seed(seed),
+            "cpu").to(dev)
+        refined, info = ts_mod.refine_step(state, cfg, NUM_TRAIN_DATA, 64,
+                                           noise=noise)
+        res[dev] = dict(
+            heads={k: v.cpu() for k, v in heads.items()},
+            loss=float(total), step_loss=float(metrics["loss"]),
+            grads={**{k: v.cpu() for k, v in grads["params"].items()},
+                   "env_map": grads["env_map"].cpu(),
+                   "xys": grads["xys"].cpu()},
+            stats={k: getattr(state.store, k).cpu()
+                   for k in ("xys_grad_norm", "vis_counts", "max_2dsize")},
+            info={k: int(v) for k, v in info.items()},
+            active=int(refined.store.active.sum()))
+    want, got = res[devices[0]], res[devices[-1]]
+    errs = _heads_close(got["heads"], want["heads"], atol=2e-5)
+    for k in ("loss", "step_loss"):
+        errs[k] = abs(got[k] - want[k])
+        if errs[k] > 2e-5:
+            raise AssertionError(f"splatfacto reference: {k} differs by "
+                                 f"{errs[k]}")
+    for k, w in want["grads"].items():
+        top = float(w.abs().max())
+        err = float((got["grads"][k] - w).abs().max())
+        if not top > 0 or err > 1e-4 * top:
+            raise AssertionError(f"splatfacto reference: gradient {k} "
+                                 f"differs by {err} (largest |g| {top})")
+        errs[f"grad {k}"] = err / top
+    g_top = float(want["grads"]["xys"].abs().max())
+    for k, w in want["stats"].items():
+        err = float((got["stats"][k] - w).abs().max())
+        if err > (1e-4 * g_top if k == "xys_grad_norm" else 0.0):
+            raise AssertionError(f"splatfacto reference: stat {k} differs "
+                                 f"by {err}")
+    if got["info"] != want["info"] or got["active"] != want["active"]:
+        raise AssertionError(f"splatfacto reference: refine counts differ: "
+                             f"{got['info']} vs {want['info']}")
+    if float(want["heads"]["accumulation"].max()) <= 0.3:
+        raise AssertionError("splatfacto reference renders almost nothing")
+    return dict(max_err=errs, refine=want["info"])
+
+
+def phase_splatfacto(seed: int, size: Size = FLAGSHIP, dev="cuda"):
+    """The single-model pipeline at full width: the flagship's background
+    alone (size.bg gaussians, SH degree 3, Fourier dim 1, the sky cubemap)
+    rendered by models.splatfacto.forward(training=False) for size.frames
+    cameras, then 3 engine.train_step.train_step steps from TRAIN_STEP0
+    and one refine_step; the counts set to 0 just before the frames and
+    before the steps and read just after each. dev="cpu" rehearses it on
+    the plain versions (no launch counts there)."""
+    t0 = time.perf_counter()
+    ref = splat_reference(seed) if dev == "cuda" else None
+    cloud, env_np = splat_arrays(seed + 5, size.bg, size.env_res)
+    cfg = splat_config(3, size.env_res)
+    store = gaussian_store(cloud, dev)
+    env = torch.from_numpy(env_np).to(dev)
+    cams = cameras(size.frames, size.width, size.height, size.focal, dev)
+    max_pairs, max_rowruns, need_p, need_r = splat_capacity(store, cams)
+    rcfg = RenderConfig(max_pairs=max_pairs, max_rowruns=max_rowruns)
+    setup_s = time.perf_counter() - t0
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+
+    def frame(cam):
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", RuntimeWarning)
+            with torch.no_grad():
+                return splatfacto.forward(store.params, store.active, cam, 0,
+                                          cfg, rcfg, env_map=env,
+                                          training=False)
+
+    frame(cams[0])                     # warm-up
+    sync()
+    reset_launches()
+    times, outs = [], []
+    for cam in cams:
+        t = time.perf_counter()
+        outputs, out = frame(cam)
+        sync()
+        times.append((time.perf_counter() - t) * 1e3)
+        outs.append((outputs, out))
+    eval_launches = read_launches()
+    if dev == "cuda":
+        check_launches("splatfacto_path eval", eval_launches, {
+            "flat_scan": 3 * len(cams), "expand_ragged": 2 * len(cams),
+            "pack_feat_cols": len(cams), "composite_fwd": len(cams),
+            "composite_bwd": 0, "rank_rowsum": 0})
+    acc_max = []
+    for outputs, out in outs:
+        for h, v in outputs.items():
+            if not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"splatfacto_path: head {h} is not "
+                                     f"finite")
+        rgb = outputs["rgb"]
+        if (tuple(rgb.shape) != (size.height, size.width, 3)
+                or float(rgb.min()) < 0.0 or float(rgb.max()) > 1.0):
+            raise AssertionError("splatfacto_path: rgb shape or range")
+        acc_max.append(float(outputs["accumulation"].max()))
+        if acc_max[-1] <= 0.5:
+            raise AssertionError(f"splatfacto_path: accumulation max "
+                                 f"{acc_max[-1]}")
+        if (int(out.bins.num_pairs) > max_pairs
+                or int(out.bins.num_rowruns) > max_rowruns):
+            raise AssertionError("splatfacto_path: capacity overflow")
+    del outs
+    frame_ms = float(np.median(times))
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state = dataclasses.replace(ts_mod.init_train_state(
+        gaussian_store(cloud, dev, every=16), env.clone(), gen),
+        step=TRAIN_STEP0)
+    del cloud, store
+    first = state
+    batch = make_batch(seed, size.width, size.height, dev)
+    cam = cams[0]
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)
+        total, _, _, _, grads = ts_mod.loss_and_grads(
+            state, cam, batch, cfg, rcfg,
+            jitter=draw_pixel_jitter(cam, state.generator))
+    if not math.isfinite(float(total)):
+        raise AssertionError(f"splatfacto_path: loss {float(total)}")
+    flat = {**grads["params"], "env_map": grads["env_map"]}
+    has_grad = {}
+    for k, g in flat.items():
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"splatfacto_path: gradient {k} is not "
+                                 f"finite")
+        has_grad[k] = bool(g.any())
+    del grads, flat
+    sync()
+    reset_launches()
+    step_ms, losses = [], []
+    for _ in range(3):
+        t = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", RuntimeWarning)
+            state, metrics = ts_mod.train_step(state, cam, batch, cfg, rcfg)
+        sync()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(metrics["loss"]))
+        if not math.isfinite(losses[-1]):
+            raise AssertionError(f"splatfacto_path: loss {losses[-1]}")
+        if (int(metrics["num_pairs"]) > rcfg.max_pairs
+                or int(metrics["num_rowruns"]) > rcfg.rowrun_capacity):
+            raise AssertionError("splatfacto_path: capacity overflow in "
+                                 "training")
+    train_launches = read_launches()
+    if dev == "cuda":
+        check_launches("splatfacto_path train", train_launches, {
+            "flat_scan": 9, "expand_ragged": 6, "pack_feat_cols": 3,
+            "composite_fwd": 3, "composite_bwd": 3, "rank_rowsum": 3})
+    moved = {}
+    for k in sts.GAUSSIAN_GROUPS:
+        new = getattr(state.store.params, k)
+        if not bool(torch.isfinite(new).all()):
+            raise AssertionError(f"splatfacto_path: {k} is not finite")
+        moved[k] = bool((new != getattr(first.store.params, k)).any())
+    moved["env_map"] = bool((state.env_map != first.env_map).any())
+    dead = [k for k, g in has_grad.items() if g and not moved[k]]
+    if dead:
+        raise AssertionError(f"splatfacto_path: groups with a gradient did "
+                             f"not move: {dead}")
+    if dev == "cuda":
+        peak = torch.cuda.max_memory_allocated()
+    t = time.perf_counter()
+    refined, info = ts_mod.refine_step(state, cfg, NUM_TRAIN_DATA,
+                                       max(cam.width, cam.height))
+    sync()
+    refine_ms = (time.perf_counter() - t) * 1e3
+    info = {k: int(v) for k, v in info.items()}
+    if info["gaussian_count"] != int(refined.store.active.sum()):
+        raise AssertionError("splatfacto_path: the refine pass's count "
+                             "disagrees with its active mask")
+    if info["refine_splits_count"] + info["refine_dups_count"] <= 0:
+        raise AssertionError("splatfacto_path: the refine pass densified "
+                             "nothing")
+    med = float(np.median(step_ms))
+    emit("splatfacto_path", gaussians=int(first.store.capacity),
+         gaussians_active=int(first.store.active.sum()), sh_degree=3,
+         frames=len(cams), size=[size.width, size.height],
+         max_pairs=max_pairs, max_rowruns=max_rowruns, needed_pairs=need_p,
+         needed_rowruns=need_r, ms_per_frame=times,
+         ms_per_frame_median=frame_ms,
+         mpix_per_s=size.width * size.height / 1e6 / (frame_ms / 1e3),
+         accumulation_max=acc_max, first_step=TRAIN_STEP0,
+         ms_per_step=step_ms, ms_per_step_median=med, steps_per_s=1e3 / med,
+         loss_per_step=losses, has_grad=has_grad, moved=moved,
+         refine_ms=refine_ms, refine=info,
+         max_memory_allocated=peak if dev == "cuda" else None,
+         setup_seconds=setup_s, eval_launches=eval_launches,
+         train_launches=train_launches, reference=ref)
+    return {"eval": eval_launches, "train": train_launches}
+
+
+# ---------------------------------------------------------------------------
+# The camera pose optimizer.
+# ---------------------------------------------------------------------------
+
+CAMOPT_MODES = (("SO3xR3", "simple", False), ("SE3", "SE3", True))
+CAMOPT_ROWS = (0, 3, 5)                # the steps' rows of 8 cameras
+
+
+def _camopt_state(store_np: dict, cfg, step: int, num_cameras: int, dev,
+                  seed: int, rot_seed: Optional[int] = None):
+    """A train state of the scene with zero camera deltas (a fresh
+    run's) and, with rot_seed, small random bbox rotation deltas."""
+    arrays = train_arrays(store_np, step)
+    arrays["camera_opt"] = np.zeros((num_cameras, 6), np.float32)
+    if rot_seed is not None:
+        arrays["store/delta_rot"] = 0.02 * np.random.default_rng(
+            rot_seed).standard_normal(
+                store_np["delta_rot"].shape).astype(np.float32)
+    return train_state_from_numpy(arrays, cfg, device=dev, seed=seed)
+
+
+def camopt_reference(seed: int, calls: int = 100,
+                     devices=("cpu", "cuda")) -> dict:
+    """The camera group's 100-call accumulation at a small size, on the
+    card and on the CPU from the same scene and jitters: camera_opt stands
+    still through call 99 and moves at call 100 (to -lr sign(sum of the
+    gradients) on every entry, Adam's first step); the accumulator after
+    call 99 agrees within 1e-2 of its largest entry and the moved deltas
+    exactly where that sum is clear of zero (above 5e-2 of the largest
+    of its column)."""
+    store_np, tracks_np = make_scene(seed + 1, 600, 2, 80, 16, sh_degree=1)
+    cfg = dataclasses.replace(scene_config(1, 16, 5),
+                              camera_opt_mode="SO3xR3", num_cameras=4)
+    rcfg = RenderConfig(max_pairs=1 << 14)
+    jitters = np.random.default_rng(seed + 9).random(
+        (calls, 2, 48, 64), dtype=np.float32)
+    res = {}
+    for dev in devices:
+        tracks = tracks_from_numpy(tracks_np, device=dev)
+        cam = Camera.make(60.0, 60.0, 32.0, 24.0,
+                          np.eye(3, 4, dtype=np.float32), 64, 48, time=1.0,
+                          device=dev)
+        batch = make_batch(seed, 64, 48, dev)
+        state = _camopt_state(store_np, cfg, 600, 4, dev, seed)
+        for i in range(calls):
+            if i == calls - 1:
+                acc = state.opt["camera_opt"].acc.cpu()
+                still = state.camera_opt.cpu()
+            state, _ = sts.scene_train_step(
+                state, tracks, cam, batch, cfg, rcfg, subset_accs=False,
+                jitter=torch.from_numpy(jitters[i]).to(dev),
+                camera_index=i % 4)
+        res[dev] = dict(acc=acc, still=still, moved=state.camera_opt.cpu(),
+                        calls=state.opt["camera_opt"].calls,
+                        count=state.opt["camera_opt"].count)
+    want, got = res[devices[0]], res[devices[-1]]
+    lr = optimizers.schedule(optimizers.DEFAULT_GROUPS["camera_opt"],
+                             600 + calls - 1)
+    for r in res.values():
+        if r["still"].any() or r["calls"] != calls or r["count"] != 1:
+            raise AssertionError(f"camopt reference: the deltas moved "
+                                 f"before call {calls} or the counts are "
+                                 f"off ({r['calls']}, {r['count']})")
+        if not bool((r["moved"].abs() > 0.5 * lr).all()):
+            raise AssertionError("camopt reference: call 100 left a delta "
+                                 "in place")
+    top = float(want["acc"].abs().max())
+    acc_err = float((got["acc"] - want["acc"]).abs().max())
+    if not top > 0 or acc_err > 1e-2 * top:
+        raise AssertionError(f"camopt reference: accumulators differ by "
+                             f"{acc_err} (largest {top})")
+    clear = want["acc"].abs() > 5e-2 * want["acc"].abs().amax(dim=0)
+    moved_err = float((got["moved"] - want["moved"])[clear].abs().max())
+    if moved_err > 1e-3 * lr:
+        raise AssertionError(f"camopt reference: moved deltas differ by "
+                             f"{moved_err}")
+    return dict(calls=calls, lr=lr, acc_rel_err=acc_err / top,
+                moved_max_err=moved_err, entries_compared=int(clear.sum()))
+
+
+def phase_camopt(seed: int, tracks, cfg, rcfg, size: Size = FLAGSHIP,
+                 train_ms: Optional[float] = None, dev="cuda"):
+    """The flagship train state with the camera optimizer: "SO3xR3", then
+    "SE3" with bbox_mode="SE3" and bbox_differentiable=True; 3 steps each
+    on 3 cameras and rows CAMOPT_ROWS of 8 pose deltas, the counts set to
+    0 before the steps and read after. The step time is printed beside
+    train_path's (`train_ms`, the same call)."""
+    ref = camopt_reference(seed) if dev == "cuda" else None
+    store_np, _ = make_scene(seed, size.bg, size.objects, size.per_object,
+                             size.env_res)
+    cams = cameras(3, size.width, size.height, size.focal, dev)
+    batch = make_batch(seed, size.width, size.height, dev)
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    modes = {}
+    launches = None
+    for mode, bbox_mode, bbox_diff in CAMOPT_MODES:
+        mcfg = dataclasses.replace(cfg, camera_opt_mode=mode, num_cameras=8,
+                                   bbox_mode=bbox_mode,
+                                   bbox_differentiable=bbox_diff)
+        state = _camopt_state(store_np, mcfg, TRAIN_STEP0, 8, dev, seed,
+                              rot_seed=seed + 2 if bbox_diff else None)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", RuntimeWarning)
+            _, _, _, _, grads = sts.scene_loss_and_grads(
+                state, tracks, cams[2], batch, mcfg, rcfg, subset_accs=False,
+                jitter=draw_pixel_jitter(cams[2], state.generator),
+                camera_index=CAMOPT_ROWS[2])
+        g_cam, g_rot = grads["camera_opt"], grads["bbox"]["delta_rot"]
+        for name, g in (("camera_opt", g_cam), ("delta_rot", g_rot)):
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"camopt_path {mode}: the {name} "
+                                     f"gradient is not finite")
+        if not bool((g_cam[CAMOPT_ROWS[2]] != 0).all()):
+            raise AssertionError(f"camopt_path {mode}: no pose gradient")
+        if bbox_diff and not bool(g_rot.any()):
+            raise AssertionError(f"camopt_path {mode}: no delta_rot "
+                                 f"gradient with bbox_differentiable")
+        grad_absmax = {"camera_opt": float(g_cam.abs().max()),
+                       "delta_rot": float(g_rot.abs().max())}
+        del grads
+        sync()
+        reset_launches()
+        times, losses = [], []
+        for cam, row in zip(cams, CAMOPT_ROWS):
+            t = time.perf_counter()
+            with warnings.catch_warnings():
+                warnings.simplefilter("error", RuntimeWarning)
+                state, metrics = sts.scene_train_step(
+                    state, tracks, cam, batch, mcfg, rcfg, subset_accs=False,
+                    camera_index=row)
+            sync()
+            times.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(metrics["loss"]))
+            if not math.isfinite(losses[-1]):
+                raise AssertionError(f"camopt_path {mode}: loss "
+                                     f"{losses[-1]}")
+            if int(metrics["num_pairs"]) > rcfg.max_pairs:
+                raise AssertionError(f"camopt_path {mode}: capacity "
+                                     f"overflow")
+        launches = read_launches()
+        if dev == "cuda":
+            check_launches(f"camopt_path {mode}", launches, {
+                "flat_scan": 9, "expand_ragged": 6, "pack_feat_cols": 3,
+                "composite_fwd": 3, "composite_bwd": 3, "rank_rowsum": 3})
+        cam_opt = state.opt["camera_opt"]
+        acc = cam_opt.acc
+        stepped = torch.zeros(8, dtype=torch.bool)
+        stepped[list(CAMOPT_ROWS)] = True
+        row_nonzero = (acc != 0).all(dim=1).cpu()
+        if (cam_opt.calls != 3 or cam_opt.count != 0
+                or not bool(torch.isfinite(acc).all())
+                or not bool(row_nonzero[stepped].all())
+                or bool(acc.cpu()[~stepped].any())
+                or bool(state.camera_opt.any())):
+            raise AssertionError(f"camopt_path {mode}: calls "
+                                 f"{cam_opt.calls}, count {cam_opt.count}, "
+                                 f"accumulator rows {row_nonzero.tolist()}")
+        modes[mode] = dict(bbox_mode=bbox_mode,
+                           bbox_differentiable=bbox_diff, ms_per_step=times,
+                           ms_per_step_median=float(np.median(times)),
+                           loss_per_step=losses, grad_absmax=grad_absmax,
+                           accumulator_absmax=float(acc.abs().max()),
+                           calls=cam_opt.calls, launches=launches)
+        del state
+    split = (_camopt_split(store_np, tracks, cfg, rcfg, cams[0], batch, dev)
+             if dev == "cuda" else None)
+    emit("camopt_path", size=[size.width, size.height], rows=CAMOPT_ROWS,
+         num_cameras=8, first_step=TRAIN_STEP0,
+         train_path_ms_per_step_median=train_ms, modes=modes,
+         split=split, reference_100_calls=ref)
+    return launches
+
+
+def _camopt_split(store_np, tracks, cfg, rcfg, cam, batch, dev,
+                  rounds: int = 3):
+    """Where the camera optimizer's step time goes: one step of each
+    variant (camera mode / bbox mode / bbox_differentiable) from its own
+    fresh state, `rounds` rounds in turns on the host's clock, then one
+    step of each under torch.profiler: the host's operator calls, the
+    device's busy ms and the pairs of a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    variants = {"off": ("off", "simple", False),
+                "SO3xR3": ("SO3xR3", "simple", False),
+                "SE3": ("SE3", "simple", False),
+                "SO3xR3+bbox SE3": ("SO3xR3", "SE3", True),
+                "SE3+bbox SE3": ("SE3", "SE3", True)}
+    runs = {}
+    for name, (mode, bbox_mode, diff) in variants.items():
+        vcfg = dataclasses.replace(cfg, camera_opt_mode=mode, num_cameras=8,
+                                   bbox_mode=bbox_mode,
+                                   bbox_differentiable=diff)
+        state = _camopt_state(store_np, vcfg, TRAIN_STEP0, 8, dev, 0,
+                              rot_seed=1 if diff else None)
+        if mode == "off":
+            state = dataclasses.replace(state, camera_opt=None, opt={
+                k: v for k, v in state.opt.items() if k != "camera_opt"})
+        runs[name] = (vcfg, state)
+
+    def step(name):
+        vcfg, state = runs[name]
+        return sts.scene_train_step(state, tracks, cam, batch, vcfg, rcfg,
+                                    subset_accs=False, camera_index=3)
+
+    ms = {name: [] for name in variants}
+    for name in variants:                  # warm-up
+        step(name)
+    for _ in range(rounds):
+        for name in variants:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step(name)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t) * 1e3)
+    out = {}
+    for name in variants:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, metrics = step(name)
+            torch.cuda.synchronize()
+        calls = busy = 0
+        for e in prof.key_averages():
+            if e.key.startswith("aten::"):
+                calls += e.count
+            if e.device_type == DeviceType.CUDA:   # the kernels themselves
+                us = getattr(e, "self_device_time_total", None)
+                busy += (us if us is not None
+                         else getattr(e, "self_cuda_time_total", 0.0))
+        out[name] = dict(ms=ms[name], aten_calls=calls,
+                         device_busy_ms=busy / 1e3,
+                         num_pairs=int(metrics["num_pairs"]))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The live viewer.
+# ---------------------------------------------------------------------------
+
+def _http(port: int, path: str, timeout: float = 300.0):
+    """GET http://127.0.0.1:port/path -> (body, seconds)."""
+    t = time.perf_counter()
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=timeout) as r:
+        body = r.read()
+    return body, time.perf_counter() - t
+
+
+def _frame_path(c2w, t: float, res: str) -> str:
+    return "/frame?" + urllib.parse.urlencode({
+        "c2w": ",".join(repr(float(v)) for v in np.asarray(c2w).reshape(-1)),
+        "time": repr(float(t)), "res": res})
+
+
+def _serve_until(server, render_fn, client) -> None:
+    """Run `client` on a thread while this thread services the server's
+    requests (as serve_forever does), until the client is done; its
+    exception, if any, is raised here."""
+    err = []
+
+    def run():
+        try:
+            client()
+        except BaseException as e:     # handed to the servicing thread
+            err.append(e)
+
+    th = threading.Thread(target=run)
+    th.start()
+    while th.is_alive():
+        if not server.service(render_fn):
+            time.sleep(0.005)
+    th.join()
+    if err:
+        raise err[0]
+
+
+def phase_viewer(run: Path, dev="cuda"):
+    """The viewer on cli_path's run directory. Standalone: eval_setup +
+    attach_viewer(port=0) on 127.0.0.1, a client thread sending /, /init,
+    /state and 8 /frame requests (4 low, 4 med, poses along the train
+    cameras), this thread servicing them; every response a JPEG of the
+    ladder's size, the renders bit for bit a direct forward_scene of the
+    same camera, the counts set to 0 before the requests and read after,
+    one frame's torch.profiler trace under chiprun_out/ holding kernel
+    D's launches. Live: a Trainer on the same clip with viewer_port=0 and
+    camera_opt_mode="SE3" runs 20 steps while a client sends 4 requests,
+    each answered between two steps."""
+    Image = pillow_image()
+    cuda = dev == "cuda"
+    t0 = time.perf_counter()
+    trainer = eval_setup(run, device=dev)
+    server = trainer_mod.attach_viewer(trainer, 0, host="127.0.0.1")
+    server.update_stats(step=int(trainer.state.step), mode="checkpoint")
+    setup_s = time.perf_counter() - t0
+    scene = trainer.scene
+    poses = [(scene.c2w[int(i)], float(scene.times[int(i)]))
+             for i in scene.train_indices[:4]]
+    requests = [(c2w, t, res) for res in ("low", "med") for c2w, t in poses]
+    renders, device_ms = [], []
+
+    def render_fn(c2w, t, w, h):
+        start = torch.cuda.Event(enable_timing=True) if cuda else None
+        end = torch.cuda.Event(enable_timing=True) if cuda else None
+        if cuda:
+            start.record()
+        rgb = trainer._viewer_render(c2w, t, w, h)
+        if cuda:
+            end.record()
+            end.synchronize()
+            device_ms.append(start.elapsed_time(end))
+        renders.append(((c2w, t, w, h), rgb))
+        return rgb
+
+    got = {}
+
+    def client():
+        got["page"] = _http(server.port, "/")[0]
+        got["init"] = json.loads(_http(server.port, "/init")[0])
+        got["state"] = json.loads(_http(server.port, "/state")[0])
+        got["frames"] = [_http(server.port, _frame_path(c2w, t, res))
+                         for c2w, t, res in requests]
+
+    try:
+        trainer._viewer_render(*requests[0][:2], *RES_LADDER["low"])  # warm
+        if cuda:
+            torch.cuda.synchronize()
+        reset_launches()
+        _serve_until(server, render_fn, client)
+        launches = read_launches()
+        state = json.loads(_http(server.port, "/state")[0])
+    finally:
+        server.close()
+    fails = []
+    if "render_error" in state:
+        fails.append(f"render_error {state['render_error']}")
+    if b"viewer" not in got["page"] or len(got["init"]["c2w"]) != 12:
+        fails.append("the page or /init")
+    for (c2w, t, res), (jpeg, _) in zip(requests, got["frames"]):
+        img = np.asarray(Image.open(io.BytesIO(jpeg)))
+        if img.shape != (RES_LADDER[res][1], RES_LADDER[res][0], 3):
+            fails.append(f"frame {res} decodes to {img.shape}")
+    if len(renders) != len(requests):
+        fails.append(f"{len(renders)} renders for {len(requests)} requests")
+    n = len(requests)
+    if cuda:
+        for name, per in (("flat_scan", 9), ("expand_ragged", 6),
+                          ("pack_feat_cols", 3), ("composite_fwd", 3)):
+            if launches[name] != per * n:
+                fails.append(f"{name} launched {launches[name]} times for "
+                             f"{n} frames of 3 renders")
+    direct_equal = []
+    for (c2w, t, w, h), rgb in (renders[0], renders[n // 2]):
+        with torch.no_grad():
+            out, _, _ = forward_scene(
+                trainer.state.store, trainer.tracks,
+                trainer.viewer_camera(c2w, t, w, h), trainer.state.step,
+                trainer.config, trainer.render_config, training=False)
+        want = (torch.clamp(out["rgb"], 0.0, 1.0) * 255).to(
+            torch.uint8).cpu().numpy()
+        direct_equal.append(bool(np.array_equal(rgb, want)))
+    if not all(direct_equal):
+        fails.append("a viewer frame differs from a direct forward_scene")
+
+    # One viewer frame under torch.profiler, its Chrome trace kept.
+    trace_dir = REPO / "chiprun_out" / "viewer_trace"
+    with profiling.trace(trace_dir) as prof:
+        trainer._viewer_render(*requests[0][:2], *RES_LADDER["low"])
+    events = json.loads((trace_dir / "trace.json").read_text())["traceEvents"]
+    d_events = [e for e in events if e.get("cat") == "kernel"
+                and "composite_fwd_kernel" in e.get("name", "")]
+    kernel_events = sum(1 for e in events if e.get("cat") == "kernel")
+    if cuda and len(d_events) != 3:
+        fails.append(f"the trace holds {len(d_events)} launches of kernel D "
+                     f"({kernel_events} kernel events), expected 3")
+    del prof, trainer
+    standalone = dict(
+        setup_s=setup_s, step=state.get("step"), mode=state.get("mode"),
+        requests=[f"{res} {RES_LADDER[res][0]}x{RES_LADDER[res][1]}"
+                  for _, _, res in requests],
+        client_ms=[1e3 * s for _, s in got["frames"]],
+        render_device_ms=device_ms, launches=launches,
+        direct_forward_scene_equal=direct_equal,
+        trace=_rel(trace_dir / "trace.json"),
+        trace_kernel_events=kernel_events,
+        trace_kernel_d_us=[e.get("dur") for e in d_events])
+
+    # Live: the viewer inside a training run.
+    data, model, tcfg, dm = load_run_config(run)
+    model = dataclasses.replace(model, camera_opt_mode="SE3")
+    live_steps = 20
+    with tempfile.TemporaryDirectory(prefix="sgnt_live_") as out_dir:
+        tcfg = dataclasses.replace(
+            tcfg, output_dir=Path(out_dir), viewer_port=0, resume=False,
+            max_num_iterations=live_steps, steps_per_save=10 ** 6,
+            steps_per_eval_image=10 ** 6, steps_per_eval_all_images=10 ** 6)
+        live = trainer_mod.Trainer(data, model, tcfg, dm, device=dev)
+        served, answers = [], []
+        render = live._viewer_render
+
+        def recording(c2w, t, w, h):
+            served.append(live.state.step)
+            return render(c2w, t, w, h)
+
+        live._viewer_render = recording
+        i0 = int(live.scene.train_indices[0])
+
+        def live_client():
+            for k in range(4):
+                jpeg, s = _http(live.viewer.port, _frame_path(
+                    live.scene.c2w[i0], float(live.scene.times[i0]),
+                    "low"))
+                st = json.loads(_http(live.viewer.port, "/state")[0])
+                answers.append((len(jpeg), s, st))
+
+        th = threading.Thread(target=live_client)
+        losses = []
+        write = live.writer.write
+
+        def keep(step, m, prefix="train"):
+            if prefix == "train" and "loss" in m:
+                losses.append(m["loss"])
+            return write(step, m, prefix=prefix)
+
+        live.writer.write = keep
+        try:
+            th.start()
+            t = time.perf_counter()
+            live.train()
+            train_s = time.perf_counter() - t
+            th.join(timeout=120)
+        finally:
+            live.viewer.close()
+        if th.is_alive():
+            fails.append("live: the client did not finish")
+        cam = live.state.opt["camera_opt"]
+        live_res = dict(
+            steps=live.state.step, train_s=train_s, served_at_step=served,
+            client_ms=[1e3 * s for _, s, _ in answers],
+            state_steps=[st.get("step") for _, _, st in answers],
+            losses=losses, camera_calls=cam.calls,
+            camera_accumulator_absmax=float(cam.acc.abs().max()))
+        if len(answers) != 4 or len(served) != 4:
+            fails.append(f"live: {len(answers)} answers, {len(served)} "
+                         f"renders for 4 requests")
+        if len(set(served)) != len(served) or not all(
+                1 <= s <= live_steps for s in served):
+            fails.append(f"live: renders at steps {served} (one a step, "
+                         f"between steps)")
+        for _, _, st in answers:
+            if "render_error" in st or st.get("step") not in (0.0, 10.0):
+                fails.append(f"live: /state {st}")
+        if live.state.step != live_steps or not np.isfinite(losses).all():
+            fails.append(f"live: step {live.state.step}, losses {losses}")
+        if cam.calls != live_steps or not float(cam.acc.abs().max()) > 0:
+            fails.append(f"live: camera calls {cam.calls}")
+        del live
+    emit("viewer_path", standalone=standalone, live=live_res,
+         failures=fails)
+    if fails:
+        raise AssertionError("viewer_path: " + "; ".join(fails))
+    return launches
 
 
 def capture(store, tracks, cfg, rcfg, cam):
@@ -2592,8 +3378,8 @@ def main():
     phase_stages(store, tracks, cfg, rcfg, cam0)
     calls = capture(store, tracks, cfg, rcfg, cam0)
     del store
-    state, batch, train_launches = phase_train(args.seed, tracks, cfg, rcfg,
-                                               cam0)
+    state, batch, train_launches, train_ms = phase_train(
+        args.seed, tracks, cfg, rcfg, cam0)
     phase_profile("train_profile", lambda: sts.scene_train_step(
         state, tracks, cam0, batch, cfg, rcfg, subset_accs=False))
     train_calls, jitter, res = capture_train(state, tracks, cfg, rcfg, cam0,
@@ -2613,11 +3399,22 @@ def main():
     del state
     scan_calls, scan_launches = phase_row_scans(args.seed)
     calls.update(scan_calls)
-    phase_cli(args.seed)
+    new_paths = {}
+    splat = phase_splatfacto(args.seed)
+    new_paths["splatfacto_path[eval]"] = splat["eval"]
+    new_paths["splatfacto_path[train]"] = splat["train"]
+    new_paths["camopt_path[SE3]"] = phase_camopt(args.seed, tracks, cfg,
+                                                 rcfg, train_ms=train_ms)
+    with tempfile.TemporaryDirectory(prefix="sgnt_cli_") as tmp:
+        run = phase_cli(args.seed, Path(tmp))
+        new_paths["viewer_path"] = phase_viewer(run)
     rows = phase_kernels(calls, launches, train_launches, sliced_launches,
                          unfused_launches, scan_launches)
     for r in rows:
         r["card"] = smi
+        r["launches_on_later_paths"] = {
+            path: counts.get(r["name"], 0)
+            for path, counts in new_paths.items()}
     emit("earlier_times", quoted_from="PERF.md section 6",
          measured_in_this_run=False, ms=EARLIER_MS)
     print(json.dumps({"kernels": rows}), flush=True)

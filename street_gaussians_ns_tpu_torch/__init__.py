@@ -11,11 +11,15 @@ plain PyTorch version instead, which is what the tests on a machine
 without a GPU exercise.
 
 Ported so far: rendering a scene graph (`models.scene_graph.forward_scene`)
-and training it (`engine.scene_train_step`) through the fused rasterizer
-and every other f32 route; the data layer that reads a clip from disk;
-the trainer with checkpoints either package reads (`engine.trainer`,
-`engine.setup`, `engine.checkpoints`); and the train / eval / render /
-export entry points (`scripts/`), each with `--device` (default cuda).
+and training it (`engine.scene_train_step`, with the camera pose
+optimizer `models.camera_opt` and every bbox mode) through the fused
+rasterizer and every other f32 route; the single-model Splatfacto
+pipeline (`models.splatfacto.forward`, `engine.train_step`); the data
+layer that reads a clip from disk; the trainer with checkpoints either
+package reads (`engine.trainer`, `engine.setup`, `engine.checkpoints`)
+and its live viewer (`utils.viewer`); `utils.profiling`; and the train /
+eval / render / export / viewer entry points (`scripts/`), each with
+`--device` (default cuda).
 """
 
 __version__ = "0.1.0"

@@ -15,6 +15,8 @@ so either package reads the other's:
 - `restore_checkpoint` reads one into the structure of a target state,
   every leaf required and its shape checked, as the JAX function does;
   the generator continues from the saved state where there is one;
+  a target with the camera optimizer also reads "camera_opt" and its
+  Adam group's accumulator ("opt/camera_opt/acc", "opt/camera_opt/calls");
 - `latest_checkpoint` finds the newest in a directory.
 
 The JAX package's arrays also cross on their own: `store_from_numpy` /
@@ -136,9 +138,12 @@ def _sub(arrays, prefix: str) -> dict:
 def _train_state(arrays, store: SceneGraphStore,
                  generator: torch.Generator) -> SceneTrainState:
     """A SceneTrainState around `store` with the Adam groups of `arrays`
-    (groups missing there start from zero moments)."""
+    (groups missing there start from zero moments), and the camera pose
+    deltas where `arrays` holds "camera_opt"."""
     device = store.background.active.device
-    state = init_scene_train_state(store, generator)
+    camera_opt = (_tensor(arrays, "camera_opt", device, torch.float32)
+                  if "camera_opt" in arrays else None)
+    state = init_scene_train_state(store, generator, camera_opt=camera_opt)
 
     def moments(like, path: str):
         if isinstance(like, dict):
@@ -154,13 +159,17 @@ def _train_state(arrays, store: SceneGraphStore,
         if f"opt/{name}/count" not in arrays:
             opt[name] = zero
             continue
+        accum = zero.acc is not None and f"opt/{name}/calls" in arrays
         opt[name] = AdamState(
             mu=moments(zero.mu, f"opt/{name}/mu"),
             nu=moments(zero.nu, f"opt/{name}/nu"),
-            count=int(arrays[f"opt/{name}/count"]))
+            count=int(arrays[f"opt/{name}/count"]),
+            acc=(moments(zero.acc, f"opt/{name}/acc") if accum
+                 else zero.acc),
+            calls=int(arrays[f"opt/{name}/calls"]) if accum else zero.calls)
     step = int(arrays["step"]) if "step" in arrays else 0
     return SceneTrainState(store=store, opt=opt, step=step,
-                           generator=generator)
+                           generator=generator, camera_opt=camera_opt)
 
 
 def train_state_from_numpy(arrays, config: SceneGraphConfig, device="cuda",
@@ -187,8 +196,8 @@ def load_train_checkpoint(path: Path,
 def _state_leaves(state: SceneTrainState
                   ) -> Iterator[Tuple[str, torch.Tensor]]:
     """(checkpoint key, tensor) of every array of a state, in the JAX
-    package's tree paths; the Adam counts and the step come as 0-d int32
-    tensors."""
+    package's tree paths; the Adam counts, the accumulation calls and the
+    step come as 0-d int32 tensors."""
     def walk(path: str, tree):
         if isinstance(tree, dict):
             for k, v in tree.items():
@@ -210,7 +219,13 @@ def _state_leaves(state: SceneTrainState
         yield from walk(f"opt/{name}/mu", s.mu)
         yield from walk(f"opt/{name}/nu", s.nu)
         yield f"opt/{name}/count", torch.tensor(s.count, dtype=torch.int32)
+        yield from walk(f"opt/{name}/acc", s.acc)
+        if s.calls is not None:
+            yield f"opt/{name}/calls", torch.tensor(s.calls,
+                                                    dtype=torch.int32)
     yield "step", torch.tensor(state.step, dtype=torch.int32)
+    if state.camera_opt is not None:
+        yield "camera_opt", state.camera_opt
 
 
 def state_to_numpy(state: SceneTrainState) -> dict:

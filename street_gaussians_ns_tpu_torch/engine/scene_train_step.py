@@ -3,18 +3,18 @@ street_gaussians_ns_tpu/engine/scene_train_step.py: `SceneTrainState`,
 `init_scene_train_state`, `mask_inactive_grads`, `scene_train_step`,
 `scene_refine_step`, `_split_opt`).
 
-`scene_train_step`: compose -> SH colours -> jittered sky -> 1 or 3
-renders -> L1 + SSIM + sky-accumulation + entropy losses -> backward
-through the fused rasterizer (kernels E and F) -> per-group Adam over
-background + objects + sky + bbox deltas -> densification statistics.
+`scene_train_step`: the camera pose delta (when the camera optimizer is
+on) -> compose -> SH colours -> jittered sky -> 1 or 3 renders -> L1 +
+SSIM + sky-accumulation + entropy losses -> backward through the fused
+rasterizer (kernels E and F) -> per-group Adam over background + objects
++ sky + bbox deltas + camera deltas -> densification statistics.
 `scene_refine_step`: one refinement pass of the background and of every
 object, each with its own config.
 
 Both are functional: they return a new `SceneTrainState` built from new
 tensors and leave the state they were given untouched (only its
 `torch.Generator` advances when a step draws from it). The step counter
-is a host int. The camera optimizer (`config.camera_opt_mode != "off"`)
-is not ported yet and raises (ROADMAP.md).
+is a host int.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ import torch
 
 from ..core.cameras import Camera, draw_pixel_jitter
 from ..models import refinement
+from ..models.camera_opt import CameraOptConfig, apply_camera_opt
 from ..models.gaussians import GaussianParams, GaussianStore
 from ..models.scene_graph import (ObjectTracks, SceneGraphConfig,
                                   SceneGraphStore, forward_scene,
@@ -45,7 +46,9 @@ class SceneTrainState:
     step: int
     generator: torch.Generator     # on the store's device; draws the sky
     #                                jitter and the split noise
-    camera_opt: Optional[torch.Tensor] = None   # not ported: must be None
+    # Per-camera pose deltas (num_cameras, 6) when the camera optimizer
+    # is on (config.camera_opt_mode != "off"); None otherwise.
+    camera_opt: Optional[torch.Tensor] = None
 
 
 def _gaussian_group_params(store: SceneGraphStore, name: str):
@@ -84,15 +87,20 @@ def mask_inactive_grads(g_gauss: Dict, store: SceneGraphStore) -> Dict:
 
 
 def init_scene_train_state(store: SceneGraphStore,
-                           generator: torch.Generator) -> SceneTrainState:
+                           generator: torch.Generator,
+                           camera_opt: Optional[torch.Tensor] = None
+                           ) -> SceneTrainState:
     opt = {name: init_adam(_gaussian_group_params(store, name))
            for name in GAUSSIAN_GROUPS}
     if store.env_map is not None:
         opt["sky_sphere"] = init_adam(store.env_map)
     if store.delta_center.numel():
         opt["bbox_opt"] = init_adam(_bbox_params(store))
+    if camera_opt is not None:
+        opt["camera_opt"] = init_adam(
+            camera_opt, accum_steps=DEFAULT_GROUPS["camera_opt"].accum_steps)
     return SceneTrainState(store=store, opt=opt, step=0,
-                           generator=generator)
+                           generator=generator, camera_opt=camera_opt)
 
 
 def scene_loss_and_grads(state: SceneTrainState, tracks: ObjectTracks,
@@ -100,16 +108,18 @@ def scene_loss_and_grads(state: SceneTrainState, tracks: ObjectTracks,
                          config: SceneGraphConfig,
                          render_config: RenderConfig,
                          subset_accs: bool = True,
-                         jitter: Optional[torch.Tensor] = None):
+                         jitter: Optional[torch.Tensor] = None,
+                         camera_index=None):
     """The forward and backward of one step. Returns (total loss, losses,
     outputs, RenderOutputs of the full render, grads) with grads =
     {"gauss": {group: {"bg", "obj"}}, "env_map", "bbox": {...}, "xys":
-    (N_flat, 2) the screen-space positional gradients}; a parameter the
-    loss does not reach gets zeros."""
-    if config.camera_opt_mode != "off" or state.camera_opt is not None:
-        raise NotImplementedError(
-            "the camera optimizer (models/camera_opt) is not ported yet "
-            "(ROADMAP.md); use camera_opt_mode='off'")
+    (N_flat, 2) the screen-space positional gradients, "camera_opt": the
+    (num_cameras, 6) pose-delta gradient or None when the camera optimizer
+    is off}; a parameter the loss does not reach gets zeros.
+
+    With the camera optimizer on, row `camera_index` (0 when None) of
+    state.camera_opt is composed with camera.c2w before the render, and
+    the pose gradient also flows through the sky rays."""
     store = state.store
 
     def leaf(x):
@@ -124,11 +134,21 @@ def scene_loss_and_grads(state: SceneTrainState, tracks: ObjectTracks,
     xys_zero = torch.zeros((n_flat, 2), dtype=torch.float32,
                            device=store.background.active.device,
                            requires_grad=True)
+    use_cam_opt = (state.camera_opt is not None
+                   and config.camera_opt_mode != "off")
+    cam_opt = None
+    if use_cam_opt:
+        cam_opt = leaf(state.camera_opt)
+        camera = dataclasses.replace(camera, c2w=apply_camera_opt(
+            CameraOptConfig(mode=config.camera_opt_mode,
+                            num_cameras=cam_opt.shape[0]),
+            cam_opt, 0 if camera_index is None else camera_index,
+            camera.c2w))
 
     outputs, rout, _ = forward_scene(
         _with_params(store, gauss, env, bbox), tracks, camera, state.step,
         config, render_config, training=True, subset_accs=subset_accs,
-        jitter=jitter, xys_offset=xys_zero)
+        jitter=jitter, xys_offset=xys_zero, sky_dirs_grad=use_cam_opt)
     losses = scene_loss_dict(outputs, batch, config, state.step)
     total = sum(losses.values())
 
@@ -136,6 +156,8 @@ def scene_loss_and_grads(state: SceneTrainState, tracks: ObjectTracks,
     leaves += [bbox[n] for n in BBOX_PARAMS] + [xys_zero]
     if env is not None:
         leaves.append(env)
+    if cam_opt is not None:
+        leaves.append(cam_opt)
     raw = torch.autograd.grad(total, leaves, allow_unused=True)
     got = [torch.zeros_like(p) if g is None else g
            for p, g in zip(leaves, raw)]
@@ -144,7 +166,8 @@ def scene_loss_and_grads(state: SceneTrainState, tracks: ObjectTracks,
                        for n in GAUSSIAN_GROUPS},
              "bbox": {n: next(it) for n in BBOX_PARAMS},
              "xys": next(it),
-             "env_map": next(it) if env is not None else None}
+             "env_map": next(it) if env is not None else None,
+             "camera_opt": next(it) if cam_opt is not None else None}
     detach = lambda t: t.detach()  # noqa: E731
     return (total.detach(), tree_map(detach, losses),
             tree_map(detach, outputs), rout, grads)
@@ -153,20 +176,23 @@ def scene_loss_and_grads(state: SceneTrainState, tracks: ObjectTracks,
 def scene_train_step(state: SceneTrainState, tracks: ObjectTracks,
                      camera: Camera, batch: dict, config: SceneGraphConfig,
                      render_config: RenderConfig, subset_accs: bool = True,
-                     jitter: Optional[torch.Tensor] = None):
+                     jitter: Optional[torch.Tensor] = None,
+                     camera_index=None):
     """One scene-graph optimization step. Returns (new_state, metrics).
 
     batch: {"image" (H, W, 3), optional "mask", optional "semantic"}.
     subset_accs=False drops the object / background accumulation renders,
     which only the entropy loss past stop_split_at reads. `jitter`
     ((2, H, W)) is the sky rays' jitter; when None it is drawn from the
-    state's generator."""
+    state's generator. `camera_index` selects this step's row of the
+    camera-pose deltas when the camera optimizer is on; their gradients
+    accumulate over DEFAULT_GROUPS["camera_opt"].accum_steps calls."""
     store = state.store
     if jitter is None and store.env_map is not None:
         jitter = draw_pixel_jitter(camera, state.generator)
     total, losses, outputs, rout, grads = scene_loss_and_grads(
         state, tracks, camera, batch, config, render_config,
-        subset_accs=subset_accs, jitter=jitter)
+        subset_accs=subset_accs, jitter=jitter, camera_index=camera_index)
     cap_bg = store.background.capacity
     n_obj = store.num_objects
     step = state.step
@@ -193,6 +219,12 @@ def scene_train_step(state: SceneTrainState, tracks: ObjectTracks,
             new_bbox, new_opt["bbox_opt"] = adam_update(
                 grads["bbox"], state.opt["bbox_opt"], new_bbox,
                 schedule(cfg, step), cfg)
+        new_cam_opt = state.camera_opt
+        if grads["camera_opt"] is not None and "camera_opt" in state.opt:
+            cfg = DEFAULT_GROUPS["camera_opt"]
+            new_cam_opt, new_opt["camera_opt"] = adam_update(
+                grads["camera_opt"], state.opt["camera_opt"],
+                state.camera_opt, schedule(cfg, step), cfg)
         new_store = _with_params(store, new_gauss, new_env, new_bbox)
 
         # Densification statistics per submodel, by slicing the flat
@@ -237,7 +269,7 @@ def scene_train_step(state: SceneTrainState, tracks: ObjectTracks,
             **losses,
         }
     return dataclasses.replace(state, store=new_store, opt=new_opt,
-                               step=step + 1), metrics
+                               step=step + 1, camera_opt=new_cam_opt), metrics
 
 
 def _split_opt(opt: Dict[str, AdamState], key: str) -> Dict[str, AdamState]:

@@ -19,10 +19,12 @@ jitter and the split noise of training, so its numbers differ from the JAX
 package's by design (parity tests hand the JAX draws to `build_stores` and
 to the step).
 
-Not ported (each raises NotImplementedError): the live viewer
-(`viewer_port`, ROADMAP.md queue 1 item 6), the camera optimizer
-(`camera_opt_mode != "off"`, item 5) and bf16 rendering
-(`render_precision="bf16"`, item 8).
+With `camera_opt_mode != "off"` each train camera has a (6,) pose delta
+(models.camera_opt), trained with gradient accumulation over 100 steps.
+With `viewer_port` set, the live viewer (utils.viewer) serves its render
+requests on the training thread between steps. bf16 rendering
+(`render_precision="bf16"`) is not ported yet and raises
+NotImplementedError (ROADMAP.md queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -36,10 +38,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.cameras import viewmat_from_c2w
+from ..core.cameras import Camera, viewmat_from_c2w
 from ..core.projection import project
 from ..data.datamanager import DataManagerConfig, FullImageDatamanager
 from ..data.dataparser import DataParserConfig, ParsedScene, parse_scene
+from ..models.camera_opt import CameraOptConfig, init_camera_opt
 from ..models.gaussians import GaussianStore, draw_init_noise, init_gaussians
 from ..models.scene_graph import (SceneGraphConfig, compose, empty_tracks,
                                   forward_scene, init_scene_graph_store)
@@ -78,7 +81,7 @@ class TrainerConfig:
     render_impl: str = "pallas"     # the fused kernel route; or "chunked",
     #                                 "scan" (plain PyTorch compositors)
     render_precision: str = "auto"  # "auto" -> "f32" off a TPU
-    viewer_port: Optional[int] = None   # live viewer: not ported
+    viewer_port: Optional[int] = None   # live viewer; None = off
 
 
 def resolve_device(device) -> torch.device:
@@ -190,6 +193,19 @@ def _map_store(store: GaussianStore, fn) -> GaussianStore:
         vis_counts=fn(store.vis_counts), max_2dsize=fn(store.max_2dsize))
 
 
+def attach_viewer(trainer: "Trainer", port: int, host: str = "0.0.0.0"):
+    """Start the live HTTP viewer (utils.viewer) seeded from the first
+    train camera; port 0 takes a free one (ViewerServer.port)."""
+    from ..utils.viewer import ViewerServer
+
+    server = ViewerServer(port=port, host=host)
+    scene = trainer.scene
+    i0 = int(scene.train_indices[0]) if len(scene.train_indices) else 0
+    server.set_init(scene.c2w[i0], float(scene.times[i0]),
+                    extras={"frames": int(scene.num_frames)})
+    return server
+
+
 def _stack_stores(stores) -> GaussianStore:
     """Stores -> one store with a leading (O,) axis on every leaf."""
     first = stores[0]
@@ -211,15 +227,6 @@ class Trainer:
         device="cuda",
     ):
         self.device = resolve_device(device)
-        if trainer_config.viewer_port is not None:
-            raise NotImplementedError(
-                "the live viewer (TrainerConfig.viewer_port, utils/viewer) "
-                "is not ported yet (ROADMAP.md queue 1 item 6)")
-        if scene_config.camera_opt_mode != "off":
-            raise NotImplementedError(
-                f"camera_opt_mode={scene_config.camera_opt_mode!r}: the "
-                f"camera optimizer is not ported yet (ROADMAP.md queue 1 "
-                f"item 5)")
         precision = trainer_config.render_precision
         if precision == "auto":
             precision = "f32"
@@ -256,7 +263,17 @@ class Trainer:
                 self.scene, scene_config, trainer_config, noise, self.device)
             store = init_scene_graph_store(bg, obj, self.tracks,
                                            scene_config, self.device)
-            self.state = init_scene_train_state(store, generator)
+            # The camera optimizer: one (6,) delta per train camera.
+            camera_opt = None
+            self._cam_row = {}
+            if scene_config.camera_opt_mode != "off":
+                camera_opt = init_camera_opt(CameraOptConfig(
+                    mode=scene_config.camera_opt_mode,
+                    num_cameras=max(self.dm.num_train, 1)), self.device)
+                self._cam_row = {int(g): i for i, g in
+                                 enumerate(self.scene.train_indices)}
+            self.state = init_scene_train_state(store, generator,
+                                                camera_opt=camera_opt)
         self.start_step = 0
 
         self.ckpt_dir = Path(trainer_config.output_dir) / "checkpoints"
@@ -281,6 +298,11 @@ class Trainer:
         self._pair_max = None
         self._rowrun_max = None
         self._last_hw = None
+
+        self.viewer = None
+        if trainer_config.viewer_port is not None:
+            self.viewer = attach_viewer(self, trainer_config.viewer_port)
+            self.writer.log(f"viewer: http://localhost:{self.viewer.port}/")
 
     @contextlib.contextmanager
     def _timed(self, name: str):
@@ -371,8 +393,12 @@ class Trainer:
         """One training step: fetch data, run the step."""
         camera, batch = self.dm.next_train(step)
         fn = self._step_fn(step)
+        kw = {}
+        if self.state.camera_opt is not None:
+            kw["camera_index"] = self._cam_row.get(
+                batch.get("frame_idx", -1), 0)
         self.state, metrics = fn(self.state, self.tracks, camera,
-                                 self._device_batch(batch))
+                                 self._device_batch(batch), **kw)
         self._last_hw = (camera.height, camera.width)
         return metrics
 
@@ -415,12 +441,20 @@ class Trainer:
                 t_last = time.time()
                 m["steps_per_sec"] = (10 if step else 1) / max(dt, 1e-9)
                 self.writer.write(step, m)
+                if self.viewer is not None:
+                    self.viewer.update_stats(step=step, **{
+                        k: m[k] for k in ("loss", "psnr", "gaussian_count",
+                                          "steps_per_sec") if k in m})
                 if step % 100 == 0:
                     self.writer.log(
                         f"step {step}: loss={m.get('loss', 0):.4f} "
                         f"psnr={m.get('psnr', 0):.2f} "
                         f"N={int(m.get('gaussian_count', 0))} "
                         f"({m['steps_per_sec']:.2f} it/s)")
+            if self.viewer is not None:
+                # Viewer renders run on this thread, between steps: they
+                # serialize with training on one stream, never race it.
+                self.viewer.service(self._viewer_render)
             if (step + 1) % self.tc.steps_per_eval_image == 0:
                 self.eval_image(step)
             if ((step + 1) % self.tc.steps_per_eval_all_images == 0
@@ -436,6 +470,31 @@ class Trainer:
         extra = {SAMPLER_PREFIX + k: v
                  for k, v in self.dm.sampler_state().items()}
         return save_checkpoint(self.ckpt_dir, step, self.state, extra=extra)
+
+    def viewer_camera(self, c2w, t: float, width: int, height: int):
+        """A viewer camera: train camera 0's intrinsics scaled to
+        width x height, at pose c2w ((3, 4) OpenGL) and time t."""
+        scene = self.scene
+        i0 = int(scene.train_indices[0]) if len(scene.train_indices) else 0
+        sx = width / float(scene.width[i0])
+        sy = height / float(scene.height[i0])
+        return Camera.make(scene.fx[i0] * sx, scene.fy[i0] * sy,
+                           scene.cx[i0] * sx, scene.cy[i0] * sy,
+                           np.asarray(c2w, np.float32), width, height,
+                           time=t, device=self.device)
+
+    def _viewer_render(self, c2w: np.ndarray, t: float, width: int,
+                       height: int) -> np.ndarray:
+        """A viewer frame: forward_scene(training=False) of viewer_camera
+        at the trainer's render config, clamped to [0, 1] and returned as
+        uint8 (H, W, 3) on the host."""
+        with torch.no_grad():
+            outputs, _, _ = forward_scene(
+                self.state.store, self.tracks,
+                self.viewer_camera(c2w, t, width, height), self.state.step,
+                self.config, self.render_config, training=False)
+            rgb = torch.clamp(outputs["rgb"], 0.0, 1.0)
+            return (rgb * 255).to(torch.uint8).cpu().numpy()
 
     def _eval_one(self, camera, batch):
         with torch.no_grad():

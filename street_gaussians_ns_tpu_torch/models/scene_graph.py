@@ -9,8 +9,8 @@ everything is flattened into one splat set for the renderer.
 `forward_scene` renders for evaluation and for training (jittered sky
 rays, the screen-space gradient hook, no final clamp) and
 `scene_loss_dict` adds the accumulation entropy loss to the base losses.
-The bbox modes "off" and "simple" are ported; "SO3xR3"/"SE3" need the
-camera-optimizer exp maps and raise until they are ported (ROADMAP.md).
+The bbox optimizer's modes: "off", "simple" (delta center + delta yaw) and
+"SO3xR3" / "SE3" (the exp map of a 6-dof tangent, models.camera_opt).
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ import torch
 from ..core import quaternions as quat
 from ..core.cameras import Camera
 from ..ops.render import RenderConfig, render
+from .camera_opt import exp_map_SE3, exp_map_SO3xR3
 from .fourier import fourier_dc
 from .gaussians import GaussianStore
 from .splatfacto import (SplatfactoConfig, init_env_map, loss_dict,
@@ -103,18 +104,17 @@ def interpolate_boxes(tracks: ObjectTracks, t: torch.Tensor,
                       differentiable: bool = False) -> BoxesAtT:
     """Boxes at camera time t: the exact frame when t matches one, else
     SLERP/lerp between the bracketing frames, visible where both are
-    valid; none visible outside the tracked time range. In "simple" mode
-    the bbox optimizer's delta center and yaw are applied at exact
-    annotated frames; unless `differentiable`, they are detached (the
-    reference applies its correction detached, so no gradient reaches
-    them)."""
-    if mode in ("SO3xR3", "SE3"):
-        raise NotImplementedError(
-            f"bbox_mode={mode!r} needs the camera-optimizer exp maps, not "
-            f"ported yet (ROADMAP.md)")
-    if mode not in ("off", "simple"):
+    valid; none visible outside the tracked time range.
+
+    The bbox optimizer's deltas apply at exact annotated frames only.
+    "simple" adds delta_center and post-multiplies a yaw quaternion;
+    "SO3xR3" / "SE3" build a correction from the exp map of the tangent
+    [delta_center | delta_rot], add its translation to the center (not
+    rotated) and premultiply the rotation. Unless `differentiable`, the
+    deltas are detached (the reference applies its correction detached,
+    so no gradient reaches them)."""
+    if mode not in ("off", "simple", "SO3xR3", "SE3"):
         raise ValueError(f"unknown bbox_mode {mode!r}")
-    del delta_rot
     F = tracks.num_frames
     times = tracks.times
     t = torch.as_tensor(t, dtype=torch.float32, device=times.device)
@@ -144,17 +144,30 @@ def interpolate_boxes(tracks: ObjectTracks, t: torch.Tensor,
         fi = torch.where(exact1, i1, i0)
         gate = ((exact1 | (w <= 0.0))).to(torch.float32)
         dc = delta_center[fi]
-        dy = (delta_yaw[fi] if delta_yaw is not None
-              else torch.zeros(centers.shape[:-1], dtype=torch.float32,
-                               device=times.device))
         if not differentiable:
-            dc, dy = dc.detach(), dy.detach()
-        centers = centers + gate[..., None] * dc
-        dyaw = dy * gate
-        zero = torch.zeros_like(dyaw)
-        dq = torch.stack([torch.cos(dyaw), zero, zero, torch.sin(dyaw)],
-                         dim=-1)
-        quats = quat.multiply(quats, dq)
+            dc = dc.detach()
+        if mode in ("SO3xR3", "SE3") and delta_rot is not None:
+            dr = delta_rot[fi]
+            if not differentiable:
+                dr = dr.detach()
+            tangent = torch.cat([dc, dr], dim=-1) * gate[..., None]
+            corr = (exp_map_SO3xR3(tangent) if mode == "SO3xR3"
+                    else exp_map_SE3(tangent))             # (O, 3, 4)
+            centers = centers + corr[..., :3, 3]
+            quats = quat.multiply(quat.from_rotmat(corr[..., :3, :3]),
+                                  quats)
+        else:
+            dy = (delta_yaw[fi] if delta_yaw is not None
+                  else torch.zeros(centers.shape[:-1], dtype=torch.float32,
+                                   device=times.device))
+            if not differentiable:
+                dy = dy.detach()
+            centers = centers + gate[..., None] * dc
+            dyaw = dy * gate
+            zero = torch.zeros_like(dyaw)
+            dq = torch.stack([torch.cos(dyaw), zero, zero, torch.sin(dyaw)],
+                             dim=-1)
+            quats = quat.multiply(quats, dq)
     return BoxesAtT(centers=centers, quats=quats, visible=visible,
                     t_norm=t_norm)
 
@@ -255,11 +268,10 @@ def forward_scene(store: SceneGraphStore, tracks: ObjectTracks,
     ((N, 2) over the flat splat set) is the screen-space gradient hook of
     ops.render.render. subset_accs=False skips the two subset renders
     (the entropy loss that reads them is off until the background's
-    stop_split_at)."""
-    if config.camera_opt_mode != "off":
-        raise NotImplementedError(
-            f"camera_opt_mode={config.camera_opt_mode!r}: the camera "
-            f"optimizer (models/camera_opt) is not ported yet (ROADMAP.md)")
+    stop_split_at). `config.camera_opt_mode` does not change this
+    function: a trainer applies the camera delta to `camera` before it
+    calls it; sky_dirs_grad=True lets the pose gradient through the sky
+    rays (ops.cubemap.sample_cubemap)."""
     flat, active, boxes = compose(store, tracks, camera.time, config=config)
     cap_bg = store.background.capacity
 

@@ -1,16 +1,23 @@
-"""Splatfacto pieces the scene graph renders with (counterpart of
+"""Splatfacto: one Gaussian cloud + sky cubemap (counterpart of
 street_gaussians_ns_tpu/models/splatfacto.py: `SplatfactoConfig`,
-`sh_colors`, `init_env_map`, `sky_color`, `loss_dict`)."""
+`sh_colors`, `init_env_map`, `sky_color`, `forward`, `loss_dict`).
+
+`forward` renders the single-model pipeline (engine.train_step); the
+scene graph renders with the same pieces (models.scene_graph)."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 from ..core.cameras import Camera, pixel_directions
 from ..core.sh import eval_sh
 from ..ops.cubemap import sample_cubemap
+from ..ops.render import RenderConfig, render
 from ..ops.ssim import ssim
+from .fourier import fourier_dc
+from .gaussians import GaussianParams, activated_opacities
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +93,41 @@ def sky_color(env_map: torch.Tensor, camera: Camera,
     to_opengl = torch.tensor([[1.0, 0.0, 0.0], [0.0, 0.0, 1.0],
                               [0.0, -1.0, 0.0]], device=dirs.device)
     return sample_cubemap(env_map, dirs @ to_opengl.T, dirs_grad=dirs_grad)
+
+
+def forward(params: GaussianParams, active: torch.Tensor, camera: Camera,
+            step: int, config: SplatfactoConfig,
+            render_config: RenderConfig,
+            env_map: Optional[torch.Tensor] = None,
+            jitter: Optional[torch.Tensor] = None, training: bool = True,
+            time=None, xys_offset: Optional[torch.Tensor] = None):
+    """One-camera render of one Gaussian cloud. Returns (outputs dict,
+    RenderOutputs).
+
+    The Fourier DC is taken at `time * fourier_features_scale` (time 0
+    when None); the sky is sampled when `env_map` is given, its rays
+    jittered by `jitter` ((2, H, W), core.cameras.draw_pixel_jitter) in
+    training and through the pixel centers otherwise. `xys_offset` is the
+    screen-space gradient hook of ops.render.render."""
+    dev = params.means.device
+    t = torch.as_tensor(0.0 if time is None else time, dtype=torch.float32,
+                        device=dev)
+    dc_t = fourier_dc(params.features_dc, t * config.fourier_features_scale)
+    rgbs = sh_colors(params.means, dc_t, params.features_rest, camera, step,
+                     config, training)
+    opac = activated_opacities(params, active)
+    scales = torch.exp(params.scales)
+    sky = None
+    if env_map is not None:
+        sky = sky_color(env_map, camera, jitter if training else None)
+    out = render(params.means, scales, params.quats, opac, rgbs, camera,
+                 render_config, sky_rgb=sky, training=training,
+                 active=active, xys_offset=xys_offset)
+    outputs = {"rgb": out.rgb, "accumulation": out.accumulation,
+               "depth": out.depth}
+    if sky is not None:
+        outputs["sky"] = sky
+    return outputs, out
 
 
 SKY_SEMANTIC = 2  # the semantic class of sky pixels

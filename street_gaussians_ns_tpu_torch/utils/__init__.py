@@ -1,2 +1,2 @@
 """Host-side utilities: metrics writer, the dataclass CLI bridge, the
-optional image libraries."""
+optional image libraries, the live viewer, profiling helpers."""

@@ -9,10 +9,15 @@ then read the same run directory with --device cpu. Tolerances: PSNR
 within 1e-3 dB, SSIM within 1e-5, LPIPS and the chamfer distances at
 rtol 1e-4; rendered PNGs within 1 in uint8 (depth: within one entry of
 the colormap); exported .ply files bit for bit."""
+import io
 import json
 import os
 import subprocess
 import sys
+import threading
+import time
+import urllib.parse
+import urllib.request
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -286,7 +291,8 @@ def test_cli_modules_run_on_a_clip(tmp_path):
     assert (run / "exports" / "point_cloud_object_veh1.ply").exists()
 
 
-@pytest.mark.parametrize("cli", ["train", "eval", "render", "export"])
+@pytest.mark.parametrize("cli", ["train", "eval", "render", "export",
+                                 "viewer"])
 def test_cli_without_a_card_raises(jax_run, tmp_path, monkeypatch, cli):
     """Without --device cpu the entry points ask for the card, and raise
     where there is none: no silent CPU run."""
@@ -296,9 +302,11 @@ def test_cli_without_a_card_raises(jax_run, tmp_path, monkeypatch, cli):
                       "--trainer.output-dir", str(tmp_path / "run")],
             "eval": ["--load-dir", run],
             "render": ["--load-dir", run, "--output-path", str(tmp_path)],
-            "export": ["--load-dir", run, "--output-dir", str(tmp_path)]}
+            "export": ["--load-dir", run, "--output-dir", str(tmp_path)],
+            "viewer": ["--load-dir", run, "--port", "0"]}
     main = {"train": ttrain.main, "eval": teval.main,
-            "render": trender.main, "export": texport.main}[cli]
+            "render": trender.main, "export": texport.main,
+            "viewer": tviewer.main}[cli]
     with pytest.raises(RuntimeError, match="--device cpu"):
         main(argv[cli])
 
@@ -307,10 +315,66 @@ def test_cli_without_a_card_raises(jax_run, tmp_path, monkeypatch, cli):
     (ttrain.main, ["--mesh-data", "2"], "item 9"),
     (ttrain.main, ["--coordinator", "localhost:1234", "--num-processes",
                    "2"], "item 9"),
-    (tviewer.main, [], "item 6"),
 ])
 def test_unported_entry_points_raise(tmp_path, main, argv, match):
-    """The multi-device flags of the train CLI and the viewer CLI raise,
-    naming their ROADMAP.md item."""
+    """The multi-device flags of the train CLI raise, naming their
+    ROADMAP.md item."""
     with pytest.raises(NotImplementedError, match=match):
         main(["--data", str(tmp_path), "--device", "cpu", *argv])
+
+
+def test_viewer_entry_point_serves_a_jax_run(jax_run, monkeypatch, capsys):
+    """scripts.viewer.main on the JAX run directory, in this process, its
+    servicing loop stopped once a client has fetched /, /init, /state and
+    one frame: the initial camera is the JAX viewer's, /state reports the
+    checkpoint's step, and the frame is the JPEG of the trainer's own
+    viewer render of the request at the ladder's size."""
+    from street_gaussians_ns_tpu.engine.setup import eval_setup as jsetup
+    from street_gaussians_ns_tpu.engine.trainer import attach_viewer
+    from street_gaussians_ns_tpu_torch.utils import viewer as tview
+
+    got = {}
+
+    def serve(server, render_fn, poll_s=0.02):
+        def record(*args):
+            got["rgb"] = render_fn(*args)
+            return got["rgb"]
+
+        def client():
+            base = f"http://127.0.0.1:{server.port}"
+            got["page"] = urllib.request.urlopen(base + "/", timeout=30).read()
+            got["init"] = json.loads(urllib.request.urlopen(
+                base + "/init", timeout=30).read())
+            got["state"] = json.loads(urllib.request.urlopen(
+                base + "/state", timeout=30).read())
+            q = urllib.parse.urlencode({
+                "c2w": ",".join(str(v) for v in got["init"]["c2w"]),
+                "time": got["init"]["time"], "res": "low"})
+            got["jpeg"] = urllib.request.urlopen(
+                f"{base}/frame?{q}", timeout=300).read()
+
+        th = threading.Thread(target=client)
+        th.start()
+        while th.is_alive():
+            if not server.service(record):
+                time.sleep(poll_s)
+        th.join(timeout=10)
+        assert not th.is_alive()
+
+    monkeypatch.setattr(tview.ViewerServer, "serve_forever", serve)
+    tviewer.main(["--load-dir", str(jax_run["run"]), "--device", "cpu",
+                  "--port", "0"])
+    assert "viewer: http://localhost:" in capsys.readouterr().out
+    jserver = attach_viewer(jsetup(jax_run["run"]), 0)
+    try:
+        assert got["init"] == jserver._init
+    finally:
+        jserver.close()
+    assert b"viewer" in got["page"]
+    assert got["state"] == {"step": 4.0, "mode": "checkpoint"}
+    Image = tview.pillow_image()
+    img = np.asarray(Image.open(io.BytesIO(got["jpeg"])))
+    assert img.shape == got["rgb"].shape == (*tview.RES_LADDER["low"][::-1],
+                                             3)
+    assert got["rgb"].std() > 5
+    assert np.abs(img.astype(float) - got["rgb"]).mean() < 3.0

@@ -38,7 +38,8 @@ from street_gaussians_ns_tpu_torch.ops import ssim as tssim
 
 from test_rasterize import make_scene
 from test_torch_render import assert_heads_close
-from test_torch_scene_graph import (DEPTH_OF, MAX_PAIRS, port_config, scene,
+from test_torch_scene_graph import (DEPTH_OF, MAX_PAIRS, _forward_both,
+                                    port_config, scene,
                                     store_arrays)  # noqa: F401 (fixture)
 
 
@@ -348,7 +349,11 @@ def test_bbox_deltas_differentiable_matches_jax(scene):
                                        atol=1e-6)
 
 
-def test_forward_scene_subset_accs_off_and_camera_opt_raises(scene):
+def test_forward_scene_subset_accs_off_and_camera_opt_matches_jax(scene):
+    """subset_accs=False drops the subset renders and the entropy loss;
+    camera_opt_mode does not change forward_scene (a trainer applies the
+    camera delta before it): the eval render of a camera-optimizer config
+    equals the JAX package's."""
     jcfg, jstore, jtracks = scene
     cfg = port_config(jcfg)
     store = tckpt.store_from_numpy(store_arrays(jstore), cfg, device="cpu")
@@ -362,6 +367,11 @@ def test_forward_scene_subset_accs_off_and_camera_opt_raises(scene):
     losses = tsg.scene_loss_dict(
         out, {"image": torch.zeros((48, 64, 3))}, cfg, 10 ** 6)
     assert set(losses) == {"Ll1", "simloss"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsg.forward_scene(store, tracks, tc, 0, dataclasses.replace(
-            cfg, camera_opt_mode="SO3xR3"), rcfg, training=True)
+    camopt = dataclasses.replace(jcfg, camera_opt_mode="SO3xR3",
+                                 num_cameras=3)
+    (jout, _), (tout, _, _) = _forward_both((camopt, jstore, jtracks), 1.0)
+    assert_heads_close(tout, jout, DEPTH_OF)
+    plain, _, _ = tsg.forward_scene(store, tracks, tc, 0, cfg, rcfg,
+                                    eval_extras=True)
+    for k in plain:
+        assert torch.equal(tout[k], plain[k]), k

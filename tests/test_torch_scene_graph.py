@@ -38,6 +38,10 @@ from street_gaussians_ns_tpu_torch.ops.render import RenderConfig
 from test_torch_render import assert_heads_close
 
 
+def T(x):
+    return torch.from_numpy(np.array(x))
+
+
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
     """The suite runs in several worker processes at once: one torch
@@ -156,12 +160,27 @@ def test_jax_checkpoint_renders_the_same(scene, tmp_path):
                                device="cpu")
 
 
-def test_unported_bbox_modes_raise(scene):
+@pytest.mark.parametrize("mode", ["SO3xR3", "SE3"])
+def test_exp_bbox_modes_render_like_jax(scene, mode):
+    """The bbox optimizer's exp-map modes with nonzero rotation deltas:
+    the boxes and the eval render equal the JAX package's."""
     jcfg, jstore, jtracks = scene
+    rng = np.random.default_rng(4)
+    jstore = dataclasses.replace(jstore, delta_rot=jnp.asarray(
+        0.2 * rng.standard_normal(jstore.delta_rot.shape), jnp.float32))
+    jcfg = dataclasses.replace(jcfg, bbox_mode=mode)
+    (jout, jboxes), (tout, _, tboxes) = _forward_both(
+        (jcfg, jstore, jtracks), 1.0)
+    assert_heads_close(tout, jout, DEPTH_OF)
+    for f in ("centers", "quats", "t_norm"):
+        np.testing.assert_allclose(getattr(tboxes, f).numpy(),
+                                   np.asarray(getattr(jboxes, f)), atol=1e-6,
+                                   err_msg=f)
     tracks = tckpt.tracks_from_numpy(store_arrays(jtracks), device="cpu")
-    for mode in ("SO3xR3", "SE3"):
-        with pytest.raises(NotImplementedError):
-            tsg.interpolate_boxes(tracks, torch.tensor(1.0), mode=mode)
+    simple = tsg.interpolate_boxes(
+        tracks, torch.tensor(1.0), T(jstore.delta_center),
+        T(jstore.delta_yaw))
+    assert float((tboxes.quats - simple.quats).abs().max()) > 1e-2
     off = tsg.interpolate_boxes(tracks, torch.tensor(1.0), mode="off")
     want = jsg.interpolate_boxes(jtracks, jnp.float32(1.0), mode="off")
     np.testing.assert_allclose(off.centers.numpy(), np.asarray(want.centers),
@@ -214,8 +233,14 @@ def test_port_imports_no_jax():
         "'street_gaussians_ns_tpu') or n.startswith(('jax.', "
         "'street_gaussians_ns_tpu.'))]\n"
         "assert not bad, bad\n"
-        "print(len([n for n in sys.modules if n.startswith(p.__name__)]))\n")
+        "print(' '.join(n for n in sys.modules "
+        "if n.startswith(p.__name__)))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 20
+    walked = set(res.stdout.split())
+    assert len(walked) >= 20
+    pkg = "street_gaussians_ns_tpu_torch."
+    assert {pkg + m for m in ("models.camera_opt", "engine.train_step",
+                              "utils.viewer", "utils.profiling",
+                              "scripts.viewer")} <= walked

@@ -151,7 +151,8 @@ def both(scene):
         jitter=jitter)[4]
     return dict(jstate=jstate, jnew=jnew, jmetrics=jmetrics, jgrads=jgrads,
                 tstate=tstate, tnew=tnew, tmetrics=tmetrics, tgrads=tgrads,
-                cfg=cfg, tracks=tracks, cam=tc, batch=tbatch, rcfg=rcfg)
+                cfg=cfg, tracks=tracks, cam=tc, batch=tbatch, rcfg=rcfg,
+                jitter=jitter)
 
 
 def test_step_loss_and_metrics_match_jax(both):
@@ -295,11 +296,43 @@ def test_stats_match_jax_update_from_the_same_gradients(both):
     assert float(got.xys_grad_norm.max()) > 0
 
 
-def test_camera_optimizer_raises(both):
-    cfg = dataclasses.replace(both["cfg"], camera_opt_mode="SE3")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsts.scene_train_step(both["tstate"], both["tracks"], both["cam"],
-                              both["batch"], cfg, both["rcfg"])
+def test_camera_optimizer_at_zero_delta_matches_jax(both):
+    """The camera optimizer on, from the zero deltas of a fresh run: the
+    delta is the identity, so the step's loss, metrics and Gaussian
+    moments are the JAX step's; the pose gradient (through every render
+    and the sky rays, from the small-angle branch of the exp map) is
+    finite and accumulates on the stepped row only (tests/
+    test_torch_camera_opt.py holds it against the JAX package's)."""
+    cfg = dataclasses.replace(both["cfg"], camera_opt_mode="SE3",
+                              num_cameras=4)
+    start = both["tstate"]
+    fresh = tsts.init_scene_train_state(start.store, start.generator,
+                                        camera_opt=torch.zeros((4, 6)))
+    state = dataclasses.replace(start, camera_opt=fresh.camera_opt, opt={
+        **start.opt, "camera_opt": fresh.opt["camera_opt"]})
+    new, tm = tsts.scene_train_step(
+        state, both["tracks"], both["cam"], both["batch"], cfg, both["rcfg"],
+        subset_accs=True, jitter=both["jitter"], camera_index=2)
+    jm = both["jmetrics"]
+    for k in set(jm) - {"num_rowruns"}:
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-5,
+                                   atol=2e-5, err_msg=k)
+    jg_gauss = both["jgrads"][0]
+    for n in GAUSSIAN_GROUPS:
+        for k in ("bg", "obj"):
+            jmu = 0.1 * np.asarray(jg_gauss[n][k])
+            active = getattr(start.store, "background" if k == "bg"
+                             else "objects").active.numpy()
+            jmu = np.where(active.reshape(active.shape + (1,) * (
+                jmu.ndim - active.ndim)), jmu, 0.0)
+            np.testing.assert_allclose(
+                new.opt[n].mu[k].numpy(), jmu, rtol=0,
+                atol=GRAD_TOL * float(np.abs(jmu).max()), err_msg=n)
+    cam = new.opt["camera_opt"]
+    assert cam.calls == 1 and cam.count == 0
+    assert bool(torch.isfinite(cam.acc).all())
+    assert bool((cam.acc[2] != 0).all()) and not cam.acc[[0, 1, 3]].any()
+    assert not new.camera_opt.any() and not state.opt["camera_opt"].acc.any()
 
 
 def test_step_draws_its_own_jitter(both):

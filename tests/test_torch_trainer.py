@@ -15,6 +15,7 @@ bit for bit; a resumed port run bit for bit equal to an uninterrupted one.
 import dataclasses
 import json
 import shutil
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -302,8 +303,6 @@ def test_port_eval_setup_restores_a_jax_run(jax_side):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(trainer=dict(viewer_port=7007)), "item 6"),
-    (dict(model=dict(camera_opt_mode="SO3xR3")), "item 5"),
     (dict(trainer=dict(render_precision="bf16")), "item 8"),
 ])
 def test_unported_options_raise(jax_side, tmp_path, change, match):
@@ -314,10 +313,105 @@ def test_unported_options_raise(jax_side, tmp_path, change, match):
         ttrainer.Trainer(data, model, trainer, dm, device="cpu")
 
 
+def test_trainer_viewer_matches_jax(jax_side, tmp_path):
+    """TrainerConfig.viewer_port starts the viewer: its initial camera is
+    the JAX viewer's, and a viewer frame (train camera 0's intrinsics
+    scaled to the frame, forward_scene(training=False), clamped, uint8)
+    of the JAX trainer's state is the JAX trainer's frame, to one level
+    where the float images round across a level. The JAX trainer's
+    chunked compositor gets a per-tile budget that truncates nothing (the
+    vehicle puts ~2,000 pairs in a tile of these small frames)."""
+    jt = jax_side["trainer"]
+    jt.state = jax_side["state1"]
+    tt = ttrainer.Trainer(*port_configs(jax_side, tmp_path, viewer_port=0,
+                                        render_impl="pallas"), device="cpu")
+    jserver = jtrainer.attach_viewer(jt, 0)
+    saved = jt.render_config
+    jt.render_config = dataclasses.replace(saved, max_per_tile=16384)
+    try:
+        assert tt.viewer is not None and tt.viewer.port > 0
+        assert tt.viewer._init == jserver._init
+        tt.state = tckpt.train_state_from_numpy(
+            store_arrays(jax_side["state1"]), tt.config, device="cpu")
+        c2w = np.asarray(jt.scene.c2w[int(jt.scene.train_indices[1])])
+        t = float(jt.scene.times[1])
+        for w, h in ((64, 48), (80, 45)):
+            with warnings.catch_warnings():
+                warnings.simplefilter("error", RuntimeWarning)
+                got = tt._viewer_render(c2w, t, w, h)
+            want = jt._viewer_render(c2w, t, w, h)
+            assert got.dtype == np.uint8 and got.shape == want.shape \
+                == (h, w, 3)
+            diff = np.abs(got.astype(int) - want.astype(int))
+            assert diff.max() <= 1 and (diff > 0).mean() < 0.01, (
+                w, h, (diff > 0).mean())
+            assert want.std() > 5
+    finally:
+        jt.render_config = saved
+        for key in [k for k in jt._step_fns if k[0] == "viewer"]:
+            del jt._step_fns[key]
+        tt.viewer.close()
+        jserver.close()
+
+
+@pytest.mark.parametrize("mode", ["SO3xR3", "SE3"])
+def test_trainer_camera_opt_matches_jax(jax_side, tmp_path, mode):
+    """4 steps with the camera optimizer (tests/test_round2_features.py)
+    in both packages: one (6,) delta per train camera, the accumulator
+    filled on the rows the data order stepped, calls == 4; then the
+    checkpoints with camera_opt and its Adam state cross both ways leaf by
+    leaf, and the port steps on from the JAX one."""
+    data, model, trainer, dm = jax_side["cfgs"]
+    model = dataclasses.replace(model, camera_opt_mode=mode)
+    short = dict(max_num_iterations=4, steps_per_eval_image=100,
+                 steps_per_save=100)
+    jt = jtrainer.Trainer(data, model, dataclasses.replace(
+        trainer, output_dir=tmp_path / "jax", **short), dm)
+    pdata, pmodel, ptrainer, pdm = port_configs(
+        jax_side, tmp_path / "port", render_impl="pallas", **short)
+    pmodel = dataclasses.replace(pmodel, camera_opt_mode=mode)
+    tt = ttrainer.Trainer(pdata, pmodel, ptrainer, pdm, device="cpu")
+    assert tt.state.camera_opt.shape == jt.state.camera_opt.shape \
+        == (tt.dm.num_train, 6)
+    assert tt._cam_row == jt._cam_row
+    jt.train()
+    tt.train()
+    tacc = tt.state.opt["camera_opt"].acc.numpy()
+    jacc = np.asarray(jt.state.opt["camera_opt"].acc)
+    assert tt.state.opt["camera_opt"].calls == int(
+        jt.state.opt["camera_opt"].calls) == 4
+    assert np.abs(tacc).max() > 0 and np.isfinite(tacc).all()
+    np.testing.assert_array_equal(np.abs(tacc).max(1) > 0,
+                                  np.abs(jacc).max(1) > 0)
+    assert not tt.state.camera_opt.any()            # 4 of 100 calls
+
+    jpath = tmp_path / "jax" / "checkpoints" / "step-000000004.ckpt.npz"
+    ppath = tmp_path / "port" / "checkpoints" / "step-000000004.ckpt.npz"
+    restored = tckpt.restore_checkpoint(jpath, tt.state)
+    got, want = tckpt.state_to_numpy(restored), dict(np.load(jpath))
+    assert set(got) == set(want) - {"rng"}
+    assert {"camera_opt", "opt/camera_opt/acc", "opt/camera_opt/calls"} \
+        <= set(got)
+    for k, v in got.items():
+        assert v.dtype == want[k].dtype, k
+        np.testing.assert_array_equal(v, want[k], err_msg=k)
+    tt.state = restored
+    tt._run_step(4)
+    assert tt.state.opt["camera_opt"].calls == 5
+    back = store_arrays(jckpt.restore_checkpoint(ppath, jt.state))
+    mine = dict(np.load(ppath))
+    assert set(back) <= set(mine) and "camera_opt" in back
+    for k, v in back.items():
+        assert v.dtype == mine[k].dtype, k
+        np.testing.assert_array_equal(v, mine[k], err_msg=k)
+
+
 def test_cuda_without_a_card_raises(jax_side, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         ttrainer.Trainer(*port_configs(jax_side, tmp_path))
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        ttrainer.Trainer(*port_configs(jax_side, tmp_path, viewer_port=0))
     with pytest.raises(RuntimeError, match="--device cpu"):
         tsetup.eval_setup(jax_side["run"])
     assert not (tmp_path / "config.json").exists()
