@@ -103,7 +103,37 @@ Phases, each printing one JSON line:
                 then a Trainer on the clip with viewer_port=0 and
                 camera_opt_mode="SE3" answering 4 requests between its 20
                 steps;
- 17. kernels    every kernel of these paths, on the inputs captured from
+ 17. bf16_path  RenderConfig(precision="bf16"): the small scene's render,
+                step and refine on the card against the CPU
+                (reference_bf16, reference_train_bf16, at reference's and
+                reference_train's tolerances), then the flagship: the f32
+                and the bf16 frame of one camera (rgb max and mean
+                difference, beside the JAX docstring's "sub-1e-2"), and,
+                counted, 4 bf16 eval frames, 3 bf16 steps and a refine
+                pass, the f32 frame and step beside them;
+ 18. mesh_path  parallel/ at full width: (a) mesh_path_unit, a (1, 1)
+                mesh on NCCL (world 1, this process): 3 sharded steps and
+                a sharded refine against scene_train_step /
+                scene_refine_step from the same state (losses 2e-5, the
+                first step's gradients 1e-4 of each group's largest,
+                refine counts exact, bit-equality printed); (b)
+                mesh_path_shared, two processes sharing the card through
+                gloo named explicitly (tests/torch_ranks.run_ranks): the
+                (2, 1) loss against the mean of two single-device losses
+                (2e-5) and its gradients against their mean (1e-4); the
+                (1, 2) mesh in float32 and in bf16 against the single
+                device at its precision: the merged frame (rgb and
+                accumulation; against 2e-3 the printed value is the
+                finding, above 1e-2 it fails), the loss (5e-5), the
+                per-device pair counts (summing to the single device's,
+                max / mean <= 1.1), the first step's gradients (0.5 of
+                each group's largest: the lost done state moves the
+                sky's by 0.13); correctness, not scaling; (c)
+                mesh_path_cli, after
+                viewer_path: the train CLI with --mesh-data 1
+                --mesh-model 1 on cli_path's clip for 20 steps, its
+                checkpoint restored by the single-device eval_setup;
+ 19. kernels    every kernel of these paths, on the inputs captured from
                 them, against its plain version, with its time, the plain
                 version's time, a PyTorch library call's time where one
                 computes the same function (for C the JAX package's own
@@ -126,7 +156,7 @@ Phases, each printing one JSON line:
                 redesign; every number in the `kernels` line itself is
                 this run's. Each row's `launches` is the main path's;
                 `launches_on_later_paths` adds those of phases 13, 14 (its
-                SE3 mode) and 16.
+                SE3 mode), 16, 17 and 18 (each of its three parts).
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
@@ -552,13 +582,14 @@ def _heads_close(got: dict, want: dict, atol: float):
     return errs
 
 
-def phase_reference(seed: int):
+def phase_reference(seed: int, precision: str = "f32",
+                    phase: str = "reference"):
     """A small scene graph (64x48) rendered on the card (the kernels) and
     on the CPU (their plain versions) must agree: rgb and accumulations
     at atol 2e-5, depths at rtol 1e-4 where the accumulation > 1e-3."""
     store_np, tracks_np = make_scene(seed + 1, 600, 2, 80, 16, sh_degree=1)
     cfg = scene_config(1, 16, 5)
-    rcfg = RenderConfig(max_pairs=1 << 14)
+    rcfg = RenderConfig(max_pairs=1 << 14, precision=precision)
     outs = {}
     for dev in ("cpu", "cuda"):
         store = store_from_numpy(store_np, cfg, device=dev)
@@ -574,7 +605,7 @@ def phase_reference(seed: int):
     errs = _heads_close(outs["cuda"], want, atol=2e-5)
     if float(want["accumulation"].max()) <= 0.3:
         raise AssertionError("reference scene renders almost nothing")
-    emit("reference", size=[64, 48], max_err=errs)
+    emit(phase, size=[64, 48], precision=precision, max_err=errs)
 
 
 def _all_grads(grads: dict):
@@ -589,7 +620,9 @@ def _all_grads(grads: dict):
         yield "env_map", grads["env_map"]
 
 
-def phase_reference_train(seed: int, devices=("cpu", "cuda")):
+def phase_reference_train(seed: int, devices=("cpu", "cuda"),
+                          precision: str = "f32",
+                          phase: str = "reference_train"):
     """The training slice at a small size on the card against the CPU
     (the plain versions), from the same state, sky jitter and split noise:
     one step's loss and gradients with subset_accs=True past stop_split_at
@@ -600,7 +633,7 @@ def phase_reference_train(seed: int, devices=("cpu", "cuda")):
     norms at the gradient tolerance."""
     store_np, tracks_np = make_scene(seed + 1, 600, 2, 80, 16, sh_degree=1)
     cfg = scene_config(1, 16, 5)
-    rcfg = RenderConfig(max_pairs=1 << 14)
+    rcfg = RenderConfig(max_pairs=1 << 14, precision=precision)
     late = cfg.background.stop_split_at + 1
     rng = np.random.default_rng(seed + 3)
     jitter = rng.random((2, 48, 64), dtype=np.float32)
@@ -671,9 +704,9 @@ def phase_reference_train(seed: int, devices=("cpu", "cuda")):
     if want["info"]["bg_refine_splits_count"] <= 0:
         raise AssertionError("reference train: the refine pass split "
                              "nothing")
-    emit("reference_train", size=[64, 48], tolerance="loss atol 2e-5; "
-         "gradients 1e-4 of the group's largest |g|; counts exact",
-         max_err=errs, refine=want["info"])
+    emit(phase, size=[64, 48], precision=precision,
+         tolerance="loss atol 2e-5; gradients 1e-4 of the group's largest "
+         "|g|; counts exact", max_err=errs, refine=want["info"])
 
 
 def phase_main(seed: int, size: Size = FLAGSHIP, dev="cuda"):
@@ -2683,6 +2716,436 @@ def phase_viewer(run: Path, dev="cuda"):
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# bf16_path and mesh_path.
+# ---------------------------------------------------------------------------
+
+A_TO_F = ("flat_scan", "expand_ragged", "pack_feat_cols", "composite_fwd",
+          "composite_bwd", "rank_rowsum")
+
+
+def check_a_to_f(phase: str, launches: dict) -> None:
+    missing = [k for k in A_TO_F if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"{phase}: {missing} never launched")
+
+
+def phase_bf16(seed: int, tracks, cfg, rcfg, size: Size = FLAGSHIP):
+    """RenderConfig(precision="bf16") at full width: the f32 and the bf16
+    frame of one camera (rgb differences reported beside the JAX
+    package's "sub-1e-2"), then, counted, 4 bf16 eval frames, 3 bf16
+    training steps from TRAIN_STEP0 and a refine pass; the f32 step beside
+    them (same state, same jitter). First the small scene in bf16 on the
+    card against the CPU (render, then reference_train's step and refine
+    at its tolerances). Returns the counts."""
+    phase_reference(seed, precision="bf16", phase="reference_bf16")
+    phase_reference_train(seed, precision="bf16",
+                          phase="reference_train_bf16")
+    store_np, _ = make_scene(seed, size.bg, size.objects, size.per_object,
+                             size.env_res)
+    store = store_from_numpy(store_np, cfg, device="cuda")
+    cams = cameras(size.frames, size.width, size.height, size.focal, "cuda")
+    r16 = dataclasses.replace(rcfg, precision="bf16")
+
+    def frame(cam, rc):
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", RuntimeWarning)
+            return forward_scene(store, tracks, cam, 0, cfg, rc,
+                                 eval_extras=True)[0]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    frame(cams[0], r16)                    # warm-up
+    f32, f32_ms = timed(lambda: frame(cams[0], rcfg))
+    state = train_state_from_numpy(train_arrays(store_np, TRAIN_STEP0), cfg,
+                                   device="cuda", seed=seed)
+    del store_np
+    batch = make_batch(seed, size.width, size.height, "cuda")
+    jitter = draw_pixel_jitter(cams[0], torch.Generator(
+        device="cuda").manual_seed(seed))
+
+    def step(st, rc):
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", RuntimeWarning)
+            return sts.scene_train_step(st, tracks, cams[0], batch, cfg, rc,
+                                        subset_accs=False, jitter=jitter)
+
+    (_, m32), f32_step_ms = timed(lambda: step(state, rcfg))
+    reset_launches()
+    frames, frame_ms = [], []
+    for cam in cams:
+        out, ms = timed(lambda: frame(cam, r16))
+        frames.append(out)
+        frame_ms.append(ms)
+    st, losses, step_ms = state, [], []
+    for _ in range(3):
+        (st, m), ms = timed(lambda: step(st, r16))
+        losses.append(float(m["loss"]))
+        step_ms.append(ms)
+        if (int(m["num_pairs"]) > rcfg.max_pairs
+                or int(m["num_rowruns"]) > rcfg.rowrun_capacity):
+            raise AssertionError("bf16: render capacity overflow")
+    (refined, info), refine_ms = timed(lambda: sts.scene_refine_step(
+        st, cfg, NUM_TRAIN_DATA, max(size.width, size.height)))
+    launches = read_launches()
+    check_a_to_f("bf16_path", launches)
+    for out in frames:
+        for k, v in out.items():
+            if not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"bf16: head {k} is not finite")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"bf16: losses {losses}")
+    d_rgb = (frames[0]["rgb"] - f32["rgb"]).abs()
+    d_acc = (frames[0]["accumulation"] - f32["accumulation"]).abs()
+    info = {k: int(v) for k, v in info.items()}
+    if info["bg_refine_splits_count"] + info["bg_refine_dups_count"] <= 0:
+        raise AssertionError("bf16: the refine pass densified nothing")
+    emit("bf16_path", size=[size.width, size.height],
+         rgb_vs_f32={"max": float(d_rgb.max()), "mean": float(d_rgb.mean())},
+         accumulation_vs_f32_max=float(d_acc.max()),
+         jax_docstring_rgb_bound="sub-1e-2 (street_gaussians_ns_tpu/ops/"
+         "tiles.py:205-214; reported, not a limit)",
+         ms_per_frame_bf16=frame_ms, ms_frame_f32=f32_ms,
+         ms_per_step_bf16=step_ms, ms_step_f32=f32_step_ms,
+         loss_per_step_bf16=losses, loss_step_f32=float(m32["loss"]),
+         refine_ms=refine_ms, refine=info, launches=launches)
+    return launches
+
+
+# mesh_path (b)'s (1, 2) limits against the single device. The layer
+# merge's lost done state put the full-width frame 8.27e-4 (rgb) and
+# 9.14e-4 (accumulation) off, the loss 8.0e-6 off and the first step's
+# gradients up to 0.133 of a group's largest off (the sky's: the merge
+# composites past the point where the single device ends a pixel, so the
+# sky's weight T differs; the JAX package's (1, 2) step is 0.19 off its
+# own single-device step on a saturating scene, which
+# tests/test_torch_parallel_model.py holds the port to; PERF.md section 6):
+# a frame 1e-2 off, a loss 5e-5 off or a gradient 0.5 of its group's
+# largest off (one counted twice, or not at all, is 1.0 off) is a fault of
+# the merge, the windows or the collectives, not that deviation.
+FRAME_GROSS = 1e-2
+MESH12_LOSS_TOL = 5e-5
+MESH12_GRAD_GROSS = 0.5
+
+
+def mesh_build(seed: int, data: int = 2, size: Size = FLAGSHIP) -> dict:
+    """The inputs of mesh_path's runs (the job's "build", made on every
+    rank alike): the flagship train state at TRAIN_STEP0 with fresh Adam
+    moments, `data` cameras and targets, one sky jitter per row."""
+    store_np, tracks_np = make_scene(seed, size.bg, size.objects,
+                                     size.per_object, size.env_res)
+    cams = cameras(data, size.width, size.height, size.focal, "cpu")
+    batches = [make_batch(seed + d, size.width, size.height, "cpu")
+               for d in range(data)]
+    g = torch.Generator().manual_seed(seed + 11)
+    jitters = torch.stack([draw_pixel_jitter(c, g) for c in cams])
+    return {"state": train_arrays(store_np, TRAIN_STEP0), "tracks": tracks_np,
+            "cam_b": {k: torch.stack([getattr(c, k) for c in cams]).numpy()
+                      for k in ("fx", "fy", "cx", "cy", "c2w", "time")},
+            "batch_b": {k: torch.stack([b[k] for b in batches]).numpy()
+                        for k in ("image", "semantic")},
+            "jitters": jitters.numpy()[None], "width": size.width,
+            "height": size.height, "step": TRAIN_STEP0}
+
+
+def _single_reference(seed: int, cfg, runs, size: Size = FLAGSHIP):
+    """The single-device loss, gradients (inactive rows zeroed), full frame
+    and pair count of each (data row, render config) of `runs` on
+    mesh_build's inputs (two rows), on the card."""
+    built = mesh_build(seed, 2, size)
+    tracks = tracks_from_numpy(built["tracks"], device="cuda")
+    out = []
+    for d, rcfg in runs:
+        state = train_state_from_numpy(built["state"], cfg, device="cuda",
+                                       seed=seed)
+        cam = Camera(**{k: torch.from_numpy(np.asarray(v[d])).cuda()
+                        for k, v in built["cam_b"].items()},
+                     width=size.width, height=size.height)
+        batch = {k: torch.from_numpy(v[d]).cuda()
+                 for k, v in built["batch_b"].items()}
+        jit = torch.from_numpy(built["jitters"][0, d]).cuda()
+        total, _, outputs, rout, grads = sts.scene_loss_and_grads(
+            state, tracks, cam, batch, cfg, rcfg, subset_accs=False,
+            jitter=jit)
+        g = sts.mask_inactive_grads(grads["gauss"], state.store)
+        flat = {f"{n}/{k}": v.cpu() for n, gk in g.items()
+                for k, v in gk.items()}
+        flat["env_map"] = grads["env_map"].cpu()
+        out.append({"loss": float(total), "grads": flat,
+                    "rgb": outputs["rgb"].cpu(),
+                    "accumulation": outputs["accumulation"].cpu(),
+                    "num_pairs": int(rout.bins.num_pairs)})
+    return out
+
+
+def _mu_grads(arrays: dict) -> dict:
+    """The gradients of a first Adam step from zero moments: mu / 0.1."""
+    out = {}
+    for name in sts.GAUSSIAN_GROUPS:
+        for k in ("bg", "obj"):
+            out[f"{name}/{k}"] = torch.from_numpy(
+                arrays[f"opt/{name}/mu/{k}"]) / 0.1
+    out["env_map"] = torch.from_numpy(arrays["opt/sky_sphere/mu"]) / 0.1
+    return out
+
+
+def _grad_errs(got: dict, want: dict, tol, phase: str) -> dict:
+    """Each group's max |got - want| over its largest |want|; raises above
+    tol (None: report only)."""
+    errs = {}
+    for k, w in want.items():
+        top = float(w.abs().max())
+        err = float((got[k] - w).abs().max())
+        if tol is not None and top > 0 and err > tol * top:
+            raise AssertionError(f"{phase}: gradient {k} differs by {err} "
+                                 f"(largest |g| {top})")
+        errs[k] = err / top if top > 0 else err
+    return errs
+
+
+def phase_mesh_unit(seed: int, cfg, rcfg, size: Size = FLAGSHIP):
+    """mesh_path (a): a (1, 1) mesh on NCCL at world size 1, in this
+    process: 3 sharded steps and a sharded refine pass against
+    scene_train_step / scene_refine_step from the same state, jitter and
+    generator. The first step's gradients (its Adam moments) at 1e-4 of
+    each group's largest, the losses at 2e-5, the refine counts exact;
+    whether the final states are equal bit for bit is printed."""
+    from street_gaussians_ns_tpu_torch.parallel import mesh as pmesh
+    from street_gaussians_ns_tpu_torch.parallel import trainer as ptrainer
+    from street_gaussians_ns_tpu_torch.parallel.sharded import (
+        make_sharded_train_step)
+    from street_gaussians_ns_tpu_torch.engine.checkpoints import (
+        state_to_numpy)
+
+    pmesh.multihost_init(backend="nccl")
+    mesh = pmesh.make_mesh(1, 1, device="cuda")
+    built = mesh_build(seed, 1, size)
+    tracks = tracks_from_numpy(built["tracks"], device="cuda")
+    cam_b = {k: torch.from_numpy(v).cuda() for k, v in built["cam_b"].items()}
+    batch_b = {k: torch.from_numpy(v).cuda()
+               for k, v in built["batch_b"].items()}
+    cam = Camera(**{k: v[0] for k, v in cam_b.items()}, width=size.width,
+                 height=size.height)
+    batch = {k: v[0] for k, v in batch_b.items()}
+    jit = torch.from_numpy(built["jitters"][0]).cuda()
+    runs = {}
+    reset_launches()
+    for kind in ("single", "mesh"):
+        state = train_state_from_numpy(built["state"], cfg, device="cuda",
+                                       seed=seed)
+        fn = (make_sharded_train_step(mesh, cfg, rcfg, size.width,
+                                      size.height,
+                                      state.store.background.capacity,
+                                      subset_accs=False)
+              if kind == "mesh" else None)
+        losses, first, ms = [], None, []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if kind == "mesh":
+                state, m = fn(state, tracks, cam_b, batch_b, jitters=jit)
+            else:
+                state, m = sts.scene_train_step(state, tracks, cam, batch,
+                                                cfg, rcfg, subset_accs=False,
+                                                jitter=jit[0])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(m["loss"]))
+            if first is None:
+                first = _mu_grads(state_to_numpy(state))
+        if kind == "mesh":
+            state, info = ptrainer.make_sharded_refine_step(
+                mesh, cfg, NUM_TRAIN_DATA)(state, max(size.width,
+                                                      size.height))
+        else:
+            state, info = sts.scene_refine_step(state, cfg, NUM_TRAIN_DATA,
+                                                max(size.width, size.height))
+        runs[kind] = dict(losses=losses, grads=first, ms=ms,
+                          info={k: int(v) for k, v in info.items()},
+                          state=state_to_numpy(state))
+        if kind == "single":
+            launches_single = read_launches()
+            reset_launches()
+    launches = read_launches()
+    check_a_to_f("mesh_path[(1,1)]", launches)
+    a, b = runs["mesh"], runs["single"]
+    loss_err = max(abs(x - y) for x, y in zip(a["losses"], b["losses"]))
+    if loss_err > 2e-5:
+        raise AssertionError(f"mesh (1,1): losses {a['losses']} vs "
+                             f"{b['losses']}")
+    errs = _grad_errs(a["grads"], b["grads"], 1e-4, "mesh (1,1)")
+    if a["info"] != b["info"]:
+        raise AssertionError(f"mesh (1,1): refine counts {a['info']} vs "
+                             f"{b['info']}")
+    bit_equal = all(np.array_equal(v, b["state"][k])
+                    for k, v in a["state"].items())
+    diff = {k: float(np.abs(v.astype(np.float64)
+                            - b["state"][k].astype(np.float64)).max())
+            for k, v in a["state"].items()
+            if v.dtype.kind == "f" and not np.array_equal(v, b["state"][k])}
+    emit("mesh_path_unit", mesh=[1, 1], backend="nccl", world=1,
+         size=[size.width, size.height], losses=a["losses"],
+         losses_single=b["losses"], loss_max_err=loss_err,
+         grad_max_err_of_top=max(errs.values()), refine=a["info"],
+         bit_equal_to_single_device=bit_equal,
+         leaves_that_differ_max_abs=diff, ms_per_step=a["ms"],
+         ms_per_step_single=b["ms"], launches=launches,
+         launches_single=launches_single)
+    return launches
+
+
+def phase_mesh_shared(seed: int, cfg, rcfg, workdir: Path,
+                      size: Size = FLAGSHIP):
+    """mesh_path (b): two processes sharing the card through an
+    explicitly named gloo backend, at full width, each building the
+    flagship train state (mesh_build): the (2, 1) mesh's loss against the
+    mean of the two single-device losses (2e-5) and its gradients (its
+    first Adam moments) against their mean (1e-4 of each group's largest);
+    the (1, 2) mesh in float32 and in bf16, each against the single
+    device at its precision: the merged frame (rgb and accumulation; the
+    layer merge's lost done state is reported against 2e-3, the finding,
+    and fails above FRAME_GROSS), the loss (MESH12_LOSS_TOL), the first
+    step's gradients (MESH12_GRAD_GROSS), the per-device pair counts
+    (their sum exactly the single device's, max / mean <= 1.1). These
+    measure correctness: two ranks on one card are not a scaling
+    number."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_ranks import run_ranks
+
+    def run(data, model, precision):
+        return dict(data=data, model=model, steps=1, frames=True,
+                    render_config=dataclasses.replace(rcfg,
+                                                      precision=precision))
+
+    mus = [f"opt/{n}/mu" for n in sts.GAUSSIAN_GROUPS] + [
+        "opt/sky_sphere/mu"]
+    t = time.perf_counter()
+    ranks = run_ranks(dict(
+        build=("chip_smoke", "mesh_build", {"seed": seed, "data": 2}),
+        config=cfg, backend="gloo", device="cuda", subset_accs=False,
+        seed=seed, state_keys=mus,
+        runs=[run(2, 1, "f32"), run(1, 2, "f32"), run(1, 2, "bf16")]),
+        2, workdir, timeout=900)
+    wall_s = time.perf_counter() - t
+    rcfg16 = dataclasses.replace(rcfg, precision="bf16")
+    ref = _single_reference(seed, cfg, [(0, rcfg), (1, rcfg), (0, rcfg16)],
+                            size)
+    single = {"f32": ref[0], "bf16": ref[2]}
+    (r21, r12, r12b) = ranks[0]["runs"]
+    # (2, 1): the mean over the rows.
+    loss = r21["metrics"][0]["loss"]
+    loss_ref = (ref[0]["loss"] + ref[1]["loss"]) / 2
+    if abs(loss - loss_ref) > 2e-5:
+        raise AssertionError(f"mesh (2,1): loss {loss} vs {loss_ref}")
+    g_ref = {k: (ref[0]["grads"][k] + ref[1]["grads"][k]) / 2
+             for k in ref[0]["grads"]}
+    errs21 = _grad_errs(_mu_grads(r21["state"]), g_ref, 1e-4, "mesh (2,1)")
+    # (1, 2): row 0's merged frame, loss, gradients and pairs against the
+    # single device's at the same precision.
+    frame_err, loss12, grads12 = {}, {}, {}
+    for name, r in (("f32", r12), ("bf16", r12b)):
+        m, want = r["metrics"][0], single[name]
+        frame_err[name] = {
+            k: float(np.abs(m[f"frame_{k}"] - want[k].numpy()).max())
+            for k in ("rgb", "accumulation")}
+        loss12[name] = {"mesh": m["loss"], "single": want["loss"],
+                        "abs_err": abs(m["loss"] - want["loss"])}
+        grads12[name] = _grad_errs(_mu_grads(r["state"]), want["grads"],
+                                   MESH12_GRAD_GROSS, f"mesh (1,2) {name}")
+    over = {k: v for k, v in frame_err["f32"].items() if v > 2e-3}
+    local = {name: [rk["runs"][i]["metrics"][0]["num_pairs_local"]
+                    for rk in ranks]
+             for i, name in ((1, "f32"), (2, "bf16"))}
+    balance = {k: max(v) / (sum(v) / len(v)) for k, v in local.items()}
+    for name in ("f32", "bf16"):
+        gross = {k: v for k, v in frame_err[name].items() if v > FRAME_GROSS}
+        if gross:
+            raise AssertionError(f"mesh (1,2) {name}: the merged frame is "
+                                 f"off the single device's by {gross}")
+        if loss12[name]["abs_err"] > MESH12_LOSS_TOL:
+            raise AssertionError(f"mesh (1,2) {name}: loss {loss12[name]}")
+        if int(round(sum(local[name]))) != single[name]["num_pairs"]:
+            raise AssertionError(
+                f"mesh (1,2) {name}: pairs per device {local[name]} do not "
+                f"sum to the single device's {single[name]['num_pairs']}")
+        if balance[name] > 1.1:
+            raise AssertionError(f"mesh (1,2) {name}: pair balance "
+                                 f"max / mean {balance[name]}")
+    launches = {}
+    for rk in ranks:
+        for k, v in rk["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    check_a_to_f("mesh_path[gloo]", launches)
+    emit("mesh_path_shared", backend="gloo", world=2,
+         card_shared_by_ranks=True, size=[size.width, size.height],
+         mesh_2x1={"loss": loss, "loss_single_mean": loss_ref,
+                   "grad_max_err_of_top": max(errs21.values())},
+         mesh_1x2_frame_max_abs=frame_err, frame_limit=2e-3,
+         frame_over_limit=over, frame_fails_above=FRAME_GROSS,
+         mesh_1x2_loss=loss12, loss_limit=MESH12_LOSS_TOL,
+         mesh_1x2_grad_err_of_top=grads12, grad_limit=MESH12_GRAD_GROSS,
+         pairs_per_device=local,
+         pairs_single_device={k: v["num_pairs"] for k, v in single.items()},
+         pair_balance_max_over_mean=balance,
+         seconds_per_step={n: [rk["runs"][i]["seconds"][0] for rk in ranks]
+                           for i, n in enumerate(("2x1", "1x2", "1x2_bf16"))},
+         wall_seconds=wall_s, launches=launches,
+         note="two ranks share one card through gloo: correctness, not "
+              "scaling")
+    if over:
+        print(f"mesh_path finding: the (1,2) frame exceeds 2e-3: {over}",
+              file=sys.stderr, flush=True)
+    return launches
+
+
+def phase_mesh_cli(run_dir: Path, clip_root: Path, steps: int = 20):
+    """mesh_path (c): sgnt-torch-train --mesh-data 1 --mesh-model 1 (the
+    sharded trainer on NCCL at world size 1) on cli_path's clip, 20 steps;
+    its checkpoint restored by the single-device eval_setup."""
+    reset_launches()
+    t = time.perf_counter()
+    trainer = train_cli.main([
+        "--data", str(clip_root), "--trainer.output-dir", str(run_dir),
+        "--trainer.max-num-iterations", str(steps),
+        "--trainer.steps-per-save", str(steps),
+        "--trainer.steps-per-eval-all-images", str(10 * steps),
+        "--mesh-data", "1", "--mesh-model", "1"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    launches = read_launches()
+    check_a_to_f("mesh_path[cli]", launches)
+    ckpt = run_dir / "checkpoints" / f"step-{steps:09d}.ckpt.npz"
+    if not ckpt.exists():
+        raise AssertionError(f"mesh cli: no checkpoint {ckpt}")
+    restored = eval_setup(run_dir, device="cuda")
+    if restored.state.step != steps:
+        raise AssertionError(f"mesh cli: restored step {restored.state.step}")
+    with np.load(ckpt) as data:
+        means = data["store/background/params/means"]
+    same = np.array_equal(
+        restored.state.store.background.params.means.cpu().numpy(), means)
+    if not same:
+        raise AssertionError("mesh cli: the restored means differ")
+    rows = [json.loads(r) for r in
+            (run_dir / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["train/loss"] for r in rows if "train/loss" in r]
+    if not losses or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"mesh cli: losses {losses}")
+    emit("mesh_path_cli", mesh=[1, 1], backend="nccl", steps=steps,
+         train_seconds=train_s, losses=losses,
+         restored_by="engine.setup.eval_setup (single device)",
+         gaussians=int(restored.state.store.background.active.sum()),
+         launches=launches)
+    del trainer, restored
+    return launches
+
+
 def capture(store, tracks, cfg, rcfg, cam):
     """Inputs of every kernel in one full-width render (the full render of
     forward_scene on `cam`)."""
@@ -3405,9 +3868,17 @@ def main():
     new_paths["splatfacto_path[train]"] = splat["train"]
     new_paths["camopt_path[SE3]"] = phase_camopt(args.seed, tracks, cfg,
                                                  rcfg, train_ms=train_ms)
+    new_paths["bf16_path"] = phase_bf16(args.seed, tracks, cfg, rcfg)
+    new_paths["mesh_path[(1,1) nccl]"] = phase_mesh_unit(args.seed, cfg,
+                                                         rcfg)
+    with tempfile.TemporaryDirectory(prefix="sgnt_mesh_") as tmp:
+        new_paths["mesh_path[(2,1) (1,2) gloo, 2 ranks]"] = \
+            phase_mesh_shared(args.seed, cfg, rcfg, Path(tmp))
     with tempfile.TemporaryDirectory(prefix="sgnt_cli_") as tmp:
         run = phase_cli(args.seed, Path(tmp))
         new_paths["viewer_path"] = phase_viewer(run)
+        new_paths["mesh_path[cli]"] = phase_mesh_cli(Path(tmp) / "mesh_run",
+                                                     Path(tmp) / "clip")
     rows = phase_kernels(calls, launches, train_launches, sliced_launches,
                          unfused_launches, scan_launches)
     for r in rows:

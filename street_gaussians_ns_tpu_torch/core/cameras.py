@@ -77,10 +77,17 @@ def draw_pixel_jitter(camera: Camera,
 
 
 def pixel_directions(camera: Camera,
-                     jitter: torch.Tensor | None = None) -> torch.Tensor:
-    """Per-pixel world ray directions (H, W, 3), normalized. `jitter`
+                     jitter: torch.Tensor | None = None, row0: int = 0,
+                     rows: int | None = None) -> torch.Tensor:
+    """Per-pixel world ray directions (rows, W, 3), normalized. `jitter`
     ((2, H, W), see draw_pixel_jitter) offsets every pixel's ray at train
     time; without it the rays go through the pixel centers (eval).
+
+    row0 / rows select the band of pixel rows [row0, row0 + rows) (all H
+    rows by default): a device of a model group computes its band of the
+    sky. The jitter stays the full frame's, so the bands compose to the
+    full frame exactly; rows past H (the last band's padding) get zero
+    jitter and are cropped by the caller.
 
     Camera-frame rays ((u - cx + du)/fx, (v - cy + dv)/fy, 1) are rotated
     by the raw OpenGL c2w rotation, as the JAX package does."""
@@ -91,13 +98,20 @@ def pixel_directions(camera: Camera,
             "pinhole at load time (data/dataset.py), so a camera reaches "
             "the renderer as PERSPECTIVE")
     H, W = camera.height, camera.width
+    if rows is None:
+        rows = H
     dev = camera.device
-    u = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
-    v = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
+    u = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(
+        rows, W)
+    v = (torch.arange(rows, dtype=torch.float32, device=dev)
+         + float(row0))[:, None].expand(rows, W)
     if jitter is not None:
         if tuple(jitter.shape) != (2, H, W):
             raise ValueError(f"jitter must be (2, {H}, {W}), got "
                              f"{tuple(jitter.shape)}")
+        if rows != H or row0 != 0:
+            jitter = torch.nn.functional.pad(jitter, (0, 0, 0, rows))[
+                :, row0:row0 + rows]
         u = u + jitter[0]
         v = v + jitter[1]
     else:

@@ -22,9 +22,9 @@ to the step).
 With `camera_opt_mode != "off"` each train camera has a (6,) pose delta
 (models.camera_opt), trained with gradient accumulation over 100 steps.
 With `viewer_port` set, the live viewer (utils.viewer) serves its render
-requests on the training thread between steps. bf16 rendering
-(`render_precision="bf16"`) is not ported yet and raises
-NotImplementedError (ROADMAP.md queue 1 item 8).
+requests on the training thread between steps. `render_precision="bf16"`
+renders and trains with the bf16-rounded feature columns of the JAX
+package's TPU mode (ops.tiles._depth_sort_cols).
 """
 from __future__ import annotations
 
@@ -218,6 +218,12 @@ def _stack_stores(stores) -> GaussianStore:
 
 
 class Trainer:
+    # A trainer that is one rank of several (parallel.trainer) sets these
+    # before __init__: only the primary writes the run directory; the
+    # others log into <output_dir>/<log_dir_name>/.
+    primary = True
+    log_dir_name = ""
+
     def __init__(
         self,
         data_config: DataParserConfig,
@@ -230,18 +236,17 @@ class Trainer:
         precision = trainer_config.render_precision
         if precision == "auto":
             precision = "f32"
-        if precision != "f32":
-            raise NotImplementedError(
-                f"render_precision={precision!r}: bf16 rendering is not "
-                f"ported yet (ROADMAP.md queue 1 item 8)")
         self.data_config = data_config
         self.config = scene_config
         self.tc = trainer_config
         # Host seconds of each construction stage (read by chip_smoke.py).
         self.setup_seconds = {}
-        self.writer = MetricsWriter(trainer_config.output_dir)
-        save_run_config(Path(trainer_config.output_dir), data_config,
-                        scene_config, trainer_config, dm_config)
+        out = Path(trainer_config.output_dir)
+        self.writer = MetricsWriter(out if self.primary
+                                    else out / self.log_dir_name)
+        if self.primary:
+            save_run_config(out, data_config, scene_config, trainer_config,
+                            dm_config)
 
         self.writer.log(f"parsing scene {data_config.data}")
         with self._timed("parse"):
@@ -420,9 +425,7 @@ class Trainer:
             metrics = self._run_step(step)
             self._track_max(metrics)
             if (step + 1) % refine_every == 0:
-                self.state, info = scene_refine_step(
-                    self.state, self.config, self.dm.num_train,
-                    max(*self._last_hw))
+                self.state, info = self._refine(max(*self._last_hw))
                 metrics.update(info)
             if step % 10 == 0:
                 self._maybe_grow_pairs(metrics)
@@ -465,11 +468,22 @@ class Trainer:
                 self.writer.log(f"saved {path}")
         return self.state
 
+    def _refine(self, max_hw: int):
+        return scene_refine_step(self.state, self.config, self.dm.num_train,
+                                 max_hw)
+
+    def full_state(self):
+        """The whole train state (a sharded trainer gathers its shards)."""
+        return self.state
+
     def save(self, step: int) -> Path:
         """Checkpoint the state and the datamanager's sampler."""
+        return self._save_state(self.state, step)
+
+    def _save_state(self, state, step: int) -> Path:
         extra = {SAMPLER_PREFIX + k: v
                  for k, v in self.dm.sampler_state().items()}
-        return save_checkpoint(self.ckpt_dir, step, self.state, extra=extra)
+        return save_checkpoint(self.ckpt_dir, step, state, extra=extra)
 
     def viewer_camera(self, c2w, t: float, width: int, height: int):
         """A viewer camera: train camera 0's intrinsics scaled to
@@ -489,17 +503,19 @@ class Trainer:
         at the trainer's render config, clamped to [0, 1] and returned as
         uint8 (H, W, 3) on the host."""
         with torch.no_grad():
+            state = self.full_state()
             outputs, _, _ = forward_scene(
-                self.state.store, self.tracks,
-                self.viewer_camera(c2w, t, width, height), self.state.step,
+                state.store, self.tracks,
+                self.viewer_camera(c2w, t, width, height), state.step,
                 self.config, self.render_config, training=False)
             rgb = torch.clamp(outputs["rgb"], 0.0, 1.0)
             return (rgb * 255).to(torch.uint8).cpu().numpy()
 
-    def _eval_one(self, camera, batch):
+    def _eval_one(self, camera, batch, state=None):
+        state = self.full_state() if state is None else state
         with torch.no_grad():
             outputs, _, _ = forward_scene(
-                self.state.store, self.tracks, camera, self.state.step,
+                state.store, self.tracks, camera, state.step,
                 self.config, self.render_config, training=False)
             gt = torch.as_tensor(batch["image"]).to(self.device)
             return {k: float(v) for k, v in (
@@ -521,7 +537,8 @@ class Trainer:
         steps_per_eval_all_images cadence, sgn_config.py:24-27)."""
         if self.dm.num_eval == 0:
             return {}
-        rows = [self._eval_one(camera, batch)
+        state = self.full_state()
+        rows = [self._eval_one(camera, batch, state)
                 for camera, batch in self.dm.fixed_indices_eval()]
         m = {f"all_{k}": float(np.mean([r[k] for r in rows]))
              for k in rows[0]}

@@ -319,11 +319,12 @@ def forward_scene(store: SceneGraphStore, tracks: ObjectTracks,
 
 
 def scene_loss_dict(outputs: dict, batch: dict, config: SceneGraphConfig,
-                    step: int) -> dict:
+                    step: int, ssim_fn=None) -> dict:
     """The base L1 + SSIM + sky losses plus the object accumulation
     entropy loss, which is live past the background's stop_split_at (and
-    only when the outputs carry "object_acc")."""
-    losses = loss_dict(outputs, batch, config.base)
+    only when the outputs carry "object_acc"). ssim_fn: see
+    models.splatfacto.loss_dict."""
+    losses = loss_dict(outputs, batch, config.base, ssim_fn=ssim_fn)
     if config.object_acc_entropy_loss_mult > 0 and "object_acc" in outputs:
         acc = torch.clamp(outputs["object_acc"], 1e-5, 1.0 - 1e-5)
         ent = -(acc * torch.log(acc) + (1 - acc) * torch.log(1 - acc))

@@ -85,11 +85,14 @@ def init_env_map(config: SplatfactoConfig, device="cuda") -> torch.Tensor:
 
 def sky_color(env_map: torch.Tensor, camera: Camera,
               jitter: torch.Tensor | None = None,
-              dirs_grad: bool = False) -> torch.Tensor:
-    """Per-pixel sky RGB (H, W, 3): world rays (jittered when `jitter` is
-    given, see core.cameras.pixel_directions) mapped to the cubemap frame
-    (x, z, -y) and sampled. dirs_grad: see ops.cubemap.sample_cubemap."""
-    dirs = pixel_directions(camera, jitter)
+              dirs_grad: bool = False, row0: int = 0,
+              rows: int | None = None) -> torch.Tensor:
+    """Per-pixel sky RGB (rows, W, 3): world rays (jittered when `jitter`
+    is given, see core.cameras.pixel_directions) mapped to the cubemap
+    frame (x, z, -y) and sampled. dirs_grad: see
+    ops.cubemap.sample_cubemap. row0 / rows select a band of pixel rows
+    (the model-sharded sky, parallel.sharded)."""
+    dirs = pixel_directions(camera, jitter, row0=row0, rows=rows)
     to_opengl = torch.tensor([[1.0, 0.0, 0.0], [0.0, 0.0, 1.0],
                               [0.0, -1.0, 0.0]], device=dirs.device)
     return sample_cubemap(env_map, dirs @ to_opengl.T, dirs_grad=dirs_grad)
@@ -133,10 +136,12 @@ def forward(params: GaussianParams, active: torch.Tensor, camera: Camera,
 SKY_SEMANTIC = 2  # the semantic class of sky pixels
 
 
-def loss_dict(outputs: dict, batch: dict, config: SplatfactoConfig) -> dict:
+def loss_dict(outputs: dict, batch: dict, config: SplatfactoConfig,
+              ssim_fn=None) -> dict:
     """L1 + SSIM + sky accumulation losses. batch: {"image" (H, W, 3) in
     [0, 1], optional "mask" (H, W, 1) bool, optional "semantic" (H, W, 1)
-    int}."""
+    int}. ssim_fn replaces ops.ssim.ssim (same contract): the
+    model-sharded step passes a band-sharded one (parallel.sharded)."""
     gt = batch["image"].to(torch.float32)
     rgb = outputs["rgb"]
     if batch.get("mask") is not None:
@@ -144,7 +149,7 @@ def loss_dict(outputs: dict, batch: dict, config: SplatfactoConfig) -> dict:
         gt = gt * m
         rgb = rgb * m
     l1 = torch.mean(torch.abs(gt - rgb))
-    simloss = 1.0 - ssim(gt, rgb)
+    simloss = 1.0 - (ssim_fn or ssim)(gt, rgb)
     losses = {
         "Ll1": (1.0 - config.ssim_lambda) * l1,
         "simloss": config.ssim_lambda * simloss,

@@ -16,7 +16,14 @@ rasterizers, each one `torch.autograd.Function`):
                               [tile0, tile0 + n_tiles), optionally of one
                               depth window, in tile layout
                               (`composite_tiles_pallas_fused`): the body a
-                              device of a sharded render runs.
+                              device of a sharded render runs, with the
+                              pair-balanced depth windows of a model
+                              group (`_balanced_window`).
+
+`precision="bf16"` reaches the fused routes only (ops.tiles.
+_depth_sort_cols rounds the feature columns); the shared-bins route
+ignores it, as in the JAX package. The backward stays float32 (the JAX
+package packs its gradient reduce in bf16 only on a TPU).
 
 Kernel C, `pack_feat_cols` (replaces `composite_pallas.py:_pack_kernel`,
 CUDA in `csrc/pack.cu`): interleaves the sorted-pair feature columns into
@@ -625,13 +632,14 @@ class _FusedRasterize(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xys, conics, colors, opacities, depth_key, tile_box,
-                width, height, max_pairs, max_rowruns, last_color_is_depth):
+                width, height, max_pairs, max_rowruns, last_color_is_depth,
+                precision):
         ntx, nty = _grid(width, height)
         nc = colors.shape[-1]
         bins, feats = bin_and_pack(
             xys, conics, tile_box, depth_key, colors.to(torch.float32),
             opacities, width, height, TILE, max_pairs, max_rowruns,
-            last_color_is_depth=last_color_is_depth)
+            last_color_is_depth=last_color_is_depth, precision=precision)
         feat = pack_feat_cols(feats, max_pairs)
         accum, tfin, ncon = composite_fwd(feat, bins.tile_start,
                                           bins.tile_count, ntx, nc)
@@ -654,7 +662,7 @@ class _FusedRasterize(torch.autograd.Function):
                               ncon, g_accum, g_t, depth_order,
                               depth_order.shape[0])
         return (*_input_grads(seg, nc, ctx.colors_dtype),
-                None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -696,7 +704,7 @@ class _SlicedRasterize(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xys, conics, colors, opacities, depth_key, tile_box,
                 width, height, max_pairs, max_rowruns, n_slices,
-                last_color_is_depth):
+                last_color_is_depth, precision):
         ntx, nty = _grid(width, height)
         nc = colors.shape[-1]
         n = depth_key.shape[0]
@@ -704,7 +712,7 @@ class _SlicedRasterize(torch.autograd.Function):
         mp_s, mr_s = _slice_caps(max_pairs, max_rowruns, n_slices)
         cols = _depth_sort_cols(xys, conics, tile_box, depth_key,
                                 colors.to(torch.float32), opacities,
-                                last_color_is_depth)
+                                last_color_is_depth, precision)
         trim = _trim_full(cols, TILE, nty)
         cnt_full = torch.where(torch.isfinite(cols[0]) & (trim[2] > 0),
                                trim[2], 0)
@@ -797,7 +805,7 @@ class _SlicedRasterize(torch.autograd.Function):
                     (gdota + g_t * tfin_s) / t_in_s.clamp(min=T_EPS), g_t)
         seg = _unsort_rank_sums(rank_sums, depth_order)
         return (*_input_grads(seg, nc, ctx.colors_dtype),
-                None, None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None, None)
 
 
 def rasterize_tiles_fused(proj, colors: torch.Tensor,
@@ -811,24 +819,23 @@ def rasterize_tiles_fused(proj, colors: torch.Tensor,
     opacities through kernels E and F; returns (img (H, W, C), alpha
     (H, W), bins). depth_slices > 1 composites that many depth-rank
     windows one after another (_SlicedRasterize): the same image, each
-    sort over a share of the pairs. The background blend stays outside
-    the autograd node."""
+    sort over a share of the pairs. precision="bf16" rounds the feature
+    columns to bf16 before the pairs are enumerated (ops.tiles.
+    _depth_sort_cols). The background blend stays outside the autograd
+    node."""
     _check_tile_size(tile_size)
-    if precision != "f32":
-        raise ValueError(f"precision={precision!r} is not ported yet "
-                         f"(ROADMAP.md); use 'f32'")
     if depth_slices < 1:
         raise ValueError(f"depth_slices must be >= 1, got {depth_slices}")
     if depth_slices > 1:
         img, alpha, bins = _SlicedRasterize.apply(
             proj.xys, proj.conics, colors, opacities, _depth_key(proj),
             proj.tile_box, width, height, max_pairs, max_rowruns,
-            depth_slices, last_color_is_depth)
+            depth_slices, last_color_is_depth, precision)
     else:
         img, alpha, bins = _FusedRasterize.apply(
             proj.xys, proj.conics, colors, opacities, _depth_key(proj),
             proj.tile_box, width, height, max_pairs, max_rowruns,
-            last_color_is_depth)
+            last_color_is_depth, precision)
     img = img + (1.0 - alpha[..., None]) * background[None, None, :]
     return img, alpha, bins
 
@@ -920,23 +927,77 @@ def rasterize_tiles_pallas(xys, conics, colors, opacities, bins: TileBins,
 # Fused compositing of a strip of tiles.
 # ---------------------------------------------------------------------------
 
+def _balanced_window(cols, n: int, sl0: int, slice_size: int, nty: int,
+                     gather):
+    """Pair-balanced depth window of one device of a model group
+    (JAX composite_pallas.py `_balanced_window`). Each device row-trims
+    its equal-count window [sl0, sl0 + slice_size) of the depth order the
+    group shares; `gather` (x -> the group's x concatenated along dim 0 in
+    device order; every device of the group calls it) all-gathers the
+    (first, last, count) columns (the equal windows partition the order,
+    so the gather is the full-N trim), takes the cumulative pair count (kernel A) and sets
+    the window bounds at its quantiles, clamped so every window fits the
+    static size s_cap = min(2 slice_size, n) and the windows left can
+    still cover the tail; every device computes the same bounds. Returns
+    (anchor, s_cap, (local_lo, local_hi), full trim): the device's ranks
+    are [anchor + local_lo, anchor + local_hi) of the window [anchor,
+    anchor + s_cap), anchored at min(b_m, n - s_cap) so that the window
+    never has to be shifted back from the tail (which would move the
+    ranks it composites). Bounds are int64."""
+    window = slice(sl0, sl0 + slice_size)
+    dk_s, order, fs, box_s = cols
+    first_l, last_l, cnt_l = _trim_full(
+        (dk_s[window], order[window], fs[window], box_s[window]), TILE, nty)
+    firsts, lasts, cnts = (gather(x) for x in (first_l, last_l, cnt_l))
+    m_size = firsts.shape[0] // slice_size
+    cnt_full = torch.where(torch.isfinite(dk_s) & (cnts > 0), cnts, 0)
+    cum = scan.cumsum_flat(cnt_full).to(torch.int64)
+    total = cum[-1]
+    s_cap = min(2 * slice_size, n)
+    dev = dk_s.device
+    bounds = [torch.zeros((), dtype=torch.int64, device=dev)]
+    for j in range(1, m_size):
+        q = torch.searchsorted(cum, ((j * total) // m_size).reshape(1),
+                               side="left")[0]
+        lo = torch.clamp(bounds[-1], min=n - (m_size - j) * s_cap)
+        bounds.append(torch.minimum(torch.maximum(q, lo), bounds[-1] + s_cap))
+    bounds.append(torch.full((), n, dtype=torch.int64, device=dev))
+    m = sl0 // slice_size
+    anchor = torch.clamp(bounds[m], max=n - s_cap)
+    off = bounds[m] - anchor
+    return anchor, s_cap, (off, off + bounds[m + 1] - bounds[m]), (
+        firsts, lasts, cnts)
+
+
 class _StripFusedRasterize(torch.autograd.Function):
     """_FusedRasterize for the tiles [tile0, tile0 + n_tiles) only, in
     tile layout: the scene (or the depth window depth_slice=(start, size)
-    of it) is binned whole, then kernels D and E run on the strip's slice
-    of the tile ranges with the strip's offset. Tiles past the image's
-    grid are empty."""
+    of it, pair-balanced through `balance_gather` when one is given) is binned
+    whole, then kernels D and E run on the strip's slice of the tile
+    ranges with the strip's offset. Tiles past the image's grid are
+    empty."""
 
     @staticmethod
     def forward(ctx, xys, conics, colors, opacities, depth_key, tile_box,
                 tile0, n_tiles, width, height, max_pairs, max_rowruns,
-                last_color_is_depth, depth_slice):
-        ntx, _ = _grid(width, height)
+                last_color_is_depth, depth_slice, precision, balance_gather):
+        ntx, nty = _grid(width, height)
         nc = colors.shape[-1]
-        bins, feats = bin_and_pack(
-            xys, conics, tile_box, depth_key, colors.to(torch.float32),
-            opacities, width, height, TILE, max_pairs, max_rowruns,
-            last_color_is_depth=last_color_is_depth, depth_slice=depth_slice)
+        if max_rowruns is None:
+            max_rowruns = max_pairs // 2
+        cols = _depth_sort_cols(xys, conics, tile_box, depth_key,
+                                colors.to(torch.float32), opacities,
+                                last_color_is_depth, precision)
+        if depth_slice is not None and balance_gather is not None:
+            anchor, s_cap, local, trim = _balanced_window(
+                cols, depth_key.shape[0], int(depth_slice[0]),
+                depth_slice[1], nty, balance_gather)
+            bins, feats = _bin_sorted(cols, (anchor, s_cap), width, height,
+                                      TILE, max_pairs, max_rowruns,
+                                      trim=trim, local_window=local)
+        else:
+            bins, feats = _bin_sorted(cols, depth_slice, width, height,
+                                      TILE, max_pairs, max_rowruns)
         feat = pack_feat_cols(feats, max_pairs)
         # Pad tiles start at the end of the pairs and hold none.
         end = bins.tile_start[-1] + bins.tile_count[-1]
@@ -966,7 +1027,8 @@ class _StripFusedRasterize(torch.autograd.Function):
                               g_t.contiguous(), depth_order,
                               depth_order.shape[0], tile0=tile0)
         return (*_input_grads(seg, nc, ctx.colors_dtype),
-                None, None, None, None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None, None, None,
+                None, None)
 
 
 def composite_tiles_fused(proj, colors: torch.Tensor,
@@ -975,25 +1037,28 @@ def composite_tiles_fused(proj, colors: torch.Tensor,
                           max_rowruns: int | None = None,
                           last_color_is_depth: bool = False,
                           precision: str = "f32", slice0=0,
-                          slice_size: int | None = None):
+                          slice_size: int | None = None,
+                          balance_gather=None):
     """Fused bin + pack + composite of the tile strip [tile0, tile0 +
     n_tiles): returns (accum (n_tiles, 256, C) premultiplied, alpha
     (n_tiles, 256), bins), differentiable as rasterize_tiles_fused is.
     With slice_size, only the depth window of that many gaussians from
-    depth rank slice0 (an int or a 0-d device tensor) is binned and
-    composited; alpha is then that layer's opacity 1 - T, and layers
-    merge front to back by (C, T) |> (C', T') = (C + T C', T T'). This is
-    what one device of a render sharded over tiles or depth runs; the
-    pair-balanced windows of the sharded path need its collectives and
-    are not here."""
-    if precision != "f32":
-        raise ValueError(f"precision={precision!r} is not ported yet "
-                         f"(ROADMAP.md); use 'f32'")
+    depth rank slice0 is binned and composited; alpha is then that
+    layer's opacity 1 - T, and layers merge front to back by (C, T) |>
+    (C', T') = (C + T C', T T') (parallel.sharded._combine_layers). With
+    balance_gather too (x -> the all-gather of x along dim 0 over the
+    group of devices that share the depth order, in device order; slice0
+    must then be an int, the device's place in the group times
+    slice_size), the window is pair-balanced across the group instead
+    (_balanced_window): every device of the group must make this call. This is what one device of
+    a render sharded over tiles or depth runs."""
     if tile0 < 0 or n_tiles < 0:
         raise ValueError(f"tile0 and n_tiles must be >= 0, got {tile0}, "
                          f"{n_tiles}")
+    if balance_gather is not None and slice_size is None:
+        raise ValueError("balance_gather needs slice_size")
     depth_slice = None if slice_size is None else (slice0, slice_size)
     return _StripFusedRasterize.apply(
         proj.xys, proj.conics, colors, opacities, _depth_key(proj),
         proj.tile_box, tile0, n_tiles, width, height, max_pairs, max_rowruns,
-        last_color_is_depth, depth_slice)
+        last_color_is_depth, depth_slice, precision, balance_gather)

@@ -12,8 +12,9 @@ in `depth_slices` depth-rank windows; the kernel compositor over shared
 bins (impl="fused"/"pallas" with `bins`); and the two portable
 compositors in plain PyTorch (impl="chunked", "scan") over
 `ops.tiles.bin_gaussians`' bins, which render at most `max_per_tile`
-pairs of a tile. The bf16 sort payloads are not ported yet and raise
-(ROADMAP.md).
+pairs of a tile. `precision="bf16"` rounds the fused routes' feature
+columns to bf16 before binning (ops.tiles._depth_sort_cols), the JAX
+package's production TPU mode; the other routes ignore it, as there.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ from ..core.projection import Projected, project
 from .composite import rasterize_tiles_fused, rasterize_tiles_pallas
 from .composite_chunked import rasterize_tiles_chunked
 from .composite_scan import rasterize_tiles_scan
-from .tiles import TileBins, bin_gaussians
+from .tiles import PRECISIONS, TileBins, bin_gaussians
 
 IMPLS = ("fused", "pallas", "chunked", "scan")
 
@@ -47,7 +48,7 @@ class RenderConfig:
     impl: str = "fused"                # "fused" (= "pallas") | "chunked" |
     #                                    "scan"
     depth_far_fill: float = 10.0
-    precision: str = "f32"
+    precision: str = "f32"             # "f32" | "bf16" (fused routes)
     depth_slices: int = 1              # > 1: the fused path composites that
     #                                    many depth-rank windows one after
     #                                    another; max_pairs / max_rowruns
@@ -56,9 +57,9 @@ class RenderConfig:
     def __post_init__(self):
         if self.impl not in IMPLS:
             raise ValueError(f"impl={self.impl!r}: expected one of {IMPLS}")
-        if self.precision != "f32":
-            raise ValueError(f"precision={self.precision!r} is not ported "
-                             f"yet (ROADMAP.md); use 'f32'")
+        if self.precision not in PRECISIONS:
+            raise ValueError(f"precision={self.precision!r}: expected one "
+                             f"of {PRECISIONS}")
         if self.depth_slices < 1:
             raise ValueError(f"depth_slices must be >= 1, got "
                              f"{self.depth_slices}")

@@ -1,6 +1,5 @@
 """SSIM and PSNR (counterpart of street_gaussians_ns_tpu/ops/ssim.py:
-`ssim`, `psnr`; the band-sharded `ssim_band_mean` belongs to the
-multi-device slice, ROADMAP.md).
+`ssim`, `ssim_band_mean`, `psnr`).
 
 pytorch_msssim's SSIM(data_range=1, channel=3) defaults: 11x11 gaussian
 window, sigma 1.5, K1 = 0.01, K2 = 0.03, valid padding, the mean over
@@ -67,6 +66,31 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, data_range: float = 1.0,
     x = img1.permute(2, 0, 1).to(torch.float32)
     y = img2.permute(2, 0, 1).to(torch.float32)
     return torch.mean(_ssim_map(x, y, data_range, win_size, sigma))
+
+
+def ssim_band_mean(img1: torch.Tensor, img2: torch.Tensor, row0: int,
+                   rows: int, data_range: float = 1.0, win_size: int = 11,
+                   sigma: float = 1.5) -> torch.Tensor:
+    """The band of SSIM-map rows [row0, row0 + rows) of two (H, W, C)
+    images: sum(band of the map) / (size of the full map). Map row r reads
+    image rows [r, r + win_size) only, so a device computes its band from
+    the image band plus a win_size - 1 halo, every map value as the full
+    map has it, and the bands' results summed over a model group are the
+    full-frame mean SSIM. Rows past the map (the last band's padding)
+    count zero."""
+    h, w, c = img1.shape
+    map_h = h - win_size + 1
+
+    def band(img):
+        p = torch.nn.functional.pad(img.to(torch.float32),
+                                    (0, 0, 0, 0, 0, rows))
+        return p[row0:row0 + rows + win_size - 1].permute(2, 0, 1)
+
+    m = _ssim_map(band(img1), band(img2), data_range, win_size, sigma)
+    valid = (torch.arange(rows, device=m.device) + row0 < map_h)[
+        None, :, None]
+    total = torch.sum(torch.where(valid, m, torch.zeros_like(m)))
+    return total / (map_h * (w - win_size + 1) * c)
 
 
 def psnr(img1: torch.Tensor, img2: torch.Tensor,

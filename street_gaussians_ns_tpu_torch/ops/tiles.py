@@ -1,13 +1,17 @@
 """Tile binning (counterpart of street_gaussians_ns_tpu/ops/tiles.py:
 `TileBins`, `count_pairs`, the fused `bin_and_pack` = `_depth_sort_cols`
 + `_trim_full` + `_bin_sorted`, and the bins-shared `bin_gaussians` with
-`_owner_by_scatter`), for precision="f32".
+`_owner_by_scatter`).
 
 Fused pipeline (the JAX package's, step for step, so pair enumeration and
 order match it bit for bit):
   1. `_depth_sort_cols`: depth sort of the gaussians
      (`torch.sort(..., stable=True)` gives the JAX (depth, index) order),
-     every per-gaussian column gathered into depth order;
+     every per-gaussian column gathered into depth order; with
+     precision="bf16" the conics, opacity and colours (and the depth
+     copy of the last colour) are rounded to bf16 first (ops.packing),
+     so binning, compositing and the backward all see the rounded
+     values, as in the JAX package; xy and the depth key stay float32;
   2. `_trim_full`: per gaussian the first/last tile row its coverage
      ellipse touches and its exact pair count
      (core.projection.row_tile_range);
@@ -40,6 +44,9 @@ import torch
 
 from ..core.projection import Projected, coverage_q, row_tile_range
 from . import expand, scan
+from .packing import round_bf16
+
+PRECISIONS = ("f32", "bf16")
 
 # Elements of one chunk of the (N, tile rows) row-trim broadcast: bounds
 # its temporaries to some hundred MB at full width.
@@ -133,13 +140,19 @@ def _row_trim_counts(conics, xys, box, tile_size: int, max_h: int, q):
 
 
 def _depth_sort_cols(xys, conics, tile_box, depth_key, colors, opacities,
-                     last_color_is_depth: bool):
+                     last_color_is_depth: bool, precision: str = "f32"):
     """Depth sort of the gaussians, paid once however many windows are
     binned from it. Returns cols = (depth-sorted key, order (int64),
     depth-sorted float table (N, 10) = [x, y, ca, cb, cc, op, f0..f3],
     depth-sorted int32 tile boxes (N, 4)) with the colour columns
     zero-padded to 4; with last_color_is_depth the last colour is taken
-    from the sorted key, +inf (invisible) sanitised to 0."""
+    from the sorted key, +inf (invisible) sanitised to 0. precision="bf16"
+    rounds every column of the table but x and y to bf16 (the JAX
+    package's packed sort payloads, unpacked)."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision={precision!r}: expected one of "
+                         f"{PRECISIONS}")
+    rnd = round_bf16 if precision == "bf16" else (lambda x: x)
     n = depth_key.shape[0]
     nc = colors.shape[-1]
     if nc > 4:
@@ -147,13 +160,15 @@ def _depth_sort_cols(xys, conics, tile_box, depth_key, colors, opacities,
     order = torch.sort(depth_key, stable=True).indices
     dk_s = depth_key[order]
     nc_ride = nc - 1 if (last_color_is_depth and nc > 0) else nc
-    ftab = torch.cat([xys.to(torch.float32), conics.to(torch.float32),
-                      opacities.to(torch.float32)[:, None],
-                      colors[:, :nc_ride].to(torch.float32)], dim=1)
+    ftab = torch.cat([xys.to(torch.float32),
+                      rnd(torch.cat([conics.to(torch.float32),
+                                     opacities.to(torch.float32)[:, None],
+                                     colors[:, :nc_ride].to(torch.float32)],
+                                    dim=1))], dim=1)
     cols = [ftab.index_select(0, order)]
     if nc_ride < nc:
-        cols.append(torch.where(torch.isfinite(dk_s), dk_s,
-                                torch.zeros_like(dk_s))[:, None])
+        cols.append(rnd(torch.where(torch.isfinite(dk_s), dk_s,
+                                    torch.zeros_like(dk_s)))[:, None])
     cols.append(torch.zeros((n, 4 - nc), dtype=torch.float32,
                             device=depth_key.device))
     box_s = tile_box.to(torch.int32).index_select(0, order)
@@ -341,17 +356,19 @@ def bin_and_pack(
     last_color_is_depth: bool = False,
     with_gauss_idx: bool = False,
     depth_slice=None,
+    precision: str = "f32",
 ):
     """Fused binning: returns (TileBins, feats), feats being the 11
     sorted-pair float32 columns [x, y, ca, cb, cc, op, c0..c3, depth rank]
     (each (max_pairs,); invalid pairs hold zeros and rank N) that the
     compositor's stream packs. The per-pair depth rank is what the
     training slice's gradient reduce keys on. with_gauss_idx and
-    depth_slice=(start, size) as in _bin_sorted."""
+    depth_slice=(start, size) as in _bin_sorted, precision as in
+    _depth_sort_cols."""
     if max_rowruns is None:
         max_rowruns = max_pairs // 2
     cols = _depth_sort_cols(xys, conics, tile_box, depth_key, colors,
-                            opacities, last_color_is_depth)
+                            opacities, last_color_is_depth, precision)
     return _bin_sorted(cols, depth_slice, width, height, tile_size,
                        max_pairs, max_rowruns, with_gauss_idx)
 

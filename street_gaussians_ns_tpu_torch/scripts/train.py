@@ -7,24 +7,30 @@ Usage:
         [--trainer.max-num-iterations 30000] [--device cuda|cpu]
 
 Every config field is a dotted flag (utils.cli): the data parser's at the
-top level, then --trainer.*, --dm.*, --model.*. The multi-device flags of
-the JAX CLI (--mesh-data, --mesh-model, --coordinator, --num-processes,
---process-id) are accepted and raise: the sharded trainer is not ported
-yet (ROADMAP.md queue 1 item 9).
+top level, then --trainer.*, --dm.*, --model.*. Any of --mesh-data,
+--mesh-model or --coordinator trains with the multi-device trainer
+(parallel.trainer.ShardedTrainer) instead: one process per rank, each
+started with the same flags and its own --process-id, all pointing at one
+--coordinator host:port (a world of one process needs none), e.g. two
+model columns on the CPU:
+
+    python -m street_gaussians_ns_tpu_torch.scripts.train ... --device cpu \
+        --mesh-model 2 --num-processes 2 --process-id 0 \
+        --coordinator 127.0.0.1:29500          (and --process-id 1)
+
+The backend follows --device: NCCL on the card, gloo on the CPU.
 """
 from __future__ import annotations
 
 import argparse
+
+import torch
 
 from ..data.datamanager import DataManagerConfig
 from ..data.dataparser import DataParserConfig
 from ..engine.trainer import Trainer, TrainerConfig
 from ..models.scene_graph import SceneGraphConfig
 from ..utils.cli import add_dataclass_args, dataclass_from_args
-
-MESH_FLAGS = ("mesh_data", "mesh_model", "coordinator", "num_processes",
-              "process_id")
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
@@ -35,9 +41,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default cuda; cpu runs "
                         "the kernels' plain versions)")
-    p.add_argument("--mesh-data", type=int, default=None)
-    p.add_argument("--mesh-model", type=int, default=None)
-    p.add_argument("--coordinator", type=str, default=None)
+    p.add_argument("--mesh-data", type=int, default=None,
+                   help="data rows of the mesh (cameras per step)")
+    p.add_argument("--mesh-model", type=int, default=None,
+                   help="model columns of the mesh (background shards)")
+    p.add_argument("--coordinator", type=str, default=None,
+                   help="host:port of the process group's rendezvous")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     return p
@@ -45,18 +54,24 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    given = [f"--{f.replace('_', '-')}" for f in MESH_FLAGS
-             if getattr(args, f) is not None]
-    if given:
-        raise NotImplementedError(
-            f"{', '.join(given)}: the multi-device trainer (parallel/) is not "
-            f"ported yet (ROADMAP.md queue 1 item 9)")
-    trainer = Trainer(dataclass_from_args(DataParserConfig, args),
-                      dataclass_from_args(SceneGraphConfig, args, "model."),
-                      dataclass_from_args(TrainerConfig, args, "trainer."),
-                      dataclass_from_args(DataManagerConfig, args, "dm."),
-                      device=args.device)
+    configs = (dataclass_from_args(DataParserConfig, args),
+               dataclass_from_args(SceneGraphConfig, args, "model."),
+               dataclass_from_args(TrainerConfig, args, "trainer."),
+               dataclass_from_args(DataManagerConfig, args, "dm."))
+    sharded = (args.mesh_data is not None or args.mesh_model is not None
+               or args.coordinator is not None)
+    if sharded:
+        from ..parallel.trainer import ShardedTrainer
+
+        trainer = ShardedTrainer(
+            *configs, mesh_data=args.mesh_data, mesh_model=args.mesh_model,
+            coordinator=args.coordinator, num_processes=args.num_processes,
+            process_id=args.process_id, device=args.device)
+    else:
+        trainer = Trainer(*configs, device=args.device)
     trainer.train()
+    if sharded:
+        torch.distributed.destroy_process_group()
     return trainer
 
 

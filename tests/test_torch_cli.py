@@ -311,16 +311,58 @@ def test_cli_without_a_card_raises(jax_run, tmp_path, monkeypatch, cli):
         main(argv[cli])
 
 
-@pytest.mark.parametrize("main,argv,match", [
-    (ttrain.main, ["--mesh-data", "2"], "item 9"),
-    (ttrain.main, ["--coordinator", "localhost:1234", "--num-processes",
-                   "2"], "item 9"),
-])
-def test_unported_entry_points_raise(tmp_path, main, argv, match):
-    """The multi-device flags of the train CLI raise, naming their
-    ROADMAP.md item."""
-    with pytest.raises(NotImplementedError, match=match):
-        main(["--data", str(tmp_path), "--device", "cpu", *argv])
+def test_cli_mesh_trains_and_its_checkpoint_restores(tmp_path):
+    """The mesh flags (they replaced the raise of the multi-device
+    trainer): two `scripts.train --device cpu --mesh-model 2` processes
+    on gloo train a clip 4 steps; rank 0's checkpoint holds the gathered
+    state, and the JAX package's eval_setup and the single-device port's
+    each restore it leaf for leaf."""
+    from street_gaussians_ns_tpu.engine.setup import eval_setup as jsetup
+    from street_gaussians_ns_tpu_torch.engine import checkpoints as tckpt
+    from street_gaussians_ns_tpu_torch.engine.setup import (
+        eval_setup as tsetup)
+    from street_gaussians_ns_tpu_torch.parallel.mesh import free_port
+
+    from test_torch_scene_graph import store_arrays
+
+    clip = tmp_path / "clip"
+    clip.mkdir()
+    write_clip(clip)
+    run = tmp_path / "run"
+    coordinator = f"127.0.0.1:{free_port()}"
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "street_gaussians_ns_tpu_torch.scripts.train",
+         "--data", str(clip), "--device", "cpu",
+         "--train-split-fraction", "0.5", "--trainer.output-dir", str(run),
+         "--trainer.max-num-iterations", "4",
+         "--trainer.steps-per-save", "4",
+         "--trainer.background-capacity", "256",
+         "--trainer.object-capacity", "16384",
+         "--trainer.max-pairs", "16384",
+         "--model.base.sh-degree", "1", "--model.base.env-map-res", "16",
+         "--model.background.sh-degree", "1",
+         "--model.object-template.sh-degree", "1",
+         "--no-dm.undistort", "--dm.cache-workers", "2",
+         "--mesh-model", "2", "--num-processes", "2",
+         "--process-id", str(i), "--coordinator", coordinator],
+        cwd=REPO, env=ENV, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for i in range(2)]
+    for p in procs:
+        _, err = p.communicate(timeout=400)
+        assert p.returncode == 0, err[-3000:]
+    ckpts = sorted((run / "checkpoints").glob("*.npz"))
+    assert [p.name for p in ckpts] == ["step-000000004.ckpt.npz"]
+    assert (run / "rank1" / "metrics.jsonl").exists()
+    with np.load(ckpts[0]) as data:
+        saved = {k: data[k] for k in data.files}
+    assert saved["store/background/params/means"].shape[0] == 256
+    jstate = store_arrays(jsetup(run).state)
+    tstate = tckpt.state_to_numpy(tsetup(run, device="cpu").state)
+    for got in (jstate, tstate):
+        for k, v in got.items():
+            np.testing.assert_array_equal(v, saved[k], err_msg=k)
+    assert set(tstate) <= set(jstate) <= set(saved)
+    assert int(saved["step"]) == 4
 
 
 def test_viewer_entry_point_serves_a_jax_run(jax_run, monkeypatch, capsys):

@@ -175,11 +175,11 @@ def test_capacity_overflow_warns():
 
 
 def test_unported_options_raise():
-    """precision="bf16" is still to port; an impl the package does not
-    know is refused; the options ported since (depth slices, the portable
-    compositors) build and render."""
-    with pytest.raises(ValueError, match="ROADMAP"):
-        trender.RenderConfig(precision="bf16")
+    """A precision or an impl the package does not know is refused; the
+    options ported since (depth slices, the portable compositors, bf16:
+    tests/test_torch_bf16.py) build and render."""
+    with pytest.raises(ValueError, match="precision"):
+        trender.RenderConfig(precision="fp8")
     with pytest.raises(ValueError, match="impl"):
         trender.RenderConfig(impl="tiles")
     with pytest.raises(ValueError):

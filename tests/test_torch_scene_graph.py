@@ -243,4 +243,7 @@ def test_port_imports_no_jax():
     pkg = "street_gaussians_ns_tpu_torch."
     assert {pkg + m for m in ("models.camera_opt", "engine.train_step",
                               "utils.viewer", "utils.profiling",
-                              "scripts.viewer")} <= walked
+                              "scripts.viewer", "ops.packing",
+                              "parallel.mesh", "parallel.collectives",
+                              "parallel.sharded",
+                              "parallel.trainer")} <= walked

@@ -57,7 +57,8 @@ def _torch_proj(p) -> Projected:
                         for f in dataclasses.fields(Projected)})
 
 
-def _run(n_slices, n=220, seed=3, opaque=False, with_active_pad=False):
+def _run(n_slices, n=220, seed=3, opaque=False, with_active_pad=False,
+         precision="f32"):
     """tests/test_depth_slices.py:_run through the port: loss, image,
     alpha, bins and the gradients of (means, scales, quats, colors,
     opacities)."""
@@ -79,7 +80,8 @@ def _run(n_slices, n=220, seed=3, opaque=False, with_active_pad=False):
             num_tiles_hit=torch.where(live, p.num_tiles_hit, 0))
     img, alpha, bins = tcomp.rasterize_tiles_fused(
         p, leaves[3], leaves[4], cam.width, cam.height, 16, torch.zeros(4),
-        MAX_PAIRS, None, last_color_is_depth=True, depth_slices=n_slices)
+        MAX_PAIRS, None, last_color_is_depth=True, depth_slices=n_slices,
+        precision=precision)
     val = ((img * torch.cos(img + 0.3)).mean()
            + 0.5 * (alpha * torch.sin(alpha * 2.0)).mean())
     grads = torch.autograd.grad(val, leaves)

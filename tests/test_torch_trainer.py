@@ -302,15 +302,62 @@ def test_port_eval_setup_restores_a_jax_run(jax_side):
     assert tt.state.step == 1 and tt.render_config.impl == "chunked"
 
 
-@pytest.mark.parametrize("change,match", [
-    (dict(trainer=dict(render_precision="bf16")), "item 8"),
-])
-def test_unported_options_raise(jax_side, tmp_path, change, match):
-    data, model, trainer, dm = port_configs(jax_side, tmp_path)
-    model = dataclasses.replace(model, **change.get("model", {}))
-    trainer = dataclasses.replace(trainer, **change.get("trainer", {}))
-    with pytest.raises(NotImplementedError, match=match):
-        ttrainer.Trainer(data, model, trainer, dm, device="cpu")
+def test_bf16_trainer_step_matches_jax(jax_side, tmp_path, monkeypatch):
+    """render_precision="bf16" (it replaced the raise of this option):
+    the port Trainer renders in bf16, and its _run_step from the JAX
+    trainer's first state, data order and sky jitter equals a JAX
+    Trainer's with render_impl="pallas", render_precision="bf16" (its
+    Pallas kernels in interpret mode), held as test_run_step_matches_jax
+    holds the f32 step."""
+    data, model, trainer, dm = jax_side["cfgs"]
+    jt = jtrainer.Trainer(data, model, dataclasses.replace(
+        trainer, output_dir=tmp_path / "jax", render_impl="pallas",
+        render_precision="bf16"), dm)
+    assert jt.render_config.precision == "bf16"
+    j0 = jt.state = jax_side["state0"]
+    jm = jt._run_step(0)
+    j1 = jt.state
+    tt = ttrainer.Trainer(*port_configs(jax_side, tmp_path / "port",
+                                        render_impl="pallas",
+                                        render_precision="bf16"),
+                          device="cpu")
+    assert tt.render_config.precision == "bf16"
+    assert (tt.render_config.max_pairs, tt.render_config.max_rowruns) == (
+        jt.render_config.max_pairs, jt.render_config.max_rowruns)
+    tt.state = start = tckpt.train_state_from_numpy(store_arrays(j0),
+                                                    tt.config, device="cpu")
+    camera = tt.dm.train_camera(0)
+    jitter = torch.from_numpy(np.array(jax.random.uniform(
+        jax.random.split(j0.rng)[1], (2, camera.height, camera.width))))
+    monkeypatch.setattr(tsts, "draw_pixel_jitter", lambda cam, gen: jitter)
+    metrics = tt._run_step(0)
+    for k in ("loss", "psnr", "Ll1", "simloss", "sky_accumulation",
+              "gaussian_count", "num_pairs"):
+        np.testing.assert_allclose(float(metrics[k]), float(jm[k]),
+                                   rtol=1e-5, atol=2e-5, err_msg=k)
+    tnew = tt.state
+    moved = 0
+    for name in GAUSSIAN_GROUPS:
+        for k, part in (("bg", "background"), ("obj", "objects")):
+            jmu = np.asarray(j1.opt[name].mu[k])
+            jg = jmu / 0.1                   # first step from zero moments
+            lr = topt.schedule(topt.DEFAULT_GROUPS[name], 0)
+            floor = GRAD_TOL * float(np.abs(jg).max())
+            sure = np.abs(jg) > floor
+            tp = getattr(getattr(tnew.store, part).params, name).numpy()
+            jp = np.asarray(getattr(getattr(j1.store, part).params, name))
+            p0 = getattr(getattr(start.store, part).params, name).numpy()
+            if not sure.any():
+                np.testing.assert_array_equal(tp, jp)
+                continue
+            moved += 1
+            np.testing.assert_allclose(tp[sure], jp[sure], rtol=1e-6,
+                                       atol=1e-3 * lr, err_msg=name)
+            assert float(np.abs(tp - p0).max()) <= 2 * lr * 1.001, name
+            np.testing.assert_allclose(tnew.opt[name].mu[k].numpy(), jmu,
+                                       rtol=1e-5, atol=0.1 * floor,
+                                       err_msg=name)
+    assert moved >= 4
 
 
 def test_trainer_viewer_matches_jax(jax_side, tmp_path):
