@@ -133,7 +133,29 @@ Phases, each printing one JSON line:
                 viewer_path: the train CLI with --mesh-data 1
                 --mesh-model 1 on cli_path's clip for 20 steps, its
                 checkpoint restored by the single-device eval_setup;
- 19. kernels    every kernel of these paths, on the inputs captured from
+ 19. preprocess_path  the offline preprocess, raw clip to trained scene:
+                write_raw_clip writes a clip in extract_waymo's layout (20
+                frames 0.1 s apart of Waymo's five cameras as JPEG, FRONT,
+                FRONT_LEFT, FRONT_RIGHT at 1920x1280 and the SIDEs at
+                1920x886; a 170,000-point TOP sweep a frame; 6 moving cars
+                of 800-1,200 returns a sweep and 6 parked ones in
+                annotation.json); the port's tools run on the card as
+                scripts/data_process.sh chains them (segs naive, masks
+                --dilate 25, transform2colmap, run_colmap, whose
+                RuntimeError without a colmap is printed before the
+                origin model becomes sparse/0, pcd2colmap at 10,000
+                points a sweep, combine, extract_object_pts) and again
+                with --device cpu on a copy: segs and masks byte-equal,
+                the LiDAR rows' ids and colours equal and xyz within 1e-9
+                of the point's norm, the plys' gids, rows and colours
+                equal and xyz within one float32 ulp; then
+                scripts.train.main on FRONT with the combined seeds for
+                20 steps and scripts.eval.main: 200,000 seeds, 6 tracks,
+                each car's ply holding its returns, a finite loss, A-F
+                launched in training and A-D in eval (the counts set to
+                0 before each), no capacity overflow. Prints each tool's
+                seconds on the card and on the CPU;
+ 20. kernels    every kernel of these paths, on the inputs captured from
                 them, against its plain version, with its time, the plain
                 version's time, a PyTorch library call's time where one
                 computes the same function (for C the JAX package's own
@@ -156,7 +178,7 @@ Phases, each printing one JSON line:
                 redesign; every number in the `kernels` line itself is
                 this run's. Each row's `launches` is the main path's;
                 `launches_on_later_paths` adds those of phases 13, 14 (its
-                SE3 mode), 16, 17 and 18 (each of its three parts).
+                SE3 mode), 16, 17, 18 (each of its three parts) and 19.
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
@@ -168,6 +190,7 @@ import io
 import json
 import math
 import re
+import shutil
 import struct
 import subprocess
 import sys
@@ -3146,6 +3169,426 @@ def phase_mesh_cli(run_dir: Path, clip_root: Path, steps: int = 20):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The offline preprocess, raw clip to trained scene.
+# ---------------------------------------------------------------------------
+
+# Waymo's five cameras in the order the clip writes them (FRONT first, so
+# that transform2colmap gives FRONT COLMAP camera id 1), at Waymo's sizes.
+WAYMO_CAMERAS = (("FRONT", 1920, 1280), ("FRONT_LEFT", 1920, 1280),
+                 ("FRONT_RIGHT", 1920, 1280), ("SIDE_LEFT", 1920, 886),
+                 ("SIDE_RIGHT", 1920, 886))
+CAMERA_YAW_DEG = {"FRONT": 0.0, "FRONT_LEFT": 45.0, "FRONT_RIGHT": -45.0,
+                  "SIDE_LEFT": 90.0, "SIDE_RIGHT": -90.0}
+WAYMO_FOCAL = 2055.0               # px at 1920 wide, about Waymo FRONT's
+WAYMO_DISTORTION = dict(k1=-0.03, k2=0.01, k3=0.0, k4=0.0, p1=5e-4,
+                        p2=-3e-4)
+CAR_LWH = (4.6, 2.0, 1.6)
+EGO_SPEED = 10.0                   # m/s along the route
+ROUTE_YAW = 0.3                    # the route's heading in the world frame
+
+
+@dataclasses.dataclass(frozen=True)
+class RawClip:
+    """The raw clip preprocess_path writes in extract_waymo's layout, and
+    how long it trains: 20 frames of a segment's ~200."""
+
+    frames: int = 20
+    cameras: tuple = WAYMO_CAMERAS
+    sweep_points: int = 170_000    # one TOP sweep a frame
+    moving: int = 6                # moving cars in every frame
+    parked: int = 6
+    returns: tuple = (800, 1200)   # a moving box's returns a sweep, [lo, hi]
+    parked_returns: int = 300
+    image_ext: str = "jpg"
+    steps: int = 20
+    train_flags: tuple = ()
+
+
+RAW_CLIP = RawClip()
+
+
+def _rotz(yaw: float) -> np.ndarray:
+    c, s = math.cos(yaw), math.sin(yaw)
+    return np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+
+
+def raw_clip_boxes(clip: RawClip = RAW_CLIP):
+    """Per frame, the cars' boxes as annotation.json holds them (world
+    frame, wxyz, the moving cars first), and each frame's ego pose. The
+    moving cars drive in four lanes beside the ego at 9-10.4 m/s, the
+    parked ones stand at the kerbs; no box reaches the ground (the 1.1x
+    box of extract_object_pts included) or another box."""
+    route = _rotz(ROUTE_YAW)
+    l, w, h = CAR_LWH
+    frames = []
+    for f in range(clip.frames):
+        t = 0.1 * f
+        ego = np.eye(4)
+        ego[:3, :3] = route
+        ego[:3, 3] = route @ np.array([EGO_SPEED * t, 0.0, 0.0])
+        objs = []
+        for i in range(clip.moving):
+            lane = (-3.5, 3.5, -7.0, 7.0)[i % 4]
+            x = 12.0 + 5.0 * i + (9.0 + 0.7 * (i % 3)) * t
+            yaw = ROUTE_YAW + 0.02 * (i - 2.5)
+            objs.append(dict(gid=f"moving{i}", is_moving=True, yaw=yaw,
+                             center=route @ np.array([x, lane, h / 2 + 0.1])))
+        for j in range(clip.parked):
+            objs.append(dict(gid=f"parked{j}", is_moving=False,
+                             yaw=ROUTE_YAW,
+                             center=route @ np.array(
+                                 [6.0 + 8.0 * j, (-10.0, 10.0)[j % 2],
+                                  h / 2 + 0.1])))
+        frames.append((ego, objs))
+    return frames
+
+
+def _box_points(rng, obj, n: int) -> np.ndarray:
+    """n points inside the inner 0.9 of a box, world frame."""
+    local = (rng.random_sample((n, 3)) - 0.5) * 0.9 * np.array(CAR_LWH)
+    return local @ _rotz(obj["yaw"]).T + obj["center"]
+
+
+def _camera_extrinsic(name: str) -> np.ndarray:
+    """Camera -> vehicle in OpenCV axes, as extract_waymo turns a Waymo
+    calibration (x forward, y left, z up) into one."""
+    from street_gaussians_ns_tpu_torch.preprocess.extract_waymo import (
+        OPENCV2WAYMO)
+    yaw = math.radians(CAMERA_YAW_DEG[name])
+    ext = np.eye(4)
+    ext[:3, :3] = _rotz(yaw) @ OPENCV2WAYMO
+    ext[:3, 3] = (1.5 * math.cos(yaw), 0.5 * math.sin(yaw), 2.0)
+    return ext
+
+
+def _paint_cars(img: np.ndarray, c2w_cv: np.ndarray, K: np.ndarray,
+                objs: list) -> None:
+    """Each car whose corners lie in front of the camera, far to near, as
+    its image box: a coloured body over a dark lower third."""
+    w2c = np.linalg.inv(c2w_cv)
+    h, w = img.shape[:2]
+    l, bw, bh = CAR_LWH
+    corners = np.array([[sx * l / 2, sy * bw / 2, sz * bh / 2]
+                        for sx in (-1, 1) for sy in (-1, 1)
+                        for sz in (-1, 1)])
+    drawn = []
+    for k, obj in enumerate(objs):
+        pts = corners @ _rotz(obj["yaw"]).T + obj["center"]
+        cam = pts @ w2c[:3, :3].T + w2c[:3, 3]
+        if (cam[:, 2] < 0.5).any():
+            continue
+        uv = cam[:, :2] / cam[:, 2:] * K[[0, 1], [0, 1]] + K[:2, 2]
+        u0, v0 = np.floor(uv.min(0)).astype(int)
+        u1, v1 = np.ceil(uv.max(0)).astype(int)
+        u0, u1 = max(u0, 0), min(u1, w)
+        v0, v1 = max(v0, 0), min(v1, h)
+        if u0 < u1 and v0 < v1:
+            drawn.append((cam[:, 2].mean(), k, u0, u1, v0, v1))
+    for _, k, u0, u1, v0, v1 in sorted(drawn, reverse=True):
+        split = v0 + 2 * (v1 - v0) // 3
+        img[v0:split, u0:u1] = (170, 40 + 20 * (k % 6), 40)
+        img[split:v1, u0:u1] = (35, 35, 40)
+
+
+def write_raw_clip(root: Path, seed: int, clip: RawClip = RAW_CLIP) -> dict:
+    """A clip as preprocess/extract_waymo.py writes one (:86-150), made
+    with numpy from seed: images/<CAMERA>/<ts>.<ext> (a bright smooth sky
+    over a dark road, the cars painted in), lidars/lidar_TOP/<ts>.pcd
+    (ground, facades, and each car's returns, in the vehicle frame),
+    transform.json (camera frames, frame-major with FRONT first, poses by
+    extract_waymo.blender_pose; lidar_frames with the ego poses) and
+    annotation.json. Returns what it wrote: the returns of each moving
+    box a sweep (F, moving), the images, and the seconds it took."""
+    from street_gaussians_ns_tpu_torch.data.pcd_io import write_pcd
+    from street_gaussians_ns_tpu_torch.preprocess.extract_waymo import (
+        blender_pose)
+
+    Image = pillow_image()
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(seed)
+    lo, hi = clip.returns
+    boxes = raw_clip_boxes(clip)
+    bases = {}
+    for name, w, h in clip.cameras:
+        cy = h / 2
+        v = np.arange(h, dtype=np.float64)[:, None, None]
+        sky = 230.0 - 40.0 * v / cy + rng.randint(0, 3, (h, w, 3))
+        road = 55.0 + rng.randint(0, 25, (h, w, 3))
+        bases[name] = np.where(v < cy, sky, road).astype(np.uint8)
+    frames_meta, lidar_meta, anno_frames = [], [], []
+    returns = np.zeros((clip.frames, clip.moving), np.int64)
+    image_s = 0.0
+    for f, (ego, objs) in enumerate(boxes):
+        ts = CLIP_TS0 + CLIP_DT_US * f
+        t = time.perf_counter()
+        for name, w, h in clip.cameras:
+            focal = WAYMO_FOCAL * w / 1920
+            K = np.array([[focal, 0, w / 2], [0, focal, h / 2], [0, 0, 1]])
+            ext = _camera_extrinsic(name)
+            img = bases[name].copy()
+            _paint_cars(img, ego @ ext, K, objs)
+            path = root / "images" / name / f"{ts}.{clip.image_ext}"
+            path.parent.mkdir(parents=True, exist_ok=True)
+            Image.fromarray(img).save(path)
+            frames_meta.append({
+                "file_path": path.relative_to(root).as_posix(),
+                "fl_x": focal, "fl_y": focal, "cx": w / 2, "cy": h / 2,
+                "w": w, "h": h, "camera_model": "OPENCV", "camera": name,
+                "timestamp": ts / 1e6, **WAYMO_DISTORTION,
+                "transform_matrix": blender_pose(ego, ext).tolist()})
+        image_s += time.perf_counter() - t
+
+        parts = []
+        for i in range(clip.moving):
+            returns[f, i] = rng.randint(lo, hi + 1)
+            parts.append(_box_points(rng, objs[i], int(returns[f, i])))
+        for obj in objs[clip.moving:]:
+            parts.append(_box_points(rng, obj, clip.parked_returns))
+        rest = clip.sweep_points - sum(len(p) for p in parts)
+        n_ground = rest * 7 // 10
+        r = 4.0 + 56.0 * np.sqrt(rng.random_sample(n_ground))
+        a = rng.random_sample(n_ground) * 2 * np.pi
+        ground = np.stack([r * np.cos(a), r * np.sin(a),
+                           np.zeros(n_ground)], 1) @ ego[:3, :3].T \
+            + ego[:3, 3] * np.array([1.0, 1.0, 0.0])
+        n_wall = rest - n_ground
+        wall = np.stack([EGO_SPEED * 0.1 * f - 30.0
+                         + 110.0 * rng.random_sample(n_wall),
+                         np.where(rng.random_sample(n_wall) < 0.5, -14.0,
+                                  14.0),
+                         12.0 * rng.random_sample(n_wall)], 1)
+        wall = wall @ _rotz(ROUTE_YAW).T
+        world = np.concatenate(parts + [ground, wall])
+        world = world[rng.permutation(len(world))]
+        vehicle = (world - ego[:3, 3]) @ ego[:3, :3]
+        pcd = root / "lidars" / "lidar_TOP" / f"{ts}.pcd"
+        pcd.parent.mkdir(parents=True, exist_ok=True)
+        write_pcd(pcd, vehicle.astype(np.float32))
+        lidar_meta.append({"file_path": pcd.relative_to(root).as_posix(),
+                           "lidar": "lidar_TOP", "timestamp": ts / 1e6,
+                           "transform_matrix": ego.tolist()})
+        anno_frames.append({"timestamp": ts / 1e6, "objects": [
+            {"type": "car", "gid": o["gid"],
+             "translation": o["center"].tolist(), "size": list(CAR_LWH),
+             "rotation": [math.cos(o["yaw"] / 2), 0.0, 0.0,
+                          math.sin(o["yaw"] / 2)],
+             "is_moving": o["is_moving"]} for o in objs]})
+    with open(root / "transform.json", "w") as fh:
+        json.dump({"frames": frames_meta, "lidar_frames": lidar_meta}, fh)
+    with open(root / "annotation.json", "w") as fh:
+        json.dump({"frames": anno_frames}, fh)
+    return {"returns": returns, "images": len(frames_meta),
+            "image_s": image_s, "seconds": time.perf_counter() - t0}
+
+
+def data_process(root: Path, dev: str) -> dict:
+    """The port's tools on the clip at root through their main(argv), as
+    street_gaussians_ns_tpu_torch/scripts/data_process.sh chains them, the
+    device tools on `dev`. No colmap on PATH: run_colmap's RuntimeError is
+    kept and the known-pose origin model becomes sparse/0. Returns
+    {tool: [seconds, what it wrote]} (the card's work of each waited for)
+    and the run_colmap outcome."""
+    from street_gaussians_ns_tpu_torch.preprocess import (
+        colmap_pts_combine, extract_object_pts, masks_generate,
+        pcd2colmap_points3d, run_colmap, segs_generate, transform2colmap)
+
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    data, sparse = str(root), root / "colmap" / "sparse" / "0"
+    out = {}
+
+    def timed(name, fn, argv):
+        t = time.perf_counter()
+        n = fn(argv)
+        sync()
+        out[name] = [time.perf_counter() - t, n]
+
+    timed("segs_generate", segs_generate.main,
+          ["--data", data, "--mode", "naive", "--device", dev])
+    timed("masks_generate", masks_generate.main,
+          ["--data", data, "--dilate", "25", "--device", dev])
+    timed("transform2colmap", transform2colmap.main,
+          ["--data", data, "--output-dir", str(root / "colmap" / "origin")])
+    if shutil.which("colmap") is None:
+        try:
+            run_colmap.main(["--data", data])
+            colmap = "run_colmap ran"
+        except RuntimeError as e:
+            colmap = f"run_colmap raised RuntimeError: {e}"
+    else:
+        colmap = "a colmap binary is on PATH; SfM is not run at this size"
+    shutil.copytree(root / "colmap" / "origin", sparse, dirs_exist_ok=True)
+    timed("pcd2colmap_points3d", pcd2colmap_points3d.main,
+          ["--data", data, "--output", str(sparse / "points3D_lidar.txt"),
+           "--device", dev])
+    timed("colmap_pts_combine", colmap_pts_combine.main,
+          ["--colmap-dir", str(sparse), "--lidar-points",
+           "points3D_lidar.txt"])
+    timed("extract_object_pts", extract_object_pts.main,
+          ["--data", data, "--device", dev])
+    return out, colmap
+
+
+def _read_lidar_rows(path: Path):
+    rows = np.loadtxt(path, ndmin=2)
+    return rows[:, 0].astype(np.int64), rows[:, 1:4], rows[:, 4:7]
+
+
+def compare_preprocess(card: Path, cpu: Path) -> dict:
+    """Mismatch counts between the device tools' outputs of two clips:
+    segs and masks byte for byte; points3D_lidar.txt by ids and colours
+    exactly and xyz within 1e-9 of each point's norm; the object plys by
+    gids, rows and colours exactly and xyz within one float32 ulp."""
+    out = {}
+    for d in ("segs", "masks"):
+        files, other = ({p.relative_to(r / d) for p in (r / d).rglob("*.png")}
+                        for r in (card, cpu))
+        out[d] = len(files ^ other) + sum(
+            (card / d / f).read_bytes() != (cpu / d / f).read_bytes()
+            for f in files & other)
+        out[d + "_files"] = len(files)
+    rel = Path("colmap/sparse/0/points3D_lidar.txt")
+    ia, xa, ca = _read_lidar_rows(card / rel)
+    ib, xb, cb = _read_lidar_rows(cpu / rel)
+    if len(ia) != len(ib):
+        out["lidar_rows"] = abs(len(ia) - len(ib))
+    else:
+        tol = 1e-9 * np.linalg.norm(xb, axis=1)
+        out["lidar_ids"] = int((ia != ib).sum())
+        out["lidar_colors"] = int((ca != cb).any(1).sum())
+        out["lidar_xyz"] = int((np.abs(xa - xb).max(1) > tol).sum())
+    objs = Path("aggregate_lidar/dynamic_objects")
+    ga = sorted(p.stem for p in (card / objs).glob("*.ply"))
+    gb = sorted(p.stem for p in (cpu / objs).glob("*.ply"))
+    out["ply_gids"] = len(set(ga) ^ set(gb))
+    out["ply_rows"] = out["ply_colors"] = out["ply_xyz"] = 0
+    for g in set(ga) & set(gb):
+        a, b = (read_ply(r / objs / f"{g}.ply") for r in (card, cpu))
+        if len(a["x"]) != len(b["x"]):
+            out["ply_rows"] += 1
+            continue
+        out["ply_colors"] += int(sum((a[c] != b[c]).sum()
+                                     for c in ("red", "green", "blue")))
+        for c in "xyz":
+            ulp = np.spacing(np.maximum(np.abs(a[c]), np.abs(b[c])))
+            out["ply_xyz"] += int((np.abs(a[c].astype(np.float64) - b[c])
+                                   > ulp).sum())
+    return out
+
+
+def phase_preprocess(seed: int, workdir: Path, clip: RawClip = RAW_CLIP,
+                     dev="cuda", card: Optional[str] = None):
+    """The offline preprocess of the port on a raw clip, then its trainer
+    and eval: write_raw_clip into workdir/raw and a copy into
+    workdir/raw_cpu; data_process on `dev` and on the CPU copy, every
+    device tool's output held against the CPU's (compare_preprocess);
+    then scripts.train.main on FRONT alone (camera id 1) with the
+    combined seeds for clip.steps steps and scripts.eval.main, the counts
+    set to 0 before each. Checks: the outputs equal, 10,000 seeds a
+    sweep, one ply per moving car holding its returns, as many tracks as
+    moving cars, a finite loss, kernels A-F launched in training and A-D
+    in eval, no capacity overflow. `card` (nvidia-smi's name and power
+    limit) is printed beside the times. Returns the launch counts of
+    both."""
+    cuda = dev == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    root, copy = Path(workdir) / "raw", Path(workdir) / "raw_cpu"
+    run = Path(workdir) / "raw_run"
+    made = write_raw_clip(root, seed + 202, clip)
+    shutil.copytree(root, copy)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    on_card, colmap = data_process(root, dev)
+    print(f"preprocess_path: {colmap}; colmap/origin is used as "
+          "colmap/sparse/0", flush=True)
+    peak_tools = torch.cuda.max_memory_allocated() if cuda else None
+    on_cpu, _ = data_process(copy, "cpu")
+    mismatches = compare_preprocess(root, copy)
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        reset_launches()
+        t = time.perf_counter()
+        trainer = train_cli.main([
+            "--data", str(root), "--filter-camera-id", "1",
+            "--init-points-filename", "points3D_withlidar.txt",
+            "--trainer.output-dir", str(run),
+            "--trainer.max-num-iterations", str(clip.steps),
+            "--device", dev, *clip.train_flags])
+        sync()
+        train_s = time.perf_counter() - t
+        train_launches = read_launches()
+        reset_launches()
+        t = time.perf_counter()
+        evaluated = eval_cli.main(["--load-dir", str(run), "--device", dev])
+        sync()
+        eval_s = time.perf_counter() - t
+        eval_launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    overflow = [str(w.message) for w in caught
+                if "capacity overflow" in str(w.message)]
+    rows = [json.loads(r) for r in
+            (run / "metrics.jsonl").read_text().splitlines()]
+    steps = [r for r in rows if "train/loss" in r]
+    losses = [r["train/loss"] for r in steps]
+    seeds = len(trainer.scene.points_xyz)
+    tracks = trainer.scene.annotations.num_objects
+    plys = {p.stem: len(read_ply(p)["x"]) for p in
+            (root / "aggregate_lidar" / "dynamic_objects").glob("*.ply")}
+    want_plys = {f"moving{i}": int(made["returns"][:, i].sum())
+                 for i in range(clip.moving)}
+
+    fails = [f"{k}: {v} mismatches" for k, v in mismatches.items()
+             if not k.endswith("_files") and v]
+    n_images = made["images"]
+    if mismatches["segs_files"] != n_images or \
+            mismatches["masks_files"] != n_images:
+        fails.append(f"segs / masks written {mismatches} for {n_images} "
+                     "images")
+    # Every point outside the moving boxes, at most 10,000 a sweep.
+    want_seeds = int(np.minimum(
+        10_000, clip.sweep_points - made["returns"].sum(1)).sum())
+    if on_card["pcd2colmap_points3d"][1] != want_seeds or \
+            seeds != want_seeds:
+        fails.append(f"seed points: {on_card['pcd2colmap_points3d'][1]} "
+                     f"written, {seeds} parsed, {want_seeds} wanted")
+    if plys != want_plys:
+        fails.append(f"object plys {plys}, returns {want_plys}")
+    if tracks != clip.moving:
+        fails.append(f"{tracks} tracks for {clip.moving} moving cars")
+    if not losses or not np.isfinite(losses).all():
+        fails.append(f"losses {losses}")
+    if cuda:
+        for phase, launches, names in (("training", train_launches, A_TO_F),
+                                       ("eval", eval_launches, A_TO_F[:4])):
+            fails += [f"{phase} launched no {k}" for k in names
+                      if launches.get(k, 0) <= 0]
+    if overflow:
+        fails.append(f"capacity overflow: {overflow[:2]}")
+    res = evaluated["results"]
+    sps = [r["train/steps_per_sec"] for r in steps]
+    emit("preprocess_path", card=card, frames=clip.frames,
+         cameras=[list(c) for c in clip.cameras],
+         sweep_points=clip.sweep_points, moving=clip.moving,
+         parked=clip.parked, returns_per_box=list(clip.returns),
+         clip_s=made["seconds"], clip_image_s=made["image_s"],
+         tools_card=on_card, tools_cpu=on_cpu,
+         run_colmap=colmap, mismatches=mismatches, seed_points=seeds,
+         colmap_offset_m=float(np.linalg.norm(
+             trainer.scene.applied_translation_in_colmap)),
+         tracks=tracks, object_points=plys,
+         train_s=train_s, steps=clip.steps, steps_per_s_rows=sps,
+         loss_rows=losses, construction_s=trainer.setup_seconds,
+         eval_s=eval_s, eval_results=res,
+         max_memory_allocated_tools=peak_tools,
+         max_memory_allocated=peak, train_launches=train_launches,
+         eval_launches=eval_launches, failures=fails)
+    if fails:
+        raise AssertionError("preprocess_path: " + "; ".join(fails))
+    del trainer
+    return train_launches, eval_launches
+
+
 def capture(store, tracks, cfg, rcfg, cam):
     """Inputs of every kernel in one full-width render (the full render of
     forward_scene on `cam`)."""
@@ -3879,6 +4322,10 @@ def main():
         new_paths["viewer_path"] = phase_viewer(run)
         new_paths["mesh_path[cli]"] = phase_mesh_cli(Path(tmp) / "mesh_run",
                                                      Path(tmp) / "clip")
+    with tempfile.TemporaryDirectory(prefix="sgnt_raw_") as tmp:
+        (new_paths["preprocess_path[train]"],
+         new_paths["preprocess_path[eval]"]) = phase_preprocess(
+            args.seed, Path(tmp), card=smi)
     rows = phase_kernels(calls, launches, train_launches, sliced_launches,
                          unfused_launches, scan_launches)
     for r in rows:

@@ -1,6 +1,6 @@
 """COLMAP model readers: cameras / images / points3D, binary and text
 (counterpart of street_gaussians_ns_tpu/data/colmap_io.py, a copy apart
-from the reader count below).
+from the reader count below and read_images_text's pairing of lines).
 
 points3D.bin is parsed by the native reader (`native/`) when it builds and
 loads, else by the Python loop; `POINTS3D_READERS` counts which one parsed
@@ -150,10 +150,21 @@ def read_images_binary(path: Path) -> Dict[int, ColmapImage]:
 
 
 def read_images_text(path: Path) -> Dict[int, ColmapImage]:
+    """Two lines an image, paired by position: the image line, then its
+    POINTS2D line, which is empty for an image without observations
+    (COLMAP and preprocess.transform2colmap both write it so). Only `#`
+    lines are dropped; a blank line where an image line is due (trailing
+    whitespace) is skipped, and a missing last POINTS2D line reads as
+    empty. The JAX package's reader drops every blank line and so
+    mis-pairs such a file."""
     out = {}
     lines = [ln.strip() for ln in Path(path).read_text().splitlines()
-             if ln.strip() and not ln.strip().startswith("#")]
-    for i in range(0, len(lines), 2):
+             if not ln.strip().startswith("#")]
+    i = 0
+    while i < len(lines):
+        if not lines[i]:
+            i += 1
+            continue
         parts = lines[i].split()
         image_id = int(parts[0])
         qvec = np.array([float(p) for p in parts[1:5]])
@@ -171,6 +182,7 @@ def read_images_text(path: Path) -> Dict[int, ColmapImage]:
             p3d = np.zeros(0, np.int64)
         out[image_id] = ColmapImage(image_id, qvec, tvec, camera_id, name,
                                     xys, p3d)
+        i += 2
     return out
 
 

@@ -36,7 +36,9 @@ from street_gaussians_ns_tpu_torch.data import pcd_io as tpcd
 from street_gaussians_ns_tpu_torch.data import ply_io as tply
 from street_gaussians_ns_tpu_torch.utils import optional
 
+import chip_smoke
 from test_data import TestFisheye624, write_clip, write_colmap_binary
+from test_torch_preprocess import TINY_RAW
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -128,6 +130,66 @@ def test_colmap_binary_and_text_readers_match_jax(tmp_path):
         np.testing.assert_array_equal(tcol.qvec2rotmat(q), jcol.qvec2rotmat(q))
         R = jcol.qvec2rotmat(q)
         np.testing.assert_array_equal(tcol.rotmat2qvec(R), jcol.rotmat2qvec(R))
+
+
+@pytest.fixture(scope="module")
+def raw_origin(tmp_path_factory):
+    """transform2colmap's origin model of the tiny raw clip (8 images,
+    each followed by an empty POINTS2D line)."""
+    from street_gaussians_ns_tpu_torch.preprocess import transform2colmap
+
+    root = tmp_path_factory.mktemp("raw") / "clip"
+    chip_smoke.write_raw_clip(root, 7, TINY_RAW)
+    transform2colmap.convert(root, root / "colmap" / "origin")
+    meta = json.loads((root / "transform.json").read_text())
+    names = [f["file_path"][len("images/"):] for f in meta["frames"]]
+    return root, names
+
+
+def test_read_images_text_pairs_transform2colmap_output(raw_origin):
+    """The port reads every image of transform2colmap's images.txt, whose
+    POINTS2D lines are empty; the JAX reader, which drops blank lines
+    and so pairs an image line with the next image line, raises on it (a
+    defect of the reference the port does not copy)."""
+    root, names = raw_origin
+    path = root / "colmap" / "origin" / "images.txt"
+    got = tcol.read_images_text(path)
+    assert [im.name for im in got.values()] == names
+    assert list(got) == list(range(1, len(names) + 1))
+    assert all(im.xys.shape == (0, 2) and im.point3d_ids.size == 0
+               for im in got.values())
+    assert {im.camera_id for im in got.values()} == {1, 2}
+    with pytest.raises(ValueError, match="could not convert"):
+        jcol.read_images_text(path)
+
+
+_IMG = "{} 1.0 0.0 0.0 0.0 0.5 -0.25 2.0 1 cam1/{}.png"
+
+
+@pytest.mark.parametrize("text,points", [
+    ("# header\n" + _IMG.format(1, 1) + "\n\n" + _IMG.format(2, 2) + "\n\n",
+     [0, 0]),
+    (_IMG.format(1, 1) + "\n\n# between\n" + _IMG.format(2, 2) + "\n",
+     [0, 0]),
+    (_IMG.format(1, 1) + "\n\n" + _IMG.format(2, 2), [0, 0]),
+    (_IMG.format(1, 1) + "\n3.5 4.5 7\n" + _IMG.format(2, 2)
+     + "\n1.0 2.0 -1 3.0 4.0 9", [1, 2]),
+    (_IMG.format(1, 1) + "\n\n" + _IMG.format(2, 2) + "\n5 6 1\n\n\n",
+     [0, 1]),
+], ids=["empty-points2d", "comment-between", "no-last-newline",
+        "last-points2d-no-newline", "trailing-blank-lines"])
+def test_read_images_text_pairs_lines_by_position(tmp_path, text, points):
+    path = tmp_path / "images.txt"
+    path.write_text(text)
+    got = tcol.read_images_text(path)
+    assert list(got) == [1, 2]
+    assert [im.name for im in got.values()] == ["cam1/1.png", "cam1/2.png"]
+    assert [len(im.point3d_ids) for im in got.values()] == points
+    np.testing.assert_array_equal(got[2].tvec, [0.5, -0.25, 2.0])
+    if all(points):
+        # Without an empty POINTS2D line the two readers agree.
+        _assert_same(got, jcol.read_images_text(path))
+        assert got[2].point3d_ids.tolist() == [-1, 9]
 
 
 @pytest.mark.parametrize("model,params", [
@@ -281,6 +343,86 @@ def test_parse_scene_matches_jax(clip, kw):
                            split_all=True, device="cpu")
     _assert_scenes_equal(all_, jdp.parse_scene(
         jdp.DataParserConfig(data=clip, **kw), split_all=True))
+
+
+def test_raw_clip_through_the_port_preprocess_parses_and_trains(
+        raw_origin, tmp_path, monkeypatch):
+    """The whole chain on the tiny raw clip: the port's tools as
+    scripts/data_process.sh chains them (the origin model as sparse/0,
+    there being no colmap), then parse_scene reads it: one track, and as
+    seed points every LiDAR point outside the moving box (each sweep is
+    under the 10,000 subsample), counted with the JAX package's
+    points_in_box; then scripts.train.main --device cpu trains 2 steps."""
+    import shutil
+
+    from street_gaussians_ns_tpu.preprocess.pcd2colmap_points3d import (
+        points_in_box)
+    from street_gaussians_ns_tpu_torch.preprocess import (
+        colmap_pts_combine, extract_object_pts, masks_generate,
+        pcd2colmap_points3d, segs_generate)
+    from street_gaussians_ns_tpu_torch.scripts import train as ttrain
+
+    data = tmp_path / "clip"
+    shutil.copytree(raw_origin[0], data)
+    sparse = data / "colmap" / "sparse" / "0"
+    shutil.copytree(data / "colmap" / "origin", sparse)
+    segs_generate.main(["--data", str(data), "--device", "cpu"])
+    masks_generate.main(["--data", str(data), "--dilate", "25",
+                         "--device", "cpu"])
+    pcd2colmap_points3d.main(["--data", str(data), "--output",
+                              str(sparse / "points3D_lidar.txt"),
+                              "--device", "cpu"])
+    colmap_pts_combine.main(["--colmap-dir", str(sparse), "--lidar-points",
+                             "points3D_lidar.txt"])
+    extract_object_pts.main(["--data", str(data), "--device", "cpu"])
+
+    meta = json.loads((data / "transform.json").read_text())
+    anno = json.loads((data / "annotation.json").read_text())["frames"]
+    outside = 0
+    for lf, frame in zip(meta["lidar_frames"], anno):
+        xyz, _ = jpcd.read_pcd(data / lf["file_path"])
+        pose = np.asarray(lf["transform_matrix"])
+        world = xyz @ pose[:3, :3].T + pose[:3, 3]
+        inside = np.zeros(len(world), bool)
+        for o in frame["objects"]:
+            if o["is_moving"]:
+                inside |= points_in_box(world, o["translation"], o["size"],
+                                        o["rotation"])
+        assert (~inside).sum() < 10_000
+        outside += int((~inside).sum())
+
+    scene = tdp.parse_scene(tdp.DataParserConfig(
+        data=data, init_points_filename="points3D_withlidar.txt",
+        filter_camera_id=[1]), device="cpu")
+    assert scene.tracks.num_objects == 1
+    assert scene.annotations.track_ids == ["moving0"]
+    assert len(scene.points_xyz) == outside
+    assert scene.num_frames == 8 and len(scene.train_indices) == 4
+    assert scene.applied_translation_in_colmap is not None
+
+    # The metrics writer's TensorBoard mirror is optional; without it the
+    # test does not pay TensorFlow's import where that is installed.
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    run = tmp_path / "run"
+    trainer = ttrain.main([
+        "--data", str(data), "--device", "cpu", "--filter-camera-id", "1",
+        "--init-points-filename", "points3D_withlidar.txt",
+        "--train-split-fraction", "0.5", "--trainer.output-dir", str(run),
+        "--trainer.max-num-iterations", "2",
+        "--trainer.background-capacity", "2048",
+        "--trainer.object-capacity", "2048",
+        "--trainer.max-pairs", "16384",
+        "--trainer.steps-per-eval-all-images", "1000",
+        "--model.base.sh-degree", "1", "--model.base.env-map-res", "16",
+        "--model.background.sh-degree", "1",
+        "--model.object-template.sh-degree", "1", "--no-dm.undistort",
+        "--no-trainer.presize-pairs"])
+    assert trainer.state.step == 2 and trainer.tracks.num_objects == 1
+    rows = [json.loads(r) for r in
+            (run / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["train/loss"] for r in rows if "train/loss" in r]
+    assert losses and np.isfinite(losses).all()
+    assert (run / "checkpoints" / "step-000000002.ckpt.npz").exists()
 
 
 def test_parse_scene_reuses_cached_transforms(clip, tmp_path):

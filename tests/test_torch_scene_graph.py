@@ -222,7 +222,8 @@ def test_store_helpers_match_jax(scene):
 
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, in a fresh process:
-    neither jax nor the JAX package may be imported."""
+    neither jax nor the JAX package may be imported, nor TensorFlow (the
+    Waymo extractor imports it only when it runs)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import street_gaussians_ns_tpu_torch as p\n"
@@ -233,6 +234,7 @@ def test_port_imports_no_jax():
         "'street_gaussians_ns_tpu') or n.startswith(('jax.', "
         "'street_gaussians_ns_tpu.'))]\n"
         "assert not bad, bad\n"
+        "assert 'tensorflow' not in sys.modules\n"
         "print(' '.join(n for n in sys.modules "
         "if n.startswith(p.__name__)))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -246,4 +248,10 @@ def test_port_imports_no_jax():
                               "scripts.viewer", "ops.packing",
                               "parallel.mesh", "parallel.collectives",
                               "parallel.sharded",
-                              "parallel.trainer")} <= walked
+                              "parallel.trainer",
+                              "preprocess.segs_generate",
+                              "preprocess.masks_generate",
+                              "preprocess.pcd2colmap_points3d",
+                              "preprocess.extract_object_pts",
+                              "preprocess.transform2colmap",
+                              "preprocess.extract_waymo")} <= walked
