@@ -11,7 +11,9 @@ Phases, each printing one JSON line:
                 all started together) into build/torch_kernels/;
   3. reference  a small scene graph rendered on the card agrees with the
                 same render on the CPU (the plain versions of every kernel),
-                and one training step and one refinement pass of it from the
+                and so does its render on tracks with no frame (a clip
+                without tracked objects: no object drawn on either); one
+                training step and one refinement pass of it from the
                 same state, jitter and noise agree too (loss, every gradient,
                 the densification statistics, the refine pass's counts);
   4. main_path  the flagship scene graph at full width (1,048,576 background
@@ -132,7 +134,19 @@ Phases, each printing one JSON line:
                 mesh_path_cli, after
                 viewer_path: the train CLI with --mesh-data 1
                 --mesh-model 1 on cli_path's clip for 20 steps, its
-                checkpoint restored by the single-device eval_setup;
+                checkpoint restored by the single-device eval_setup; (d)
+                mesh_path_viewer, the live viewer of a multi-process run:
+                two gloo ranks sharing the card, each a ShardedTrainer(
+                viewer_port=0) on cli_path's clip as a (1, 2) mesh, 20
+                steps while a client asks for 4 frames at 480x270 and 1
+                at 960x540 and parks one more during the final step
+                (JPEGs of the ladder's sizes, rank 1 bound no port, every
+                frame bit for bit the single-device _viewer_render of the
+                same state, A-D counted in the frames and A-F in the
+                steps, no render_error, no overflow, both ranks exit 0),
+                then 20 steps with the viewer on and 20 off (steps/s
+                each, the hand-off's ms), each request's latency, the
+                gather's and the render's ms, each rank's peak memory;
  19. preprocess_path  the offline preprocess, raw clip to trained scene:
                 write_raw_clip writes a clip in extract_waymo's layout (20
                 frames 0.1 s apart of Waymo's five cameras as JPEG, FRONT,
@@ -154,7 +168,9 @@ Phases, each printing one JSON line:
                 each car's ply holding its returns, a finite loss, A-F
                 launched in training and A-D in eval (the counts set to
                 0 before each), no capacity overflow. Prints each tool's
-                seconds on the card and on the CPU;
+                seconds on the card and on the CPU, and for each JPEG the
+                pixels that Pillow's decode (segs, pcd2colmap) and
+                OpenCV's (the masks tool, as the reference) differ by;
  20. kernels    every kernel of these paths, on the inputs captured from
                 them, against its plain version, with its time, the plain
                 version's time, a PyTorch library call's time where one
@@ -178,7 +194,8 @@ Phases, each printing one JSON line:
                 redesign; every number in the `kernels` line itself is
                 this run's. Each row's `launches` is the main path's;
                 `launches_on_later_paths` adds those of phases 13, 14 (its
-                SE3 mode), 16, 17, 18 (each of its three parts) and 19.
+                SE3 mode), 16, 17, 18 (each of its four parts, the
+                viewer's frames and steps apart) and 19.
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
@@ -628,7 +645,39 @@ def phase_reference(seed: int, precision: str = "f32",
     errs = _heads_close(outs["cuda"], want, atol=2e-5)
     if float(want["accumulation"].max()) <= 0.3:
         raise AssertionError("reference scene renders almost nothing")
-    emit(phase, size=[64, 48], precision=precision, max_err=errs)
+    no_tracks = {}
+    if precision == "f32":
+        no_tracks = reference_no_tracks(store_np, tracks_np, cfg, rcfg)
+    emit(phase, size=[64, 48], precision=precision, max_err=errs,
+         no_tracks_max_err=no_tracks)
+
+
+def reference_no_tracks(store_np: dict, tracks_np: dict, cfg, rcfg,
+                        devices=("cpu", "cuda")):
+    """The reference scene on tracks with no frame (a clip without
+    tracked objects): card against CPU at reference's tolerances, and no
+    object drawn on either."""
+    store_np = {k: (v[:0] if k.startswith("delta_") else v)
+                for k, v in store_np.items()}
+    tracks_np = {k: (v[:0] if k in ("times", "centers", "quats", "valid")
+                     else v) for k, v in tracks_np.items()}
+    outs = []
+    for dev in devices:
+        store = store_from_numpy(store_np, cfg, device=dev)
+        tracks = tracks_from_numpy(tracks_np, device=dev)
+        cam = Camera.make(60.0, 60.0, 32.0, 24.0,
+                          np.eye(3, 4, dtype=np.float32), 64, 48, time=0.6,
+                          device=dev)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", RuntimeWarning)
+            outs.append(forward_scene(store, tracks, cam, 0, cfg, rcfg,
+                                      eval_extras=True)[0])
+    for dev, out in zip(devices, outs):
+        if float(out["object_acc"].max()) != 0.0:
+            raise AssertionError(f"no-tracks scene draws objects on {dev}")
+    if float(outs[0]["accumulation"].max()) <= 0.3:
+        raise AssertionError("no-tracks scene renders almost nothing")
+    return _heads_close(outs[1], outs[0], atol=2e-5)
 
 
 def _all_grads(grads: dict):
@@ -3169,6 +3218,138 @@ def phase_mesh_cli(run_dir: Path, clip_root: Path, steps: int = 20):
     return launches
 
 
+VIEWER_STEPS = 20              # mesh_path_viewer's steps a run
+
+
+def phase_mesh_viewer(clip_root: Path, workdir: Path, card: str,
+                      steps: int = VIEWER_STEPS, dev="cuda",
+                      train_flags: tuple = ()):
+    """mesh_path_viewer: the live viewer of a multi-process run at full
+    width. Two processes share the card through gloo named explicitly
+    (tests/torch_ranks.run_viewer_ranks), each a ShardedTrainer(
+    viewer_port=0) on cli_path's clip with the train CLI's defaults as a
+    (1, 2) mesh, `steps` steps, while a client in this process asks for 4
+    frames at 480x270 and 1 at 960x540 (each answered at a step of its
+    own: rank 0 waits for the next request before each hand-off) and
+    parks one more during the final step. Then `steps` steps with the
+    viewer on and no client, and `steps` with it off, in the same
+    processes. Checks: JPEGs of the ladder's sizes; only rank 0 started
+    a server; every answered frame's uint8 rgb equal, bit for bit, to the
+    single-device Trainer._viewer_render of the same state (gather_state
+    at the same hand-off, which the harness makes every rank join); A-D
+    counted in the frames, A-F in the steps; no render_error, no capacity overflow; both
+    ranks exit 0 after the last-step request. Prints each request's
+    latency on the client's clock, the gather's and the render's ms per
+    frame, steps/s with the viewer on against off, the on run's per-step
+    hand-off ms and each rank's peak memory, beside `card`. Correctness
+    numbers of two ranks on one card, not scaling numbers. dev="cpu" with
+    small `train_flags` rehearses it on the plain versions (no launch
+    counts there)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_ranks import run_viewer_ranks
+
+    from street_gaussians_ns_tpu_torch.data.dataparser import (
+        DataParserConfig, parse_scene)
+    from street_gaussians_ns_tpu_torch.data.datamanager import (
+        DataManagerConfig)
+    from street_gaussians_ns_tpu_torch.utils.cli import dataclass_from_args
+
+    args = train_cli.build_parser().parse_args([
+        "--data", str(clip_root), "--trainer.output-dir",
+        str(workdir / "run"), "--trainer.viewer-port", "0",
+        "--trainer.steps-per-eval-image", str(10 ** 6),
+        "--trainer.steps-per-eval-all-images", str(10 ** 6),
+        *train_flags])
+    configs = (dataclass_from_args(DataParserConfig, args),
+               dataclass_from_args(SceneGraphConfig, args, "model."),
+               dataclass_from_args(trainer_mod.TrainerConfig, args,
+                                   "trainer."),
+               dataclass_from_args(DataManagerConfig, args, "dm."))
+    scene = parse_scene(configs[0], device="cpu")
+    idx = [int(i) for i in scene.train_indices]
+    poses = [(np.asarray(scene.c2w[idx[k % len(idx)]], np.float32),
+              float(scene.times[idx[k % len(idx)]])) for k in range(5)]
+    requests = [(*poses[k], "low") for k in range(4)] + [(*poses[4], "med")]
+    final = (*poses[0], "low")
+    job = dict(backend="gloo", device=dev, viewer=dict(
+        configs=configs, mesh=(1, 2), steps=steps, final_request=True,
+        reference=True, no_save=True, timing=steps))
+    t = time.perf_counter()
+    ranks, got = run_viewer_ranks(job, 2, workdir / "ranks", requests,
+                                  final, timeout=900)
+    wall_s = time.perf_counter() - t
+    r0, r1 = ranks
+    Image = pillow_image()
+    answers = got["answers"] + [(*got["final"], None)]
+    asked = requests + [final]
+    fails = []
+    for (c2w, tm, res), (code, jpeg, _, state) in zip(asked, answers):
+        w, h = RES_LADDER[res]
+        if code != 200:
+            fails.append(f"{res} request answered {code}")
+            continue
+        shape = np.asarray(Image.open(io.BytesIO(jpeg))).shape
+        if shape != (h, w, 3):
+            fails.append(f"a {res} JPEG decodes to {shape}")
+        if state is not None and "render_error" in state:
+            fails.append(f"render_error {state['render_error']}")
+    frames = r0["frames"]
+    if len(frames) != len(asked):
+        fails.append(f"{len(frames)} frames for {len(asked)} requests")
+    equal = [bool(np.array_equal(f["rgb8"], f["reference"]))
+             for f in frames]
+    if not all(equal):
+        fails.append(f"frames equal to the single-device render: {equal}")
+    if frames and frames[-1]["step"] != steps:
+        fails.append(f"the last-step request was answered at step "
+                     f"{frames[-1]['step']}")
+    if r0["servers"] != [0] or r1["servers"] or r1["port"] is not None:
+        fails.append(f"servers {r0['servers']} / {r1['servers']}")
+    missing = [k for k in A_TO_F[:4] if r0["frame_launches"].get(k, 0) <= 0]
+    steps_launches = {k: r0["step_launches"].get(k, 0)
+                      + r1["step_launches"].get(k, 0) for k in A_TO_F}
+    missing += [k for k in A_TO_F if steps_launches[k] <= 0]
+    if missing and dev == "cuda":
+        fails.append(f"never launched: {missing}")
+    overflow = r0["overflow"] + r1["overflow"]
+    if overflow:
+        fails.append(f"capacity overflow: {overflow[:2]}")
+    if r0["late_request"] is not None:
+        fails.append("a request after the last hand-off was answered")
+
+    def rate(rank, phase):
+        step_s = [s for p, s in rank["step_s"] if p == phase]
+        hand_s = [s for p, _, s in rank["handoffs"] if p == phase]
+        return len(step_s) / (sum(step_s) + sum(hand_s))
+
+    idle = {f"rank{r['rank']}": [1e3 * s for p, served, s in r["handoffs"]
+                                 if p == "on" and not served]
+            for r in ranks}
+    emit("mesh_path_viewer", card=card, mesh=[1, 2], backend="gloo",
+         world=2, card_shared_by_ranks=True, clip=str(clip_root.name),
+         size=[int(scene.width[0]), int(scene.height[0])], steps=steps,
+         requests=[f"{res} {RES_LADDER[res][0]}x{RES_LADDER[res][1]}"
+                   for _, _, res in asked],
+         client_ms=[1e3 * a[2] for a in answers],
+         answered_at_steps=[f["step"] for f in frames],
+         gather_ms=r0["gather_ms"], render_ms=r0["render_ms"],
+         gather_bytes=r0["gather_bytes"],
+         frames_equal_single_device=equal,
+         steps_per_s={"viewer_on": [rate(r, "on") for r in ranks],
+                      "viewer_off": [rate(r, "off") for r in ranks],
+                      "client_run": [rate(r, "client") for r in ranks]},
+         handoff_ms_on_run=idle,
+         peak_memory=[r.get("peak_memory") for r in ranks],
+         late_request_s=r0["late_request_s"], wall_seconds=wall_s,
+         frame_launches=r0["frame_launches"], step_launches=steps_launches,
+         failures=fails,
+         note="two ranks share one card through gloo: correctness, not "
+              "scaling")
+    if fails:
+        raise AssertionError("mesh_path_viewer: " + "; ".join(fails))
+    return r0["frame_launches"], steps_launches
+
+
 # ---------------------------------------------------------------------------
 # The offline preprocess, raw clip to trained scene.
 # ---------------------------------------------------------------------------
@@ -3434,6 +3615,24 @@ def _read_lidar_rows(path: Path):
     return rows[:, 0].astype(np.int64), rows[:, 1:4], rows[:, 4:7]
 
 
+def decode_differences(root: Path) -> dict:
+    """Per JPEG under root/images (camera/file), the pixels whose Pillow
+    decode (what segs and pcd2colmap read) differs from OpenCV's (what
+    the masks tool reads, as the reference does)."""
+    from street_gaussians_ns_tpu_torch.preprocess import masks_generate
+    from street_gaussians_ns_tpu_torch.preprocess.pcd2colmap_points3d import (
+        load_rgb)
+
+    out = {}
+    for path in sorted((root / "images").rglob("*.jpg")):
+        a = load_rgb(path, "cpu")
+        b = masks_generate.decode_rgb(path, "cpu")
+        out[path.relative_to(root / "images").as_posix()] = (
+            int((a != b).any(-1).sum()) if a.shape == b.shape
+            else f"shapes {tuple(a.shape)} / {tuple(b.shape)}")
+    return out
+
+
 def compare_preprocess(card: Path, cpu: Path) -> dict:
     """Mismatch counts between the device tools' outputs of two clips:
     segs and masks byte for byte; points3D_lidar.txt by ids and colours
@@ -3504,6 +3703,7 @@ def phase_preprocess(seed: int, workdir: Path, clip: RawClip = RAW_CLIP,
     peak_tools = torch.cuda.max_memory_allocated() if cuda else None
     on_cpu, _ = data_process(copy, "cpu")
     mismatches = compare_preprocess(root, copy)
+    decodes = decode_differences(root)
 
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -3573,7 +3773,9 @@ def phase_preprocess(seed: int, workdir: Path, clip: RawClip = RAW_CLIP,
          parked=clip.parked, returns_per_box=list(clip.returns),
          clip_s=made["seconds"], clip_image_s=made["image_s"],
          tools_card=on_card, tools_cpu=on_cpu,
-         run_colmap=colmap, mismatches=mismatches, seed_points=seeds,
+         run_colmap=colmap, mismatches=mismatches,
+         jpeg_decode_pixels_differing=decodes,
+         image_libraries=_image_libraries(), seed_points=seeds,
          colmap_offset_m=float(np.linalg.norm(
              trainer.scene.applied_translation_in_colmap)),
          tracks=tracks, object_points=plys,
@@ -4322,6 +4524,9 @@ def main():
         new_paths["viewer_path"] = phase_viewer(run)
         new_paths["mesh_path[cli]"] = phase_mesh_cli(Path(tmp) / "mesh_run",
                                                      Path(tmp) / "clip")
+        (new_paths["mesh_path_viewer[frames]"],
+         new_paths["mesh_path_viewer[steps]"]) = phase_mesh_viewer(
+            Path(tmp) / "clip", Path(tmp) / "mesh_viewer", smi)
     with tempfile.TemporaryDirectory(prefix="sgnt_raw_") as tmp:
         (new_paths["preprocess_path[train]"],
          new_paths["preprocess_path[eval]"]) = phase_preprocess(

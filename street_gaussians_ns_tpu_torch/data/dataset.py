@@ -12,6 +12,7 @@ threadpool undistortion (sgn_datamanager.py:174-185, 326-497).
 from __future__ import annotations
 
 import dataclasses
+import os
 import zipfile
 from pathlib import Path
 from typing import Optional
@@ -200,7 +201,10 @@ def _save_cache(path: Path, frame: "FrameData") -> None:
         data["mask"] = frame.mask
     if frame.semantic is not None:
         data["semantic"] = frame.semantic
-    tmp = path.with_suffix(".tmp.npz")
+    # The ranks of a multi-process run on one machine may cache the same
+    # frame at once: each writes a file of its own, and the rename that
+    # publishes it is atomic.
+    tmp = path.with_suffix(f".{os.getpid()}.tmp.npz")
     np.savez(tmp, **data)
     tmp.replace(path)
 

@@ -22,7 +22,8 @@ to the step).
 With `camera_opt_mode != "off"` each train camera has a (6,) pose delta
 (models.camera_opt), trained with gradient accumulation over 100 steps.
 With `viewer_port` set, the live viewer (utils.viewer) serves its render
-requests on the training thread between steps. `render_precision="bf16"`
+requests on the training thread between steps (`_service_viewer`, which
+a multi-process trainer replaces). `render_precision="bf16"`
 renders and trains with the bf16-rounded feature columns of the JAX
 package's TPU mode (ops.tiles._depth_sort_cols).
 """
@@ -219,8 +220,8 @@ def _stack_stores(stores) -> GaussianStore:
 
 class Trainer:
     # A trainer that is one rank of several (parallel.trainer) sets these
-    # before __init__: only the primary writes the run directory; the
-    # others log into <output_dir>/<log_dir_name>/.
+    # before __init__: only the primary writes the run directory and
+    # serves the viewer; the others log into <output_dir>/<log_dir_name>/.
     primary = True
     log_dir_name = ""
 
@@ -305,7 +306,7 @@ class Trainer:
         self._last_hw = None
 
         self.viewer = None
-        if trainer_config.viewer_port is not None:
+        if trainer_config.viewer_port is not None and self.primary:
             self.viewer = attach_viewer(self, trainer_config.viewer_port)
             self.writer.log(f"viewer: http://localhost:{self.viewer.port}/")
 
@@ -454,10 +455,9 @@ class Trainer:
                         f"psnr={m.get('psnr', 0):.2f} "
                         f"N={int(m.get('gaussian_count', 0))} "
                         f"({m['steps_per_sec']:.2f} it/s)")
-            if self.viewer is not None:
-                # Viewer renders run on this thread, between steps: they
-                # serialize with training on one stream, never race it.
-                self.viewer.service(self._viewer_render)
+            # Viewer renders run on this thread, between steps: they
+            # serialize with training on one stream, never race it.
+            self._service_viewer()
             if (step + 1) % self.tc.steps_per_eval_image == 0:
                 self.eval_image(step)
             if ((step + 1) % self.tc.steps_per_eval_all_images == 0
@@ -497,19 +497,33 @@ class Trainer:
                            np.asarray(c2w, np.float32), width, height,
                            time=t, device=self.device)
 
+    def _service_viewer(self) -> bool:
+        """The loop's hand-off after every step: answer the viewer's
+        parked request, if any (a multi-process trainer overrides it).
+        Returns whether a request was answered."""
+        if self.viewer is None:
+            return False
+        return self.viewer.service(self._viewer_render)
+
+    def viewer_rgb(self, store, step, c2w, t: float, width: int,
+                   height: int) -> torch.Tensor:
+        """The float rgb of a viewer frame of `store`: forward_scene(
+        training=False) of viewer_camera at the trainer's render config,
+        clamped to [0, 1], (H, W, 3) on the device."""
+        with torch.no_grad():
+            outputs, _, _ = forward_scene(
+                store, self.tracks,
+                self.viewer_camera(c2w, t, width, height), step,
+                self.config, self.render_config, training=False)
+            return torch.clamp(outputs["rgb"], 0.0, 1.0)
+
     def _viewer_render(self, c2w: np.ndarray, t: float, width: int,
                        height: int) -> np.ndarray:
-        """A viewer frame: forward_scene(training=False) of viewer_camera
-        at the trainer's render config, clamped to [0, 1] and returned as
-        uint8 (H, W, 3) on the host."""
-        with torch.no_grad():
-            state = self.full_state()
-            outputs, _, _ = forward_scene(
-                state.store, self.tracks,
-                self.viewer_camera(c2w, t, width, height), state.step,
-                self.config, self.render_config, training=False)
-            rgb = torch.clamp(outputs["rgb"], 0.0, 1.0)
-            return (rgb * 255).to(torch.uint8).cpu().numpy()
+        """A viewer frame of the whole state: viewer_rgb as uint8 (H, W, 3)
+        on the host."""
+        state = self.full_state()
+        return viewer_uint8(self.viewer_rgb(state.store, state.step, c2w, t,
+                                            width, height))
 
     def _eval_one(self, camera, batch, state=None):
         state = self.full_state() if state is None else state
@@ -548,6 +562,12 @@ class Trainer:
             f"full eval @ {step} ({len(rows)} images): "
             f"psnr={m['all_psnr']:.2f} ssim={m['all_ssim']:.4f}")
         return m
+
+
+def viewer_uint8(rgb: torch.Tensor) -> np.ndarray:
+    """A clamped float frame as the viewer's uint8 (H, W, 3) on the host
+    (truncated, as the JAX viewer's astype)."""
+    return (rgb * 255).to(torch.uint8).cpu().numpy()
 
 
 def _scalars(metrics: dict) -> dict:

@@ -104,7 +104,8 @@ def interpolate_boxes(tracks: ObjectTracks, t: torch.Tensor,
                       differentiable: bool = False) -> BoxesAtT:
     """Boxes at camera time t: the exact frame when t matches one, else
     SLERP/lerp between the bracketing frames, visible where both are
-    valid; none visible outside the tracked time range.
+    valid; none visible outside the tracked time range, or when the
+    tracks have no frame at all.
 
     The bbox optimizer's deltas apply at exact annotated frames only.
     "simple" adds delta_center and post-multiplies a yaw quaternion;
@@ -117,6 +118,17 @@ def interpolate_boxes(tracks: ObjectTracks, t: torch.Tensor,
         raise ValueError(f"unknown bbox_mode {mode!r}")
     F = tracks.num_frames
     times = tracks.times
+    if F == 0:
+        # No annotated frame (a clip without tracked objects): no box is
+        # visible, so compose renders the background and the sky alone.
+        # The JAX package indexes the empty arrays here and raises.
+        O = tracks.num_objects
+        f32 = dict(dtype=torch.float32, device=times.device)
+        return BoxesAtT(
+            centers=torch.zeros((O, 3), **f32),
+            quats=torch.tensor([1.0, 0.0, 0.0, 0.0], **f32).repeat(O, 1),
+            visible=torch.zeros((O,), dtype=torch.bool, device=times.device),
+            t_norm=torch.ones((O,), **f32))
     t = torch.as_tensor(t, dtype=torch.float32, device=times.device)
     i1 = torch.clamp(torch.searchsorted(times, t.reshape(1)), 0, F - 1)[0]
     i0 = torch.clamp(i1 - 1, 0, F - 1)

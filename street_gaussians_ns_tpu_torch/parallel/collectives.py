@@ -26,7 +26,9 @@ the reduce-scatter as an all-reduce followed by taking the local slice
 (`allreduce_form`). Nothing switches backend.
 
 A group of None (a world of one process) or of one rank makes no call:
-every operation is then the identity.
+every operation is then the identity. `broadcast` (the viewer's per-step
+hand-off, parallel/trainer.py) goes over the default group; a world of one
+process makes no call there either.
 """
 from __future__ import annotations
 
@@ -106,6 +108,15 @@ def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     out = x.clone().contiguous()
     dist.all_reduce(out, op=op, group=group)
     return out
+
+
+def broadcast(x: torch.Tensor, src: int = 0) -> torch.Tensor:
+    """x of rank src on every rank of the world, in place (no gradient).
+    Gloo takes CPU tensors here: the caller keeps x on the CPU for it."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return x
+    dist.broadcast(x, src=src)
+    return x
 
 
 class _AllGatherTiled(torch.autograd.Function):

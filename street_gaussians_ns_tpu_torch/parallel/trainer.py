@@ -21,22 +21,36 @@ the single-device port and a sharded run of any mesh can each restore
 them; a restore gives every rank its shard. Evaluation renders the
 gathered state on every rank. Ranks other than 0 log into
 `<output_dir>/rank<r>/`.
+
+The live viewer (`viewer_port`) is served by rank 0 alone: only rank 0
+binds the port and logs its URL. After every step each rank runs the same
+hand-off (`_service_viewer`): rank 0 takes the parked request, or none,
+and broadcasts it as 16 float64 numbers over the default group; on a
+request the ranks of row 0 gather the store a frame reads (`gather_store`:
+the background's parameters and active mask, not its statistics or Adam
+moments) and rank 0 renders it as the single-device `Trainer` does and
+answers. Each step with the viewer on therefore pays one small broadcast;
+with it off the hand-off makes no call. A request parked during the last
+step is answered in that step's hand-off; one parked after it is never
+taken, and its client gets the viewer's 503 when its 60 s wait runs out.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..data.datamanager import DataManagerConfig
 from ..data.dataparser import DataParserConfig
 from ..engine.scene_train_step import SceneTrainState, scene_refine_step
-from ..engine.trainer import Trainer, TrainerConfig
+from ..engine.trainer import Trainer, TrainerConfig, viewer_uint8
 from ..models.gaussians import GaussianStore
-from ..models.scene_graph import SceneGraphConfig
-from .collectives import gather_tiled
+from ..models.scene_graph import SceneGraphConfig, SceneGraphStore
+from .collectives import broadcast, gather_tiled
 from .mesh import Mesh, make_mesh, multihost_init
 from .sharded import make_sharded_train_step, stack_batches, stack_cameras
 
@@ -83,6 +97,36 @@ def gather_state(state: SceneTrainState, mesh: Mesh) -> SceneTrainState:
     return _map_background(state, lambda x: gather_tiled(x, mesh.model_group))
 
 
+def gather_store(store: SceneGraphStore, mesh: Mesh) -> SceneGraphStore:
+    """The store a render reads, from the shards of a model group (every
+    rank of the group must call it): the background's parameters and
+    active mask gathered. Its statistics are None: no render reads them,
+    and neither they nor the Adam moments cross the wire."""
+    bg = store.background
+    gathered = GaussianStore(
+        params=dataclasses.replace(bg.params, **{
+            k: gather_tiled(v, mesh.model_group)
+            for k, v in bg.params.as_dict().items()}),
+        active=gather_tiled(bg.active, mesh.model_group),
+        xys_grad_norm=None, vis_counts=None, max_2dsize=None)
+    return dataclasses.replace(store, background=gathered)
+
+
+VIEWER_MESSAGE = 16     # [has_request, c2w (12), t, width, height]
+
+
+def viewer_message(req: Optional[dict]) -> torch.Tensor:
+    """A taken viewer request (utils.viewer.ViewerServer.take) or None as
+    the (16,) float64 tensor rank 0 broadcasts: float64 carries the
+    float32 pose, the time and the ladder size exactly."""
+    msg = np.zeros(VIEWER_MESSAGE, np.float64)
+    if req is not None:
+        msg[0] = 1.0
+        msg[1:13] = np.asarray(req["c2w"], np.float64).reshape(-1)
+        msg[13:16] = (req["time"], req["width"], req["height"])
+    return torch.from_numpy(msg)
+
+
 def make_sharded_refine_step(mesh: Mesh, config, num_train_data: int):
     """refine(state, max_hw) -> (state, info) over the shards: gather,
     scene_refine_step on the full state (the same on every rank), keep the
@@ -106,8 +150,8 @@ def mesh_device(device, rank: int):
 
 class ShardedTrainer(Trainer):
     """Trainer whose inner step is the sharded step of this rank. Only the
-    step, the refine, evaluation's state and the checkpoint writer are
-    replaced."""
+    step, the refine, evaluation's state, the checkpoint writer and the
+    viewer's hand-off are replaced."""
 
     def __init__(self, data_config: DataParserConfig,
                  scene_config: SceneGraphConfig = SceneGraphConfig(),
@@ -119,13 +163,6 @@ class ShardedTrainer(Trainer):
                  num_processes: Optional[int] = None,
                  process_id: Optional[int] = None,
                  backend: Optional[str] = None):
-        if trainer_config.viewer_port is not None and (num_processes or 1) > 1:
-            # Every rank would serve its own viewer, and a frame's gather
-            # (full_state) is a collective the other ranks never join.
-            raise NotImplementedError(
-                "viewer_port with more than one process is not ported "
-                "(ROADMAP.md queue 1 item 9: the live viewer of a sharded "
-                "run)")
         if backend is None:
             backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
         multihost_init(coordinator, num_processes, process_id, backend)
@@ -170,6 +207,33 @@ class ShardedTrainer(Trainer):
 
     def _refine(self, max_hw: int):
         return self._refine_fn(self.state, max_hw)
+
+    def _service_viewer(self) -> bool:
+        """The viewer hand-off after every step, on every rank (module
+        docstring). Rank 0 renders after the gather, so a render that
+        raises there (answered 503, named in /state) leaves no rank inside
+        a collective. Returns whether a request was answered."""
+        if self.tc.viewer_port is None:
+            return False
+        req = self.viewer.take() if self.viewer is not None else None
+        msg = viewer_message(req)
+        if dist.get_backend() != "gloo":
+            msg = msg.to(self.mesh.device)
+        if float(broadcast(msg)[0]) == 0.0:
+            return False
+        store = (gather_store(self.state.store, self.mesh)
+                 if self.mesh.row == 0 else None)
+        if self.viewer is not None:
+            self.viewer.answer(req, functools.partial(self._viewer_frame,
+                                                      store))
+        return True
+
+    def _viewer_frame(self, store, c2w, t: float, width: int,
+                      height: int) -> np.ndarray:
+        """Rank 0's frame of the gathered store: the single-device
+        Trainer's render (viewer_rgb) as uint8."""
+        return viewer_uint8(self.viewer_rgb(store, self.state.step, c2w, t,
+                                            width, height))
 
     def full_state(self) -> SceneTrainState:
         return gather_state(self.state, self.mesh)

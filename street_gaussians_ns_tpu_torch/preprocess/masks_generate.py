@@ -10,8 +10,11 @@ heuristic for road under the car, :222-248). Untouched pixels stay 255.
 
 The corners and their projection stay host numpy in float64, as in the
 JAX package; the rectangles, the dark test and the erosion run on
-`--device`. Images are decoded by Pillow (the JAX package reads them with
-OpenCV, which may be missing).
+`--device`. Images are decoded by OpenCV, as the reference decodes them
+(`cv2.imread`, then BGR to RGB): the dark test thresholds the decoded
+pixels, and Pillow's decode can differ (OpenCV applies a JPEG's EXIF
+orientation, Pillow does not). A missing OpenCV raises the ImportError
+that names it; masks are written by Pillow.
 
 Usage:
     python -m street_gaussians_ns_tpu_torch.preprocess.masks_generate \
@@ -29,8 +32,7 @@ import torch.nn.functional as F
 
 from ..data.annotations import quat_to_rotmat_np
 from ..engine.trainer import resolve_device
-from ..utils.optional import pillow_image
-from .pcd2colmap_points3d import load_rgb
+from ..utils.optional import opencv, pillow_image
 
 
 def get_box_corners(translation, lwh, rotation_wxyz):
@@ -52,6 +54,15 @@ def erode(mask: torch.Tensor, k: int) -> torch.Tensor:
     x = F.pad(mask[None], (lo, hi, lo, hi), value=255)[0]
     x = x.unfold(1, k, 1).amin(-1)
     return x.unfold(0, k, 1).amin(-1)
+
+
+def decode_rgb(path: Path, device) -> torch.Tensor:
+    """(H, W, 3) uint8 on `device`: cv2.imread, then BGR to RGB."""
+    cv2 = opencv()
+    img = cv2.imread(str(path))
+    if img is None:
+        raise OSError(f"OpenCV cannot read {path}")
+    return torch.from_numpy(cv2.cvtColor(img, cv2.COLOR_BGR2RGB)).to(device)
 
 
 def image_boxes(fr: dict, objects: list) -> list:
@@ -133,7 +144,7 @@ def generate_masks(data: Path, dilate: int = 0, device="cuda") -> int:
         boxes = image_boxes(
             fr, anno_by_ts.get(round(float(fr["timestamp"]), 6), []))
         if boxes:
-            mask = frame_mask(load_rgb(image_path, device), boxes,
+            mask = frame_mask(decode_rgb(image_path, device), boxes,
                               dilate).cpu().numpy()
         else:
             mask = np.full((int(fr["h"]), int(fr["w"])), 255, np.uint8)

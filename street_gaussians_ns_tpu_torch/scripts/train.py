@@ -18,7 +18,10 @@ model columns on the CPU:
         --mesh-model 2 --num-processes 2 --process-id 0 \
         --coordinator 127.0.0.1:29500          (and --process-id 1)
 
-The backend follows --device: NCCL on the card, gloo on the CPU.
+The backend follows --device: NCCL on the card, gloo on the CPU. With
+--trainer.viewer-port set on every process, the process with --process-id 0
+serves the live viewer (parallel.trainer.ShardedTrainer) and logs its URL;
+the others bind no port.
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 """The two optional image libraries, imported where a path needs them.
 
-Pillow decodes and writes every image (PNG, JPEG); OpenCV undistorts,
+Pillow decodes and writes every image (PNG, JPEG) but the masks tool's
+inputs; OpenCV decodes those (preprocess/masks_generate.py), undistorts,
 downscales, colour-maps depth and writes mp4. Neither is imported at module
 import time, and a missing one raises an ImportError that names the
 package to install.
@@ -23,7 +24,7 @@ def opencv():
     try:
         import cv2
     except ImportError as e:
-        raise ImportError("undistortion, downscaling, the depth colormap and "
-                          "video output need OpenCV (pip install "
-                          "opencv-python)") from e
+        raise ImportError("undistortion, downscaling, the depth colormap, "
+                          "video output and the masks tool's image decode "
+                          "need OpenCV (pip install opencv-python)") from e
     return cv2

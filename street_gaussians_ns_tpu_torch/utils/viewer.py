@@ -12,7 +12,11 @@ slot and blocks on a done-event; the owning thread (the train loop, or
 `serve_forever` in the standalone checkpoint viewer, scripts/viewer.py)
 calls `service(render_fn)` between steps and renders on its own thread,
 so viewer renders serialize with training on one CUDA stream instead of
-racing it.
+racing it. `service` is `take` (the parked request, its ladder size
+resolved) then `answer` (render, JPEG or 503); a multi-process trainer
+calls the two apart, with the ranks' hand-off between them
+(parallel/trainer.py). A request nobody takes (the run has ended) is
+answered 503 when the client's 60 s wait runs out.
 
 The client keeps the whole camera state (drag = look, wheel = speed,
 WASD/QE = move) and posts a raw OpenGL c2w per frame, so the server is
@@ -209,21 +213,29 @@ class ViewerServer:
                 {k: (float(v) if isinstance(v, (int, float, np.floating))
                      else v) for k, v in kw.items()})
 
-    def service(self, render_fn: RenderFn) -> bool:
-        """Render the pending request, if any. Returns True if it did.
-
-        A render that raises is reported, not re-raised: the client gets
-        a 503, /state carries "render_error", and the traceback goes to
-        stderr, so a bad request never stops the training loop."""
+    def take(self) -> Optional[dict]:
+        """Take the parked request out of its slot: {"c2w": (3, 4)
+        float32, "time", "res", "width", "height"} with the ladder's size
+        resolved (an unknown res is "low"), or None when none waits. The
+        client waits until `answer` (or its own timeout)."""
         if not self._req_evt.is_set():
-            return False
+            return None
         req, self._req = self._req, None
         self._req_evt.clear()
         if req is None:
-            return False
-        w, h = RES_LADDER.get(req["res"], RES_LADDER["low"])
+            return None
+        req["width"], req["height"] = RES_LADDER.get(req["res"],
+                                                     RES_LADDER["low"])
+        return req
+
+    def answer(self, req: dict, render_fn: RenderFn) -> None:
+        """Render a taken request and answer its client: the JPEG, or a 503
+        when render_fn raises (reported, not re-raised: /state carries
+        "render_error" and the traceback goes to stderr, so a bad request
+        never stops the training loop)."""
         try:
-            rgb = render_fn(req["c2w"], req["time"], w, h)
+            rgb = render_fn(req["c2w"], req["time"], req["width"],
+                            req["height"])
             buf = io.BytesIO()
             pillow_image().fromarray(rgb).save(buf, "JPEG", quality=88)
             self._resp = buf.getvalue()
@@ -232,6 +244,14 @@ class ViewerServer:
             self._resp = None
             self.update_stats(render_error=repr(e))
         self._done_evt.set()
+
+    def service(self, render_fn: RenderFn) -> bool:
+        """Render the pending request, if any (take, then answer). Returns
+        True if it did."""
+        req = self.take()
+        if req is None:
+            return False
+        self.answer(req, render_fn)
         return True
 
     def serve_forever(self, render_fn: RenderFn, poll_s: float = 0.02):

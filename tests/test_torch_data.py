@@ -606,3 +606,38 @@ def test_missing_image_library_raises_naming_it(monkeypatch, module, helper,
     else:
         with pytest.raises(ImportError, match=name):
             tds.load_image("any.png")
+
+
+def test_frame_cache_writes_of_two_ranks_do_not_collide(tmp_path,
+                                                        monkeypatch):
+    """Two ranks of a multi-process run (parallel/trainer.py) on one
+    machine build the same clip's frame cache at once. Interleaved as: A
+    writes its temporary file, B writes and publishes its own, A
+    publishes. Each process's temporary file is its own, so both succeed
+    and the cache holds one whole frame (with one name shared by the
+    processes, A's rename found no file)."""
+    frame = tds.FrameData(
+        image=np.full((4, 6, 3), 0.5, np.float32), mask=None, semantic=None,
+        fx=10.0, fy=10.0, cx=3.0, cy=2.0, c2w=np.eye(3, 4), time=0.0,
+        width=6, height=4)
+    path = tmp_path / "images_ud" / "cam" / "0.npz"
+    savez = np.savez
+    pid = [1001]
+    monkeypatch.setattr(tds.os, "getpid", lambda: pid[0])
+    calls = []
+
+    def interleaved(file, **data):
+        savez(file, **data)
+        calls.append(str(file))
+        if len(calls) == 1:             # B runs whole between A's steps
+            pid[0] = 1002
+            tds._save_cache(path, frame)
+            pid[0] = 1001
+
+    monkeypatch.setattr(tds.np, "savez", interleaved)
+    tds._save_cache(path, frame)
+    assert len(calls) == 2 and calls[0] != calls[1]
+    with np.load(path) as z:
+        np.testing.assert_array_equal(z["image"], np.full((4, 6, 3), 127,
+                                                          np.uint8))
+    assert sorted(p.name for p in path.parent.iterdir()) == ["0.npz"]

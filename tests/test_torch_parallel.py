@@ -271,21 +271,3 @@ def test_init_on_another_backend_raises():
     finally:
         dist.destroy_process_group()
 
-
-def test_sharded_trainer_viewer_raises():
-    """The live viewer of a run over several processes is not ported
-    (every rank would serve one, and a frame's gather is a collective the
-    other ranks never join): ShardedTrainer refuses viewer_port before
-    it joins the process group."""
-    import torch.distributed as dist
-
-    from street_gaussians_ns_tpu_torch.data.dataparser import DataParserConfig
-    from street_gaussians_ns_tpu_torch.engine.trainer import TrainerConfig
-    from street_gaussians_ns_tpu_torch.parallel.trainer import ShardedTrainer
-
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        ShardedTrainer(DataParserConfig(data="missing"),
-                       trainer_config=TrainerConfig(viewer_port=0),
-                       mesh_model=2, num_processes=2, process_id=0,
-                       coordinator="127.0.0.1:1", device="cpu")
-    assert not dist.is_initialized()

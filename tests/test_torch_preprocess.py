@@ -204,6 +204,59 @@ def test_jpeg_frame_masks_match(tmp_path):
     assert got == want
 
 
+def _tag_orientation(path, orientation=3):
+    """Re-save a JPEG with an EXIF orientation tag (3: rotated 180
+    degrees). OpenCV's decode applies the tag; Pillow's does not."""
+    Image = chip_smoke.pillow_image()
+    img = Image.open(path)
+    exif = img.getexif()
+    exif[0x0112] = orientation
+    img.save(path, quality=90, exif=exif)
+
+
+def test_jpeg_masks_use_the_opencv_decode(tmp_path):
+    """Several JPEG frames (two cameras over three frames, one tagged with
+    an EXIF orientation): the masks tool's pixels equal cv2.imread's (BGR
+    to RGB) byte for byte on every frame, and its masks equal the JAX
+    package's, which decodes with OpenCV. On the tagged frame Pillow's
+    decode (load_rgb, which the tool used before) differs, and so do the
+    masks made from it: the fault the OpenCV decode repairs."""
+    import cv2
+
+    clip = chip_smoke.RawClip(
+        frames=3, cameras=(("FRONT", 64, 48), ("FRONT_LEFT", 64, 48)),
+        sweep_points=5000, moving=1, parked=1, returns=(2500, 2600),
+        image_ext="jpg")
+    a, b = tmp_path / "jax", tmp_path / "port"
+    chip_smoke.write_raw_clip(a, 7, clip)
+    tagged = a / "images" / "FRONT" / f"{chip_smoke.CLIP_TS0}.jpg"
+    _tag_orientation(tagged)
+    shutil.copytree(a, b)
+    frames = sorted((b / "images").rglob("*.jpg"))
+    assert len(frames) == 6
+    for path in frames:
+        want = cv2.cvtColor(cv2.imread(str(path)), cv2.COLOR_BGR2RGB)
+        got = tmasks.decode_rgb(path, "cpu").numpy()
+        assert got.dtype == np.uint8
+        np.testing.assert_array_equal(got, want, err_msg=str(path))
+    assert jmasks.generate_masks(a, 0) == 6
+    assert tmasks.generate_masks(b, 0, device="cpu") == 6
+    assert _files(b, "masks") == _files(a, "masks")
+
+    meta = json.load(open(b / "transform.json"))
+    fr = next(f for f in meta["frames"]
+              if f.get("file_path") == tagged.relative_to(a).as_posix())
+    objs = json.load(open(b / "annotation.json"))["frames"][0]["objects"]
+    boxes = tmasks.image_boxes(fr, objs)
+    assert boxes
+    path = b / fr["file_path"]
+    pillow = tpcd.load_rgb(path, "cpu")
+    assert not torch.equal(pillow, tmasks.decode_rgb(path, "cpu"))
+    assert not torch.equal(tmasks.frame_mask(pillow, boxes, 0),
+                           tmasks.frame_mask(tmasks.decode_rgb(path, "cpu"),
+                                             boxes, 0))
+
+
 def _lidar_rows(path):
     rows = np.loadtxt(path, ndmin=2)
     return rows[:, 0].astype(np.int64), rows[:, 1:4], rows[:, 4:7]

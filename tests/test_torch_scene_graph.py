@@ -255,3 +255,54 @@ def test_port_imports_no_jax():
                               "preprocess.extract_object_pts",
                               "preprocess.transform2colmap",
                               "preprocess.extract_waymo")} <= walked
+
+
+@pytest.mark.parametrize("objects", [2, 0])
+def test_tracks_without_frames_render_like_jax_objects_invisible(scene,
+                                                                 objects):
+    """Tracks with no annotated frame (a clip without tracked objects, the
+    trainer's empty_tracks()): the JAX interpolate_boxes raises
+    IndexError there, and the port did too. The port now sees no box, and
+    its render (background and sky alone) equals the JAX render of the
+    same store on tracks of one frame with every object invalid. With
+    objects=2 the stores of two vehicles are present and invisible; with
+    0 the scene graph has no object axis, as the trainer builds it."""
+    jcfg, jstore, _ = scene
+    if objects == 0:
+        jstore = dataclasses.replace(
+            jstore, objects=jax.tree.map(lambda x: x[:0], jstore.objects))
+    jtracks = jsg.empty_tracks(objects, 1)
+    jstore = dataclasses.replace(
+        jstore, delta_center=jnp.zeros((1, objects, 3), jnp.float32),
+        delta_yaw=jnp.zeros((1, objects), jnp.float32),
+        delta_rot=jnp.zeros((1, objects, 3), jnp.float32))
+    with pytest.raises(IndexError):
+        jsg.interpolate_boxes(jsg.empty_tracks(objects, 0), jnp.float32(0.5))
+    jcam = JCamera.make(60.0, 60.0, 32.0, 24.0, jnp.eye(3, 4), 64, 48,
+                        time=0.5)
+    jr = JRenderConfig(max_pairs=MAX_PAIRS, max_per_tile=1024, chunk=32,
+                       impl="chunked")
+    jout, _, _ = jax.jit(
+        jsg.forward_scene,
+        static_argnames=("config", "render_config", "training",
+                         "eval_extras"))(
+        jstore, jtracks, jcam, jnp.int32(0), config=jcfg, render_config=jr,
+        training=False, eval_extras=True)
+
+    cfg = port_config(jcfg)
+    store = tckpt.store_from_numpy(store_arrays(jstore), cfg, device="cpu")
+    store = dataclasses.replace(store, delta_center=store.delta_center[:0],
+                                delta_yaw=store.delta_yaw[:0],
+                                delta_rot=store.delta_rot[:0])
+    tracks = tsg.empty_tracks(objects, 0, device="cpu")
+    assert tracks.num_frames == 0
+    boxes = tsg.interpolate_boxes(tracks, torch.tensor(0.5))
+    assert boxes.visible.shape == (objects,) and not boxes.visible.any()
+    tcam = TCamera.make(60.0, 60.0, 32.0, 24.0, np.eye(3, 4), 64, 48,
+                        time=0.5, device="cpu")
+    tout, _, _ = tsg.forward_scene(store, tracks, tcam, 0, cfg,
+                                   RenderConfig(max_pairs=MAX_PAIRS),
+                                   eval_extras=True)
+    assert_heads_close(tout, jout, DEPTH_OF)
+    assert float(tout["object_acc"].max()) == 0.0
+    assert float(tout["accumulation"].max()) > 0.5

@@ -7,7 +7,10 @@ parallel.trainer.ShardedTrainer (the train CLI's mesh flags).
 `run_ranks(job, world, workdir)` pickles `job` into `workdir`, starts
 `world` processes of `python tests/torch_ranks.py <workdir> <rank> <world>
 <host:port>` (a free local port), waits for them, and returns what each
-rank wrote. A rank joins the process group with the job's backend and does the job's runs in turn, each from the
+rank wrote (and, under "stdout", what it printed). A job with a "viewer"
+key instead runs ShardedTrainer with its live viewer on a clip
+(`viewer_rank`, below); `run_viewer_ranks` runs such a job with a client
+on a thread of the calling process. A rank joins the process group with the job's backend and does the job's runs in turn, each from the
 job's state: it builds the run's mesh, places its shard and takes the
 run's steps (each followed by a refine pass when the run has `refine`)
 with the job's cameras, batches and jitters; it writes its metrics of
@@ -35,6 +38,7 @@ import pickle
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -80,7 +84,7 @@ def run_ranks(job: dict, world: int, workdir: Path,
     results = []
     for r in range(world):
         with open(workdir / f"rank{r}.pkl", "rb") as f:
-            results.append(pickle.load(f))
+            results.append({**pickle.load(f), "stdout": outs[r][0]})
     return results
 
 
@@ -144,9 +148,326 @@ def _run_one(job: dict, run: dict, rank: int):
             "seconds": seconds}, full
 
 
+# ---------------------------------------------------------------------------
+# The live viewer of a multi-process run.
+# ---------------------------------------------------------------------------
+
+PACE_S = 300.0          # how long rank 0 waits for the client's next move
+
+
+def _wait_for(cond, what: str, timeout: float = PACE_S) -> None:
+    deadline = time.time() + timeout
+    while not cond():
+        if time.time() > deadline:
+            raise TimeoutError(f"waited {timeout} s for {what}")
+        time.sleep(0.005)
+
+
+def _write_atomic(path: Path, text: str) -> None:
+    tmp = path.with_suffix(".tmp")
+    tmp.write_text(text)
+    os.replace(tmp, path)
+
+
+def _launch_counts() -> dict:
+    from street_gaussians_ns_tpu_torch.ops import _cuda
+
+    return {k.name: k.launches for k in _cuda.KERNELS}
+
+
+def _add_counts(into: dict, before: dict) -> None:
+    for k, v in _launch_counts().items():
+        into[k] = into.get(k, 0) + v - before.get(k, 0)
+
+
+def viewer_rank(job: dict, rank: int, world: int, coordinator: str,
+                workdir: Path) -> dict:
+    """One rank of a viewer job: ShardedTrainer(viewer_port=0) on a clip,
+    with the harness's pacing and records around its hand-off.
+
+    job["viewer"] keys: "configs" (the four configs of the train CLI, the
+    trainer's with viewer_port and output_dir set), "mesh" ((data,
+    model)), "steps" (train(steps) while a client asks; 0: no steps, only
+    "handoffs" hand-offs), "final_request" (rank 0 waits at the start of
+    the last step until a request is parked: one that arrives during the
+    final step), "fail_time" (a request at this time raises in rank 0's
+    render), "reference" (after each answered request every rank gathers
+    the whole train state, gather_state, and rank 0 renders it with the
+    single-device Trainer._viewer_render), "swap" (optional: "state" /
+    "tracks" arrays under the JAX keys, "config", "render_config", "seed":
+    the trainer renders this state instead of its own), "timing"
+    (optional: after the client's run, further runs of that many steps
+    with no client, the viewer on, then off), "no_save" (skip the
+    checkpoints).
+
+    The client (run_viewer_ranks) and rank 0 meet through files in
+    workdir: rank 0 writes "viewer_port"; until the client writes
+    "client_done", rank 0 waits before each hand-off for a parked request,
+    so each request is answered at its own step; rank 0 writes
+    "final_step" at the start of the last step."""
+    from street_gaussians_ns_tpu_torch.engine import checkpoints
+    from street_gaussians_ns_tpu_torch.engine.trainer import Trainer
+    from street_gaussians_ns_tpu_torch.parallel import trainer as ptrainer
+    from street_gaussians_ns_tpu_torch.utils import viewer as uviewer
+
+    spec = job["viewer"]
+    workdir = Path(workdir)
+    data, model, tcfg, dm = spec["configs"]
+    servers = []
+    init = uviewer.ViewerServer.__init__
+
+    def counting_init(self, *a, **kw):
+        servers.append(rank)
+        init(self, *a, **kw)
+
+    uviewer.ViewerServer.__init__ = counting_init
+    gather_ms, gather_bytes = [], []
+    gather_store = ptrainer.gather_store
+
+    def timed_gather(store, mesh):
+        t = time.perf_counter()
+        out = gather_store(store, mesh)
+        bg = out.background
+        _sync(bg.active.device)
+        gather_ms.append(1e3 * (time.perf_counter() - t))
+        gather_bytes.append(sum(
+            v.numel() * v.element_size()
+            for v in [bg.active, *bg.params.as_dict().values()]))
+        return out
+
+    ptrainer.gather_store = timed_gather
+
+    rec = {"frames": [], "handoffs": [], "step_s": [], "render_ms": [],
+           "step_launches": {}, "frame_launches": {}}
+    total = spec["steps"]
+
+    class ViewerRank(ptrainer.ShardedTrainer):
+        def _run_step(self, step):
+            if (self.viewer is not None and spec.get("final_request")
+                    and step == total - 1 and rec.get("phase") == "client"):
+                _write_atomic(workdir / "final_step", str(step))
+                _wait_for(self.viewer._req_evt.is_set,
+                          "a request in the final step")
+            before = _launch_counts()
+            t = time.perf_counter()
+            metrics = super()._run_step(step)
+            _sync(self.device)
+            rec["step_s"].append((rec.get("phase"),
+                                  time.perf_counter() - t))
+            _add_counts(rec["step_launches"], before)
+            return metrics
+
+        def _service_viewer(self):
+            if (self.viewer is not None and rec.get("phase") == "client"
+                    and not (workdir / "client_done").exists()):
+                _wait_for(lambda: self.viewer._req_evt.is_set()
+                          or (workdir / "client_done").exists(),
+                          "the client's next request")
+            t = time.perf_counter()
+            served = super()._service_viewer()
+            _sync(self.device)
+            rec["handoffs"].append((rec.get("phase"), served,
+                                    time.perf_counter() - t))
+            if served and spec.get("reference"):
+                # Every rank joins the whole state's gather; rank 0 renders
+                # it with the single-device Trainer's _viewer_render.
+                full = ptrainer.gather_state(self.state, self.mesh)
+                frame = rec["frames"][-1] if rec["frames"] else None
+                if frame is not None and "reference" not in frame:
+                    self.full_state = lambda: full
+                    try:
+                        frame["reference"] = Trainer._viewer_render(
+                            self, frame["c2w"], frame["time"],
+                            frame["width"], frame["height"])
+                    finally:
+                        del self.full_state
+            return served
+
+        def _viewer_frame(self, store, c2w, t, width, height):
+            if t == spec.get("fail_time"):
+                raise RuntimeError("a render that raises (the harness's)")
+            floats = []
+            viewer_rgb = self.viewer_rgb
+
+            def keep(*a):
+                floats.append(viewer_rgb(*a))
+                return floats[-1]
+
+            self.viewer_rgb = keep
+            before = _launch_counts()
+            t0 = time.perf_counter()
+            try:
+                rgb = super()._viewer_frame(store, c2w, t, width, height)
+            finally:
+                del self.viewer_rgb
+            rec["render_ms"].append(1e3 * (time.perf_counter() - t0))
+            _add_counts(rec["frame_launches"], before)
+            rec["frames"].append({
+                "c2w": np.asarray(c2w), "time": t, "width": width,
+                "height": height, "rgb8": rgb, "rgb": floats[0].cpu().numpy(),
+                "step": int(self.state.step)})
+            return rgb
+
+        def save(self, step):
+            if spec.get("no_save"):
+                return None
+            return super().save(step)
+
+    trainer = ViewerRank(data, model, tcfg, dm, mesh_data=spec["mesh"][0],
+                         mesh_model=spec["mesh"][1], coordinator=coordinator,
+                         num_processes=world, process_id=rank,
+                         backend=job["backend"], device=job["device"])
+    dev = trainer.device
+    if spec.get("swap"):
+        sw = spec["swap"]
+        trainer.config = sw["config"]
+        trainer.render_config = sw["render_config"]
+        trainer.state = ptrainer.place_state(
+            checkpoints.train_state_from_numpy(sw["state"], sw["config"],
+                                               device=dev, seed=sw["seed"]),
+            trainer.mesh)
+        trainer.tracks = checkpoints.tracks_from_numpy(sw["tracks"],
+                                                       device=dev)
+    if trainer.viewer is not None:
+        _write_atomic(workdir / "viewer_port", str(trainer.viewer.port))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = _viewer_runs(trainer, spec, rec, total)
+    rec["overflow"] = [str(w.message) for w in caught
+                       if "capacity overflow" in str(w.message)]
+    out.update(servers=servers, gather_ms=gather_ms,
+               gather_bytes=gather_bytes, launches=_launch_counts())
+    if trainer.device.type == "cuda":
+        out["peak_memory"] = torch.cuda.max_memory_allocated(trainer.device)
+    rec.pop("phase", None)
+    return {**out, **rec}
+
+
+def _viewer_runs(trainer, spec: dict, rec: dict, total: int) -> dict:
+    """The runs of a viewer job on one rank: the client's (train(total),
+    or spec["handoffs"] hand-offs), a request parked too late (rank 0),
+    then spec["timing"] steps with the viewer on and as many with it off,
+    no client."""
+    import dataclasses
+
+    rec["phase"] = "client"
+    t = time.perf_counter()
+    if total:
+        trainer.train(total)
+    else:
+        for _ in range(spec["handoffs"]):
+            trainer._service_viewer()
+    _sync(trainer.device)
+    rec["client_run_s"] = time.perf_counter() - t
+    out = {"port": trainer.viewer.port if trainer.viewer else None,
+           "step": int(trainer.state.step)}
+    if trainer.viewer is not None:
+        # A request parked after the last hand-off is never taken: its
+        # client's wait runs out (1 s here; the HTTP client's is 60 s).
+        t = time.perf_counter()
+        out["late_request"] = trainer.viewer._request_frame(
+            np.eye(3, 4, dtype=np.float32), 0.0, "low", timeout=1.0)
+        out["late_request_s"] = time.perf_counter() - t
+    if spec.get("timing"):
+        n = int(spec["timing"])
+        for phase, port in (("on", trainer.tc.viewer_port), ("off", None)):
+            if port is None and trainer.viewer is not None:
+                trainer.viewer.close()
+                trainer.viewer = None
+            trainer.tc = dataclasses.replace(trainer.tc, viewer_port=port)
+            rec["phase"] = phase
+            trainer.start_step = int(trainer.state.step)
+            trainer.train(trainer.start_step + n)
+    if trainer.viewer is not None:
+        trainer.viewer.close()
+    return out
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _http_frame(port: int, c2w, t: float, res: str, timeout: float = 300):
+    """GET /frame -> (status, body, seconds on this clock)."""
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+
+    q = urllib.parse.urlencode({
+        "c2w": ",".join(repr(float(v)) for v in np.asarray(c2w).reshape(-1)),
+        "time": repr(float(t)), "res": res})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/frame?{q}",
+                                    timeout=timeout) as r:
+            code, body = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        code, body = e.code, e.read()
+    return code, body, time.perf_counter() - t0
+
+
+def _http_json(port: int, path: str):
+    import json
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as r:
+        return json.loads(r.read())
+
+
+def viewer_client(workdir: Path, requests, final=None, got=None) -> dict:
+    """The client of a viewer job: once rank 0 has written its port, each
+    of `requests` ((c2w, time, res)) in turn, then /state; "client_done";
+    then, once rank 0 is in its final step, the `final` request. Fills
+    and returns `got`: "port", "answers" [(status, body, seconds, /state
+    after it)], "final" (status, body, seconds)."""
+    workdir = Path(workdir)
+    got = {} if got is None else got
+    _wait_for((workdir / "viewer_port").exists, "rank 0's port", 600)
+    port = int((workdir / "viewer_port").read_text())
+    got["port"] = port
+    got["answers"] = []
+    for c2w, t, res in requests:
+        code, body, s = _http_frame(port, c2w, t, res)
+        got["answers"].append((code, body, s, _http_json(port, "/state")))
+    _write_atomic(workdir / "client_done", "1")
+    if final is not None:
+        _wait_for((workdir / "final_step").exists, "the final step", 600)
+        got["final"] = _http_frame(port, *final)
+    return got
+
+
+def run_viewer_ranks(job: dict, world: int, workdir: Path, requests,
+                     final=None, timeout: float = 900.0):
+    """run_ranks of a viewer job while viewer_client runs on a thread of
+    this process; returns (ranks' results, the client's record). A rank
+    that hangs past `timeout` is killed and raises here."""
+    import threading
+
+    got = {}
+    err = []
+
+    def client():
+        try:
+            viewer_client(workdir, requests, final, got)
+        except BaseException as e:       # reported after the ranks end
+            err.append(e)
+
+    th = threading.Thread(target=client, daemon=True)
+    th.start()
+    ranks = run_ranks(job, world, workdir, timeout=timeout)
+    th.join(timeout=60)
+    if err:
+        raise err[0]
+    if th.is_alive():
+        raise RuntimeError("the viewer client did not finish")
+    return ranks, got
+
+
 def rank_main(workdir: Path, rank: int, world: int, coordinator: str):
-    """One rank of run_ranks: join, do the job's runs, write
-    rank<r>.pkl."""
+    """One rank of run_ranks: join, do the job's runs (or its viewer run),
+    write rank<r>.pkl."""
     import importlib
 
     import torch.distributed as dist
@@ -168,14 +489,19 @@ def rank_main(workdir: Path, rank: int, world: int, coordinator: str):
         torch.cuda.set_device(dev)
     for k in _cuda.KERNELS:
         k.reset_launches()
-    keys = tuple(job.get("state_keys") or ("",))
-    results = []
-    for run in job["runs"]:
-        res, full = _run_one(job, run, rank)
-        res["state"] = {k: v for k, v in full.items() if k.startswith(keys)}
-        results.append(res)
-    out = {"rank": rank, "runs": results,
-           "launches": {k.name: k.launches for k in _cuda.KERNELS}}
+    if "viewer" in job:
+        out = {"rank": rank, **viewer_rank(job, rank, world, coordinator,
+                                           workdir)}
+    else:
+        keys = tuple(job.get("state_keys") or ("",))
+        results = []
+        for run in job["runs"]:
+            res, full = _run_one(job, run, rank)
+            res["state"] = {k: v for k, v in full.items()
+                            if k.startswith(keys)}
+            results.append(res)
+        out = {"rank": rank, "runs": results,
+               "launches": {k.name: k.launches for k in _cuda.KERNELS}}
     with open(Path(workdir) / f"rank{rank}.pkl", "wb") as f:
         pickle.dump(out, f)
     dist.barrier()
