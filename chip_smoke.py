@@ -171,7 +171,39 @@ Phases, each printing one JSON line:
                 seconds on the card and on the CPU, and for each JPEG the
                 pixels that Pillow's decode (segs, pcd2colmap) and
                 OpenCV's (the masks tool, as the reference) differ by;
- 20. kernels    every kernel of these paths, on the inputs captured from
+ 20. schedule_path  the whole training schedule through sgnt-train:
+                write_clip's clip with 500,000 seeds (10 frames of
+                1600x1056, 4 vehicles of 30,000 LiDAR points), scripts.
+                train.main for 1,000 steps of the default model with
+                500,608 background slots and max_pairs 12,000,000 without
+                the probe (so the first densify meets a full store and
+                the capacity check doubles max_pairs), the
+                schedule compressed on the command line (SCHEDULE: warmup
+                100, a refine every 100 steps, an opacity reset every 5
+                refines, the SH degree up every 200 steps, screen-size
+                rules until 600, splits until 900, on --model.base,
+                --model.background and --model.object-template), then
+                scripts.eval.main. Checks: every event at the step the
+                schedule gives (densify 200, 300, 400, 700, 800; reset 600;
+                final cull 900; SH degrees 1-3 at 200, 400, 600; three
+                renders a step past 900); every parameter group and Adam
+                moment finite at every refine; no pair or row-run overflow
+                left standing by the capacity check after it; the first
+                densifying refine and the reset refine run again on the
+                CPU from the same state and split noise, counts, masks,
+                statistics and moments exact and parameters within 1e-6;
+                kernels A-F of one train step at the final state against
+                their plain versions at phase 21's tolerances; the final
+                loss below the first; A-F launched in training (the counts
+                set to 0 before it). Prints each refine's counts, the
+                gaussians after it, its host and device ms, each capacity
+                growth and overflow with its step, steps/s before
+                densification, while densifying and past stop_split_at,
+                loss and PSNR every 100 steps, the held-out PSNR, the peak
+                memory, and the final step's pair counts and visited /
+                contributing shares beside train_path's random-weight
+                step's;
+ 21. kernels    every kernel of these paths, on the inputs captured from
                 them, against its plain version, with its time, the plain
                 version's time, a PyTorch library call's time where one
                 computes the same function (for C the JAX package's own
@@ -195,7 +227,7 @@ Phases, each printing one JSON line:
                 this run's. Each row's `launches` is the main path's;
                 `launches_on_later_paths` adds those of phases 13, 14 (its
                 SE3 mode), 16, 17, 18 (each of its four parts, the
-                viewer's frames and steps apart) and 19.
+                viewer's frames and steps apart), 19 and 20.
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
@@ -239,7 +271,8 @@ from street_gaussians_ns_tpu_torch.engine import scene_train_step as sts  # noqa
 from street_gaussians_ns_tpu_torch.engine import train_step as ts_mod  # noqa: E402
 from street_gaussians_ns_tpu_torch.engine import trainer as trainer_mod  # noqa: E402
 from street_gaussians_ns_tpu_torch.engine.checkpoints import (  # noqa: E402
-    store_from_numpy, tracks_from_numpy, train_state_from_numpy)
+    state_to_numpy, store_from_numpy, tracks_from_numpy,
+    train_state_from_numpy)
 from street_gaussians_ns_tpu_torch.engine.setup import (  # noqa: E402
     eval_setup, load_run_config)
 from street_gaussians_ns_tpu_torch.models import refinement  # noqa: E402
@@ -3791,6 +3824,523 @@ def phase_preprocess(seed: int, workdir: Path, clip: RawClip = RAW_CLIP,
     return train_launches, eval_launches
 
 
+# ---------------------------------------------------------------------------
+# The training schedule through sgnt-train.
+# ---------------------------------------------------------------------------
+
+# The compressed schedule schedule_path passes on the command line, on the
+# base, background and object-template configs alike (the SH ramp reads
+# base, the refine passes background and object_template).
+SCHEDULE = dict(warmup_length=100, refine_every=100, reset_alpha_every=5,
+                sh_degree_interval=200, stop_screen_size_at=600,
+                stop_split_at=900)
+# 500,000 seeds. On this clip the culls outpace the densification (the
+# scene shrinks) and the trained scene needs fewer pairs than the initial
+# one, so the flags start the store and the pair capacity just above what
+# the first steps need: the first densify meets a full store (608 free
+# background slots) and the capacity check at step 0 doubles max_pairs.
+SCHEDULE_CLIP = Clip(points=500_000, steps=1000, save_every=1000,
+                     train_flags=("--trainer.background-capacity", "500608",
+                                  "--no-trainer.presize-pairs",
+                                  "--trainer.max-pairs", "12000000"))
+KERNEL_WRAPPERS = ((scan, "cumsum_flat"), (expand, "expand_ragged"),
+                   (composite, "pack_feat_cols"),
+                   (composite, "composite_fwd"),
+                   (composite, "composite_bwd"),
+                   (composite, "rank_rowsum"))
+
+
+def schedule_flags(schedule: dict = SCHEDULE) -> tuple:
+    """The schedule as sgnt-train's dotted flags, for the three configs."""
+    flags = []
+    for part in ("base", "background", "object-template"):
+        for k, v in schedule.items():
+            flags += [f"--model.{part}.{k.replace('_', '-')}", str(v)]
+    return tuple(flags)
+
+
+def schedule_events(schedule: dict, steps: int, num_train: int) -> dict:
+    """The steps at which each event of the schedule fires, from the
+    reference's rules: a refine after step s when s % refine_every == 0,
+    at step s, doing anything past warmup_length; it densifies when s <
+    stop_split_at and s % reset_interval > num_train + refine_every,
+    resets the opacities when s < stop_split_at and s % reset_interval ==
+    refine_every, and culls once more at the first refine at or after
+    stop_split_at; the SH degree steps up every sh_degree_interval; a step
+    renders three times past stop_split_at."""
+    every = schedule["refine_every"]
+    interval = schedule["reset_alpha_every"] * every
+    stop = schedule["stop_split_at"]
+    refines = [s for s in range(0, steps, every)
+               if s > schedule["warmup_length"]]
+    return {
+        "densify": [s for s in refines
+                    if s < stop and s % interval > num_train + every],
+        "reset": [s for s in refines if s < stop and s % interval == every],
+        "final_cull": [s for s in refines if stop <= s < stop + every],
+        "sh_degree": {s: s // schedule["sh_degree_interval"]
+                      for s in range(schedule["sh_degree_interval"],
+                                     min(steps, 4 * schedule[
+                                         "sh_degree_interval"]),
+                                     schedule["sh_degree_interval"])},
+        "three_renders": [s for s in range(steps) if s > stop],
+    }
+
+
+def _sh_degree_seen(state) -> int:
+    """The highest SH degree whose features_rest columns have a first
+    moment: the degree the steps so far have trained."""
+    mu = state.opt["features_rest"].mu["bg"]
+    seen = 0
+    for d in range(1, 4):
+        cols = mu[:, d * d - 1:(d + 1) * (d + 1) - 1]
+        if cols.shape[1] and bool(cols.any()):
+            seen = d
+    return seen
+
+
+def _state_finite(state) -> list:
+    """The names of the state's parameter groups and Adam moments that
+    hold a value that is not finite."""
+    bad = []
+    for name, st in state.opt.items():
+        for kind in ("mu", "nu"):
+            leaf = getattr(st, kind)
+            for k, t_ in (leaf.items() if isinstance(leaf, dict)
+                          else [("", leaf)]):
+                if not bool(torch.isfinite(t_).all()):
+                    bad.append(f"opt/{name}/{kind}/{k}")
+    for name in sts.GAUSSIAN_GROUPS:
+        for k, t_ in sts._gaussian_group_params(state.store, name).items():
+            if not bool(torch.isfinite(t_).all()):
+                bad.append(f"{name}/{k}")
+    for name in ("env_map",) + sts.BBOX_PARAMS:
+        if not bool(torch.isfinite(getattr(state.store, name)).all()):
+            bad.append(name)
+    return bad
+
+
+def refine_on_cpu_differs(before, after, info, noise, config, num_train,
+                          max_hw) -> list:
+    """The refine pass the card ran from `before` with `noise`, run again
+    by the plain PyTorch of the CPU: counts, masks, statistics and moments
+    must be exact, parameters within rtol 1e-6 / atol 1e-6. Returns what
+    differs."""
+    host = train_state_from_numpy(state_to_numpy(before), config,
+                                  device="cpu")
+    want, want_info = sts.scene_refine_step(
+        host, config, num_train, max_hw,
+        noise={k: (v.cpu() if v is not None else None)
+               for k, v in noise.items()})
+    bad = [f"info {k}: card {int(info[k])} cpu {int(v)}"
+           for k, v in want_info.items() if int(info[k]) != int(v)]
+    got, ref = state_to_numpy(after), state_to_numpy(want)
+    for k, v in ref.items():
+        g = got[k]
+        if "/params/" in k or k == "store/env_map":
+            if not np.allclose(g, v, rtol=1e-6, atol=1e-6):
+                bad.append(f"{k}: max abs {float(np.abs(g - v).max())}")
+        elif not np.array_equal(g, v):
+            bad.append(f"{k} differs")
+    return bad
+
+
+def hold_to_plain(calls) -> dict:
+    """Each of kernels A-F on the captured calls of one step against its
+    plain version on the card, at phase_kernels' tolerances (A, B, C
+    exact; D accum and T atol 2e-5 with n_contrib equal on every pixel;
+    E rtol 1e-4 + atol 1e-5 of the largest |g| on the tiles the plain
+    version replays, its rank row exact; F rtol 1e-4 + atol 1e-5 of the
+    largest |sum|). Returns each kernel's largest error and the step's
+    pair counts; raises on a disagreement."""
+    err = {}
+    for (x,), _ in calls["cumsum_flat"]:
+        e = max(_max_err(scan.cumsum_flat(x), scan.cumsum_flat_plain(x)),
+                _max_err(scan.cummax_flat(x), scan.cummax_flat_plain(x)))
+        err["flat_scan"] = max(err.get("flat_scan", 0.0), e)
+    for (src, starts, ends, out_len), _ in calls["expand_ragged"]:
+        e = _max_err(expand.expand_ragged(src, starts, ends, out_len),
+                     expand.expand_ragged_plain(src, starts, ends, out_len))
+        err["expand_ragged"] = max(err.get("expand_ragged", 0.0), e)
+    (feats, max_pairs), _ = calls["pack_feat_cols"][0]
+    err["pack_feat_cols"] = _max_err(
+        composite.pack_feat_cols(feats, max_pairs),
+        composite.pack_feat_cols_plain(feats, max_pairs))
+    for name in ("flat_scan", "expand_ragged", "pack_feat_cols"):
+        if err[name] != 0.0:
+            raise AssertionError(f"{name} differs from its plain version "
+                                 f"by {err[name]} (must be exact)")
+    (feat, ts, tc, ntx, nc), kw = calls["composite_fwd"][0]
+    kw = dict(t_in=kw.get("t_in"), mark_done=kw.get("mark_done", False))
+    evals = torch.zeros((2 + ts.numel(),), dtype=torch.int64,
+                        device=feat.device)
+    got = composite.composite_fwd(feat, ts, tc, ntx, nc, evals=evals, **kw)
+    want = composite.composite_fwd_plain(feat, ts, tc, ntx, nc, **kw)
+    err["composite_fwd"] = max(_max_err(got[0], want[0]),
+                               _max_err(got[1], want[1]))
+    n_bad = int((got[2] != want[2]).sum())
+    if err["composite_fwd"] > 2e-5 or n_bad:
+        raise AssertionError(f"composite_fwd: max abs error "
+                             f"{err['composite_fwd']} (atol 2e-5), "
+                             f"n_contrib differs on {n_bad} pixels")
+    fwd_evals, fwd_need = (int(v) for v in evals[:2].tolist())
+    bwd_args, kw = calls["composite_bwd"][0]
+    feat, ts, tc, ntx, nc, g_accum, g_t, tfin, ncon, accum = bwd_args
+    nvis = composite.visited_counts(ncon, tc)
+    shallow = nvis <= E_PLAIN_DEPTH
+    tc_cmp = torch.where(shallow, tc, torch.zeros_like(tc))
+    cmp_args = (feat, ts, tc_cmp, ntx, nc, g_accum, g_t, tfin, ncon, accum)
+    got = composite.composite_bwd(*cmp_args, t_in=kw.get("t_in"))
+    want = composite.composite_bwd_plain(
+        *cmp_args[:-1], torch.sum(g_accum * accum, dim=-1), kw.get("t_in"))
+    top = float(want[:, :10].abs().max())
+    err["composite_bwd"] = _max_err(got[:, :10], want[:, :10])
+    rel = float(((got[:, :10] - want[:, :10]).abs()
+                 / (1e-4 * want[:, :10].abs() + 1e-5 * top)).max())
+    if (not top > 0 or rel > 1.0
+            or not torch.equal(got[:, 10:], want[:, 10:])):
+        raise AssertionError(f"composite_bwd: max abs error "
+                             f"{err['composite_bwd']} at largest |g| {top}")
+    (rows11, rank_s, n_out), _ = calls["rank_rowsum"][0]
+    got = segreduce.rank_rowsum(rows11, rank_s, n_out)
+    want = segreduce.rank_rowsum_plain(rows11, rank_s, n_out)
+    ftop = float(want.abs().max())
+    err["rank_rowsum"] = _max_err(got, want)
+    if not ftop > 0 or float(((got - want).abs() / (
+            1e-4 * want.abs() + 1e-5 * ftop)).max()) > 1.0:
+        raise AssertionError(f"rank_rowsum: max abs error "
+                             f"{err['rank_rowsum']} at largest |sum| {ftop}")
+    return {"max_abs_err": err, "tiles": ts.numel(),
+            "max_tile_count": int(tc.max()), "fwd_pairs_needed": fwd_need,
+            "fwd_pixel_pair_evals": fwd_evals,
+            "plain_compared_tiles": int(shallow.sum()),
+            **step_shares(calls["composite_bwd"][0])}
+
+
+def step_shares(bwd_call) -> dict:
+    """Pairs in the stream, visited and contributing shares of one
+    captured backward (kernel E's counters)."""
+    bwd_args, kw = bwd_call
+    tc = bwd_args[2]
+    evals = torch.zeros((3,), dtype=torch.int64, device=tc.device)
+    composite.composite_bwd(*bwd_args, evals=evals, t_in=kw.get("t_in"))
+    n_eval, n_vis, n_contrib = (int(v) for v in evals.tolist())
+    pairs = int(tc.sum())
+    return {"pairs_in_stream": pairs, "bwd_pairs_visited": n_vis,
+            "bwd_pixel_pair_evals": n_eval,
+            "bwd_contributing_evals": n_contrib,
+            "visited_share": n_vis / max(pairs, 1),
+            "contributing_share": n_contrib / max(n_eval, 1)}
+
+
+class ScheduleObserver:
+    """Watches a Trainer's loop from outside while active: each iteration's
+    time and step, its renders (the step function's subset_accs), the SH
+    degree trained at the steps in `sh_steps`, every refine pass (its
+    counts, host and device ms, the gaussians after it, whether it zeroed
+    the opacities' moments, every group finite), every capacity growth,
+    every warning with its step, and loss and PSNR every 100 steps. At
+    the refines in `cpu_checks` the pass is run again on the CPU from the
+    same state and noise (refine_on_cpu_differs)."""
+
+    def __init__(self, caught: list, sh_steps, cpu_checks):
+        T = trainer_mod.Trainer
+        self.caught, self.sh_steps = caught, set(sh_steps)
+        self.cpu_checks = dict(cpu_checks)
+        self.step = None
+        self.rows, self.refines, self.growth, self.warned = [], [], [], []
+        self.checks = []           # (step, max_pairs, max_rowruns) after
+        #                            each capacity check
+        self.samples, self.sh_seen, self.cpu_refine = [], {}, {}
+        self.subset = None
+        self.noise = None
+        self.patches = [(T, "_iteration", self._iteration),
+                        (T, "_step_fn", self._step_fn),
+                        (T, "_refine", self._refine),
+                        (T, "_maybe_grow_pairs", self._grow),
+                        (sts, "draw_refine_noise", self._draw_noise)]
+        self.orig = {name: getattr(owner, name)
+                     for owner, name, _ in self.patches}
+
+    def __enter__(self):
+        for owner, name, fn in self.patches:
+            # A function, so that a Trainer's attribute binds it.
+            setattr(owner, name, (lambda f: lambda *a, **kw: f(*a, **kw))(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, _ in self.patches:
+            setattr(owner, name, self.orig[name])
+
+    def _draw_noise(self, state, config):
+        self.noise = self.orig["draw_refine_noise"](state, config)
+        return self.noise
+
+    def _step_fn(self, trainer, step):
+        fn = self.orig["_step_fn"](trainer, step)
+        self.subset = fn.keywords["subset_accs"]
+        return fn
+
+    def _iteration(self, trainer, step):
+        self.step = step
+        n_warned = len(self.caught)
+        t = time.perf_counter()
+        metrics = self.orig["_iteration"](trainer, step)
+        if step % 100 == 0:
+            self.samples.append({"step": step,
+                                 "loss": float(metrics["loss"]),
+                                 "psnr": float(metrics["psnr"]),
+                                 "num_pairs": int(metrics["num_pairs"]),
+                                 "max_pairs":
+                                     trainer.render_config.max_pairs})
+        self.rows.append((step, time.perf_counter() - t,
+                          3 if self.subset else 1))
+        if step in self.sh_steps:
+            self.sh_seen[step] = _sh_degree_seen(trainer.state)
+        for w in self.caught[n_warned:]:
+            self.warned.append((step, str(w.message)))
+        return metrics
+
+    def _refine(self, trainer, max_hw):
+        check = self.cpu_checks.get(self.step)
+        before = trainer.state
+        cuda = trainer.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        t = time.perf_counter()
+        state, info = self.orig["_refine"](trainer, max_hw)
+        if cuda:
+            end.record()
+            torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t) * 1e3
+        st = state.store
+        op = state.opt["opacities"]
+        reset = not any(bool(v.any()) for v in (op.mu["bg"], op.mu["obj"],
+                                                op.nu["bg"], op.nu["obj"]))
+        info = {k: int(v) for k, v in info.items()}
+        parts = [p for p in ("bg", "obj") if f"{p}_gaussian_count" in info]
+        row = {"step": self.step, "info": info, "host_ms": host_ms,
+               "device_ms": start.elapsed_time(end) if cuda else None,
+               "reset": reset,
+               "candidates": sum(info[f"{p}_refine_splits_count"]
+                                 + info[f"{p}_refine_dups_count"]
+                                 for p in parts),
+               "culls": sum(info[f"{p}_refine_culls_count"] for p in parts),
+               "children_dropped": sum(info[f"{p}_children_dropped"]
+                                       for p in parts),
+               "background": int(st.background.active.sum()),
+               "objects": [int(v) for v in st.objects.active.sum(dim=1)],
+               "not_finite": _state_finite(state)}
+        self.refines.append(row)
+        if check is not None:
+            self.cpu_refine[check] = {"step": self.step, "differs":
+                                      refine_on_cpu_differs(
+                                          before, state, info, self.noise,
+                                          trainer.config, trainer.dm.num_train,
+                                          max_hw)}
+        return state, info
+
+    def _grow(self, trainer, metrics):
+        rc = trainer.render_config
+        old = (rc.max_pairs, rc.max_rowruns)
+        grew = self.orig["_maybe_grow_pairs"](trainer, metrics)
+        rc = trainer.render_config
+        if grew:
+            self.growth.append({"step": self.step, "old": list(old),
+                                "new": [rc.max_pairs, rc.max_rowruns]})
+        self.checks.append((self.step, rc.max_pairs, rc.max_rowruns))
+        return grew
+
+
+OVERFLOW_RE = re.compile(r"render capacity overflow: (\d+) pairs for "
+                         r"max_pairs=(\d+), (\d+) row runs for "
+                         r"max_rowruns=(\d+)")
+
+
+def persistent_overflows(warned, checks) -> list:
+    """The overflows that outlived the capacity check that follows them:
+    after the first check at or after the overflow's step, the capacities
+    must hold its pair and row-run counts."""
+    bad = []
+    for step, msg in warned:
+        m = OVERFLOW_RE.search(msg)
+        if m is None:
+            continue
+        pairs, rowruns = int(m.group(1)), int(m.group(3))
+        after = [c for c in checks if c[0] >= step]
+        if not after:
+            bad.append(f"step {step}: {pairs} pairs / {rowruns} runs, no "
+                       f"check after it")
+        elif pairs > after[0][1] or rowruns > after[0][2]:
+            bad.append(f"step {step}: {pairs} pairs / {rowruns} runs, the "
+                       f"check at {after[0][0]} left {after[0][1:]}")
+    return bad
+
+
+def phase_schedule(seed: int, workdir: Path, random_bwd=None,
+                   clip: Clip = SCHEDULE_CLIP, schedule: dict = SCHEDULE,
+                   card: str = "", dev="cuda"):
+    """sgnt-train through the whole compressed schedule (SCHEDULE, on the
+    command line) on a full-width clip of clip.points seeds: the first
+    densifying refine, the culls, the opacity reset, the SH ramp to degree
+    3, the final cull past stop_split_at, three renders a step past it,
+    the pair capacity growing and a store that fills (clip.train_flags).
+    Then sgnt-eval on the run. Checks: (1) every event at the step the
+    schedule gives (schedule_events); (2) every parameter group and Adam
+    moment finite at every refine; (3) no pair or row-run overflow left
+    standing by the capacity check after it; (4) the first densifying
+    refine and the reset refine again on the CPU from the same state and
+    noise, exact but for parameters within 1e-6; (5) kernels A-F of one
+    train step at the final state against their plain versions; (6) the
+    final loss below the first, no render_error; and the capacity grew
+    and the first densify dropped children for want of slots. The launch
+    counts are set to 0 just before training and read just after.
+    `random_bwd`: a captured backward of random weights, whose pair counts
+    and shares are printed beside the final step's. Returns the counts."""
+    cuda = dev == "cuda"
+    root, run = Path(workdir) / "clip", Path(workdir) / "run"
+    made = write_clip(root, seed + 202, clip, dev)
+    num_train = math.ceil(clip.frames * 0.9)
+    events = schedule_events(schedule, clip.steps, num_train)
+    sh_steps = sorted({s + d for s in events["sh_degree"] for d in (-1, 0)})
+    cpu_checks = {events["densify"][0]: "first densify",
+                  events["reset"][0]: "reset"}
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with ScheduleObserver(caught, sh_steps, cpu_checks) as obs:
+            reset_launches()
+            t = time.perf_counter()
+            trainer = train_cli.main([
+                "--data", str(root), "--trainer.output-dir", str(run),
+                "--trainer.max-num-iterations", str(clip.steps),
+                "--trainer.steps-per-save", str(clip.save_every),
+                "--device", dev, *schedule_flags(schedule),
+                *clip.train_flags])
+            if cuda:
+                torch.cuda.synchronize()
+            train_s = time.perf_counter() - t
+            launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() if cuda else None
+        t = time.perf_counter()
+        evaluated = eval_cli.main(["--load-dir", str(run), "--device", dev])
+        eval_s = time.perf_counter() - t
+    state, cfg, rcfg = trainer.state, trainer.config, trainer.render_config
+
+    # One train step at the final state, its kernel calls captured.
+    cam, batch = trainer.dm.next_train(clip.steps)
+    batch = trainer._device_batch(batch)
+    recs = [Recorder(m, n) for m, n in KERNEL_WRAPPERS]
+    for r in recs:
+        r.__enter__()
+    try:
+        sts.scene_loss_and_grads(state, trainer.tracks, cam, batch, cfg,
+                                 rcfg, subset_accs=False,
+                                 jitter=draw_pixel_jitter(cam,
+                                                          state.generator))
+    finally:
+        for r in recs:
+            r.__exit__()
+    final_calls = {r.name: r.calls for r in recs}
+    held = hold_to_plain(final_calls) if cuda else None
+    del final_calls, recs
+    random_step = step_shares(random_bwd) if random_bwd is not None else None
+
+    fails = []
+    refines = {r["step"]: r for r in obs.refines}
+    run_refines = [s for s in refines if s > schedule["warmup_length"]]
+    # A densifying refine finds split or dup candidates (whether or not
+    # their children find a slot); the final cull culls and finds none.
+    seen = {
+        "densify": [s for s in run_refines if refines[s]["candidates"] > 0],
+        "reset": [s for s in run_refines if refines[s]["reset"]],
+        "final_cull": [s for s in run_refines
+                       if s >= schedule["stop_split_at"]
+                       and refines[s]["candidates"] == 0
+                       and refines[s]["culls"] > 0],
+        "sh_degree": {s: obs.sh_seen.get(s) for s in events["sh_degree"]},
+        "three_renders": [s for s, _, n in obs.rows if n == 3],
+    }
+    sh_before = {s: obs.sh_seen.get(s - 1) for s in events["sh_degree"]}
+    for k, want in events.items():
+        if seen[k] != want:
+            fails.append(f"event {k}: at {seen[k]}, the schedule says {want}")
+    if any(sh_before[s] != d - 1 for s, d in events["sh_degree"].items()):
+        fails.append(f"SH degree before its steps {sh_before}")
+    refine_steps = sorted(refines)
+    if refine_steps != list(range(0, clip.steps, schedule["refine_every"])):
+        fails.append(f"refines at {refine_steps}")
+    for s, r in refines.items():
+        if r["not_finite"]:
+            fails.append(f"refine {s}: not finite {r['not_finite'][:4]}")
+    overflows = [(s, m) for s, m in obs.warned if "capacity overflow" in m]
+    fails += persistent_overflows(overflows, obs.checks)
+    other = [(s, m) for s, m in obs.warned if "capacity overflow" not in m]
+    for name, res in obs.cpu_refine.items():
+        if res["differs"]:
+            fails.append(f"{name} refine at {res['step']}: card and CPU "
+                         f"differ: {res['differs'][:4]}")
+    if set(obs.cpu_refine) != set(cpu_checks.values()):
+        fails.append(f"CPU refines run: {sorted(obs.cpu_refine)}")
+    if not obs.growth:
+        fails.append("the pair capacity never grew")
+    if not refines[events["densify"][0]]["children_dropped"]:
+        fails.append("the first densify found a slot for every child")
+    rows = [json.loads(r) for r in
+            (run / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["train/loss"] for r in rows if "train/loss" in r]
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        fails.append(f"loss {losses[0]} -> {losses[-1]}")
+    if any("render_error" in r for r in rows):
+        fails.append("a render_error was logged")
+    for name in A_TO_F:
+        if cuda and launches.get(name, 0) == 0:
+            fails.append(f"training launched no {name}")
+    res = evaluated["results"]
+    if not math.isfinite(res.get("psnr", math.nan)):
+        fails.append(f"eval results {res}")
+
+    def stretch(lo, hi):
+        sel = [(dt, n) for s, dt, n in obs.rows if lo <= s < hi]
+        return {"steps": len(sel), "seconds": sum(dt for dt, _ in sel),
+                "steps_per_s": len(sel) / max(sum(dt for dt, _ in sel),
+                                              1e-9)}
+    first = events["densify"][0]
+    stop = schedule["stop_split_at"]
+    for r in obs.refines:
+        emit("schedule_path[refine]", card=card, step=r["step"],
+             counts=r["info"], background=r["background"],
+             objects=r["objects"], reset=r["reset"], host_ms=r["host_ms"],
+             device_ms=r["device_ms"])
+    emit("schedule_path", card=card, points=clip.points,
+         objects=clip.objects, object_points=clip.obj_points,
+         size=[clip.size.width, clip.size.height], steps=clip.steps,
+         schedule=schedule, train_flags=list(clip.train_flags),
+         num_train=num_train, clip=made,
+         events_expected=events, events_seen=seen,
+         sh_degree_before=sh_before,
+         construction_s=trainer.setup_seconds, train_s=train_s,
+         stretches={"before_densification": stretch(0, first),
+                    "densifying": stretch(first, stop + 1),
+                    "past_stop_split_at": stretch(stop + 1, clip.steps)},
+         refine_host_ms=[r["host_ms"] for r in obs.refines],
+         refine_device_ms=[r["device_ms"] for r in obs.refines],
+         growth=obs.growth, overflow_warnings=overflows,
+         other_warnings=other[:5], samples=obs.samples,
+         cpu_refine=obs.cpu_refine, eval_results=res, eval_s=eval_s,
+         final_step=held, random_weight_step=random_step,
+         max_memory_allocated=peak, launches=launches, failures=fails)
+    if fails:
+        raise AssertionError("schedule_path: " + "; ".join(fails))
+    del trainer, state
+    return launches
+
+
 def capture(store, tracks, cfg, rcfg, cam):
     """Inputs of every kernel in one full-width render (the full render of
     forward_scene on `cam`)."""
@@ -4531,6 +5081,9 @@ def main():
         (new_paths["preprocess_path[train]"],
          new_paths["preprocess_path[eval]"]) = phase_preprocess(
             args.seed, Path(tmp), card=smi)
+    with tempfile.TemporaryDirectory(prefix="sgnt_schedule_") as tmp:
+        new_paths["schedule_path"] = phase_schedule(
+            args.seed, Path(tmp), calls["composite_bwd"][0], card=smi)
     rows = phase_kernels(calls, launches, train_launches, sliced_launches,
                          unfused_launches, scan_launches)
     for r in rows:

@@ -418,18 +418,33 @@ class Trainer:
                 metrics["num_rowruns"] if self._rowrun_max is None
                 else torch.maximum(self._rowrun_max, metrics["num_rowruns"]))
 
+    def _iteration(self, step: int):
+        """One iteration of the loop: the train step, the running max of
+        the pair counts, the refine pass after every refine_every-th step
+        and, every 10 steps, the capacity check. Returns the step's
+        metrics, the refine's counts merged in.
+
+        The refine follows step s when s % refine_every == 0, and refines
+        at s (scene_refine_step reads state.step - 1), as the reference's
+        callback runs after iteration s at step s. The JAX loop refines
+        after (s + 1) % refine_every == 0 at s, so its s % reset_interval
+        never equals refine_every and its opacity reset never fires
+        (ROADMAP, defects of the reference)."""
+        metrics = self._run_step(step)
+        self._track_max(metrics)
+        if step % self.config.background.refine_every == 0:
+            self.state, info = self._refine(max(*self._last_hw))
+            metrics.update(info)
+        if step % 10 == 0:
+            self._maybe_grow_pairs(metrics)
+        return metrics
+
     def train(self, num_iterations: Optional[int] = None):
         total = num_iterations or self.tc.max_num_iterations
-        refine_every = self.config.background.refine_every
         t_last = time.time()
         for step in range(self.start_step, total):
-            metrics = self._run_step(step)
-            self._track_max(metrics)
-            if (step + 1) % refine_every == 0:
-                self.state, info = self._refine(max(*self._last_hw))
-                metrics.update(info)
+            metrics = self._iteration(step)
             if step % 10 == 0:
-                self._maybe_grow_pairs(metrics)
                 m = _scalars(metrics)
                 if (not self.render_config.kernel_impl
                         and m.get("max_tile_count", 0)
