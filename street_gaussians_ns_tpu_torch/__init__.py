@@ -19,7 +19,8 @@ model) trainer on torch.distributed (`parallel/`); the single-model Splatfacto
 pipeline (`models.splatfacto.forward`, `engine.train_step`); the data
 layer that reads a clip from disk; the trainer with checkpoints either
 package reads (`engine.trainer`, `engine.setup`, `engine.checkpoints`)
-and its live viewer (`utils.viewer`); `utils.profiling`; and the train /
+and its live viewer (`utils.viewer`); the spans and host-sync counts of
+the loop, the step and the frame (`utils.profiling`); and the train /
 eval / render / export / viewer entry points (`scripts/`), each with
 `--device` (default cuda).
 """

@@ -43,7 +43,10 @@ class Camera:
     def make(fx, fy, cx, cy, c2w, width: int, height: int, time=0.0,
              device="cuda", model: int = PERSPECTIVE) -> "Camera":
         def f32(v):
-            return torch.as_tensor(v, dtype=torch.float32, device=device)
+            # From host memory the copy is staged at once and does not
+            # wait for the card's queue to drain.
+            return torch.as_tensor(v, dtype=torch.float32).to(
+                device, non_blocking=True)
 
         return Camera(fx=f32(fx), fy=f32(fy), cx=f32(cx), cy=f32(cy),
                       c2w=f32(c2w)[:3, :4], time=f32(time),
@@ -57,8 +60,7 @@ class Camera:
 def viewmat_from_c2w(c2w: torch.Tensor) -> torch.Tensor:
     """OpenGL c2w (3, 4) -> world-to-camera (4, 4) in rasterizer
     convention: R @ diag(1, -1, -1), then the analytic rigid inverse."""
-    R = c2w[:3, :3] * torch.tensor([1.0, -1.0, -1.0], dtype=c2w.dtype,
-                                   device=c2w.device)[None, :]
+    R = torch.cat([c2w[:3, :1], -c2w[:3, 1:3]], dim=1)
     T = c2w[:3, 3:4]
     R_inv = R.T
     T_inv = -R_inv @ T

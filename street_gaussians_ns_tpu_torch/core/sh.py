@@ -84,8 +84,7 @@ def eval_sh(active_degree: int, dirs: torch.Tensor,
     if num_sh_bases(max_degree) != k:
         raise ValueError(f"bad SH coefficient count {k}")
     basis = sh_basis(dirs, max_degree)
-    base_degree = torch.tensor(
-        [d for d in range(max_degree + 1) for _ in range(2 * d + 1)],
-        device=dirs.device)
-    basis = basis * (base_degree <= int(active_degree)).to(basis.dtype)
+    # The bases of degree <= d are the first (d + 1)^2.
+    live = torch.arange(k, device=dirs.device) < (int(active_degree) + 1) ** 2
+    basis = basis * live.to(basis.dtype)
     return torch.einsum("nk,nkc->nc", basis, coeffs)

@@ -32,6 +32,7 @@ from ..models.scene_graph import (ObjectTracks, SceneGraphConfig,
                                   scene_loss_dict)
 from ..ops.render import RenderConfig
 from ..ops.ssim import psnr
+from ..utils.profiling import span
 from .optimizers import (DEFAULT_GROUPS, AdamState, adam_update, init_adam,
                          schedule, tree_map)
 from .train_step import GAUSSIAN_GROUPS
@@ -121,46 +122,47 @@ def scene_loss_and_grads(state: SceneTrainState, tracks: ObjectTracks,
     state.camera_opt is composed with camera.c2w before the render, and
     the pose gradient also flows through the sky rays."""
     store = state.store
-
     def leaf(x):
         return x.detach().requires_grad_(True)
 
-    gauss = {name: tree_map(leaf, _gaussian_group_params(store, name))
-             for name in GAUSSIAN_GROUPS}
-    env = leaf(store.env_map) if store.env_map is not None else None
-    bbox = tree_map(leaf, _bbox_params(store))
-    n_flat = (store.background.active.numel()
-              + store.objects.active.numel())
-    xys_zero = torch.zeros((n_flat, 2), dtype=torch.float32,
-                           device=store.background.active.device,
-                           requires_grad=True)
-    use_cam_opt = (state.camera_opt is not None
-                   and config.camera_opt_mode != "off")
-    cam_opt = None
-    if use_cam_opt:
-        cam_opt = leaf(state.camera_opt)
-        camera = dataclasses.replace(camera, c2w=apply_camera_opt(
-            CameraOptConfig(mode=config.camera_opt_mode,
-                            num_cameras=cam_opt.shape[0]),
-            cam_opt, 0 if camera_index is None else camera_index,
-            camera.c2w))
+    with span("step.forward"):
+        gauss = {name: tree_map(leaf, _gaussian_group_params(store, name))
+                 for name in GAUSSIAN_GROUPS}
+        env = leaf(store.env_map) if store.env_map is not None else None
+        bbox = tree_map(leaf, _bbox_params(store))
+        n_flat = (store.background.active.numel()
+                  + store.objects.active.numel())
+        xys_zero = torch.zeros((n_flat, 2), dtype=torch.float32,
+                               device=store.background.active.device,
+                               requires_grad=True)
+        use_cam_opt = (state.camera_opt is not None
+                       and config.camera_opt_mode != "off")
+        cam_opt = None
+        if use_cam_opt:
+            cam_opt = leaf(state.camera_opt)
+            camera = dataclasses.replace(camera, c2w=apply_camera_opt(
+                CameraOptConfig(mode=config.camera_opt_mode,
+                                num_cameras=cam_opt.shape[0]),
+                cam_opt, 0 if camera_index is None else camera_index,
+                camera.c2w))
 
-    outputs, rout, _ = forward_scene(
-        _with_params(store, gauss, env, bbox), tracks, camera, state.step,
-        config, render_config, training=True, subset_accs=subset_accs,
-        jitter=jitter, xys_offset=xys_zero, sky_dirs_grad=use_cam_opt)
-    losses = scene_loss_dict(outputs, batch, config, state.step)
-    total = sum(losses.values())
+        outputs, rout, _ = forward_scene(
+            _with_params(store, gauss, env, bbox), tracks, camera, state.step,
+            config, render_config, training=True, subset_accs=subset_accs,
+            jitter=jitter, xys_offset=xys_zero, sky_dirs_grad=use_cam_opt)
+        losses = scene_loss_dict(outputs, batch, config, state.step)
+        total = sum(losses.values())
 
-    leaves = [gauss[n][k] for n in GAUSSIAN_GROUPS for k in ("bg", "obj")]
-    leaves += [bbox[n] for n in BBOX_PARAMS] + [xys_zero]
-    if env is not None:
-        leaves.append(env)
-    if cam_opt is not None:
-        leaves.append(cam_opt)
-    raw = torch.autograd.grad(total, leaves, allow_unused=True)
-    got = [torch.zeros_like(p) if g is None else g
-           for p, g in zip(leaves, raw)]
+        leaves = [gauss[n][k] for n in GAUSSIAN_GROUPS for k in ("bg", "obj")]
+        leaves += [bbox[n] for n in BBOX_PARAMS] + [xys_zero]
+        if env is not None:
+            leaves.append(env)
+        if cam_opt is not None:
+            leaves.append(cam_opt)
+    with span("step.backward"):
+        raw = torch.autograd.grad(total, leaves, allow_unused=True)
+        got = [torch.zeros_like(p) if g is None else g
+               for p, g in zip(leaves, raw)]
     it = iter(got)
     grads = {"gauss": {n: {"bg": next(it), "obj": next(it)}
                        for n in GAUSSIAN_GROUPS},
@@ -197,7 +199,7 @@ def scene_train_step(state: SceneTrainState, tracks: ObjectTracks,
     n_obj = store.num_objects
     step = state.step
 
-    with torch.no_grad():
+    with torch.no_grad(), span("step.adam"):
         g_gauss = mask_inactive_grads(grads["gauss"], store)
         new_opt = dict(state.opt)
         new_gauss = {}
@@ -227,6 +229,7 @@ def scene_train_step(state: SceneTrainState, tracks: ObjectTracks,
                 state.camera_opt, schedule(cfg, step), cfg)
         new_store = _with_params(store, new_gauss, new_env, new_bbox)
 
+    with torch.no_grad(), span("step.stats"):
         # Densification statistics per submodel, by slicing the flat
         # buffers of the full render.
         max_hw = max(camera.height, camera.width)

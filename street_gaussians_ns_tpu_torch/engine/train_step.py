@@ -26,6 +26,7 @@ from ..models.gaussians import GaussianStore
 from ..models.splatfacto import SplatfactoConfig, forward, loss_dict
 from ..ops.render import RenderConfig
 from ..ops.ssim import psnr
+from ..utils.profiling import span
 from .optimizers import (DEFAULT_GROUPS, AdamState, adam_update, init_adam,
                          schedule, tree_map)
 
@@ -65,24 +66,27 @@ def loss_and_grads(state: TrainState, camera: Camera, batch: dict,
     def leaf(x):
         return x.detach().requires_grad_(True)
 
-    params = dataclasses.replace(store.params, **{
-        name: leaf(getattr(store.params, name)) for name in GAUSSIAN_GROUPS})
-    env = leaf(state.env_map) if state.env_map is not None else None
-    xys_zero = torch.zeros((store.capacity, 2), dtype=torch.float32,
-                           device=store.active.device, requires_grad=True)
-    outputs, rout = forward(
-        params, store.active, camera, state.step, config, render_config,
-        env_map=env, jitter=jitter, training=True, time=batch.get("time"),
-        xys_offset=xys_zero)
-    losses = loss_dict(outputs, batch, config)
-    total = sum(losses.values())
+    with span("step.forward"):
+        params = dataclasses.replace(store.params, **{
+            name: leaf(getattr(store.params, name))
+            for name in GAUSSIAN_GROUPS})
+        env = leaf(state.env_map) if state.env_map is not None else None
+        xys_zero = torch.zeros((store.capacity, 2), dtype=torch.float32,
+                               device=store.active.device, requires_grad=True)
+        outputs, rout = forward(
+            params, store.active, camera, state.step, config, render_config,
+            env_map=env, jitter=jitter, training=True, time=batch.get("time"),
+            xys_offset=xys_zero)
+        losses = loss_dict(outputs, batch, config)
+        total = sum(losses.values())
 
-    leaves = [getattr(params, n) for n in GAUSSIAN_GROUPS] + [xys_zero]
-    if env is not None:
-        leaves.append(env)
-    raw = torch.autograd.grad(total, leaves, allow_unused=True)
-    got = [torch.zeros_like(p) if g is None else g
-           for p, g in zip(leaves, raw)]
+        leaves = [getattr(params, n) for n in GAUSSIAN_GROUPS] + [xys_zero]
+        if env is not None:
+            leaves.append(env)
+    with span("step.backward"):
+        raw = torch.autograd.grad(total, leaves, allow_unused=True)
+        got = [torch.zeros_like(p) if g is None else g
+               for p, g in zip(leaves, raw)]
     it = iter(got)
     grads = {"params": {n: next(it) for n in GAUSSIAN_GROUPS},
              "xys": next(it),
@@ -105,7 +109,7 @@ def train_step(state: TrainState, camera: Camera, batch: dict,
     total, losses, outputs, rout, grads = loss_and_grads(
         state, camera, batch, config, render_config, jitter=jitter)
     step = state.step
-    with torch.no_grad():
+    with torch.no_grad(), span("step.adam"):
         new_params = {}
         new_opt = dict(state.opt)
         for name in GAUSSIAN_GROUPS:
@@ -121,6 +125,7 @@ def train_step(state: TrainState, camera: Camera, batch: dict,
                 schedule(cfg, step), cfg)
         store = dataclasses.replace(state.store, params=dataclasses.replace(
             state.store.params, **new_params))
+    with torch.no_grad(), span("step.stats"):
         max_hw = max(camera.height, camera.width)
         store = refinement.update_stats(store, grads["xys"],
                                         rout.projected.radii, max_hw, step,

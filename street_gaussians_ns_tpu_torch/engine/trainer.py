@@ -50,6 +50,7 @@ from ..models.scene_graph import (SceneGraphConfig, compose, empty_tracks,
 from ..ops.render import RenderConfig
 from ..ops.ssim import psnr, ssim
 from ..ops.tiles import count_pairs
+from ..utils.profiling import span
 from ..utils.writer import MetricsWriter
 from .checkpoints import (checkpoint_extra, latest_checkpoint,
                           restore_checkpoint, save_checkpoint)
@@ -361,8 +362,14 @@ class Trainer:
                                  subset_accs=subset_accs)
 
     def _device_batch(self, batch):
-        return {k: torch.as_tensor(batch[k]).to(self.device)
-                for k in ("image", "mask", "semantic") if k in batch}
+        """The step's target on the device: each image copied from pageable
+        host memory, which waits for the card."""
+        out = {}
+        for k in ("image", "mask", "semantic"):
+            if k in batch:
+                with span("trainer.target_copy", sync=True):
+                    out[k] = torch.as_tensor(batch[k]).to(self.device)
+        return out
 
     def _maybe_grow_pairs(self, metrics) -> bool:
         """Pair-capacity schedule: when the running max of the true pair
@@ -371,10 +378,12 @@ class Trainer:
         never drops pairs, so neither may we). Both counts are
         capacity-independent, so overflow is seen in the step it happens
         (rasterize also warns then). Returns True if capacity grew."""
-        num_pairs = int(self._pair_max) if self._pair_max is not None \
-            else int(metrics.get("num_pairs", 0))
-        num_rowruns = int(self._rowrun_max) if self._rowrun_max is not None \
-            else int(metrics.get("num_rowruns", 0))
+        m = _scalars({  # both counts in one read from the device
+            "num_pairs": (self._pair_max if self._pair_max is not None
+                          else metrics.get("num_pairs", 0)),
+            "num_rowruns": (self._rowrun_max if self._rowrun_max is not None
+                            else metrics.get("num_rowruns", 0))})
+        num_pairs, num_rowruns = int(m["num_pairs"]), int(m["num_rowruns"])
         self._pair_max = None
         self._rowrun_max = None
         cap = self.render_config.max_pairs
@@ -397,14 +406,16 @@ class Trainer:
 
     def _run_step(self, step: int):
         """One training step: fetch data, run the step."""
-        camera, batch = self.dm.next_train(step)
+        with span("trainer.draw"):
+            camera, batch = self.dm.next_train(step)
+        target = self._device_batch(batch)
         fn = self._step_fn(step)
         kw = {}
         if self.state.camera_opt is not None:
             kw["camera_index"] = self._cam_row.get(
                 batch.get("frame_idx", -1), 0)
-        self.state, metrics = fn(self.state, self.tracks, camera,
-                                 self._device_batch(batch), **kw)
+        self.state, metrics = fn(self.state, self.tracks, camera, target,
+                                 **kw)
         self._last_hw = (camera.height, camera.width)
         return metrics
 
@@ -433,10 +444,12 @@ class Trainer:
         metrics = self._run_step(step)
         self._track_max(metrics)
         if step % self.config.background.refine_every == 0:
-            self.state, info = self._refine(max(*self._last_hw))
+            with span("trainer.refine"):
+                self.state, info = self._refine(max(*self._last_hw))
             metrics.update(info)
         if step % 10 == 0:
-            self._maybe_grow_pairs(metrics)
+            with span("trainer.capacity_check", sync=True):
+                self._maybe_grow_pairs(metrics)
         return metrics
 
     def train(self, num_iterations: Optional[int] = None):
@@ -445,7 +458,8 @@ class Trainer:
         for step in range(self.start_step, total):
             metrics = self._iteration(step)
             if step % 10 == 0:
-                m = _scalars(metrics)
+                with span("trainer.log_scalars", sync=True):
+                    m = _scalars(metrics)
                 if (not self.render_config.kernel_impl
                         and m.get("max_tile_count", 0)
                         > self.render_config.max_per_tile):

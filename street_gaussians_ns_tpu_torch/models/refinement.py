@@ -41,6 +41,7 @@ import torch
 
 from ..core import quaternions as quat
 from ..engine.optimizers import AdamState, mask_moments, tree_map
+from ..utils.profiling import span
 from .gaussians import GaussianParams, GaussianStore
 from .splatfacto import SplatfactoConfig
 
@@ -74,8 +75,10 @@ def _scatter_children(params: GaussianParams, active: torch.Tensor,
     over children, number of valid children dropped for want of a slot).
     Reads the counts from the device."""
     cap = active.shape[0]
-    free_slots = torch.nonzero(~active)[:, 0]
-    valid_children = torch.nonzero(child_valid)[:, 0]
+    with span("refine.nonzero", sync=True):
+        free_slots = torch.nonzero(~active)[:, 0]
+    with span("refine.nonzero", sync=True):
+        valid_children = torch.nonzero(child_valid)[:, 0]
     n_place = min(free_slots.shape[0], valid_children.shape[0])
     target = free_slots[:n_place]
     source = valid_children[:n_place]
@@ -88,13 +91,13 @@ def _scatter_children(params: GaussianParams, active: torch.Tensor,
     new_params = GaussianParams(**{
         k: scat(v, getattr(child_params, k))
         for k, v in params.as_dict().items()})
-    new_active = active.clone()
-    new_active[target] = True
-    placed_slots = torch.zeros((cap,), dtype=torch.bool,
-                               device=active.device)
-    placed_slots[target] = True
+    # index_fill_ takes the value as a kernel argument: no copy from the
+    # host, which would wait for the card.
+    new_active = active.clone().index_fill_(0, target, True)
+    placed_slots = torch.zeros((cap,), dtype=torch.bool, device=active.device)
+    placed_slots.index_fill_(0, target, True)
     placed_children = torch.zeros_like(child_valid)
-    placed_children[source] = True
+    placed_children.index_fill_(0, source, True)
     n_dropped = valid_children.shape[0] - n_place
     return new_params, new_active, placed_slots, placed_children, n_dropped
 

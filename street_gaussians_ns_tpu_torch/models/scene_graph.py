@@ -22,6 +22,7 @@ import torch
 from ..core import quaternions as quat
 from ..core.cameras import Camera
 from ..ops.render import RenderConfig, render
+from ..utils.profiling import spanned
 from .camera_opt import exp_map_SE3, exp_map_SO3xR3
 from .fourier import fourier_dc
 from .gaussians import GaussianStore
@@ -126,27 +127,34 @@ def interpolate_boxes(tracks: ObjectTracks, t: torch.Tensor,
         f32 = dict(dtype=torch.float32, device=times.device)
         return BoxesAtT(
             centers=torch.zeros((O, 3), **f32),
-            quats=torch.tensor([1.0, 0.0, 0.0, 0.0], **f32).repeat(O, 1),
+            quats=torch.cat([torch.ones((O, 1), **f32),
+                             torch.zeros((O, 3), **f32)], 1),
             visible=torch.zeros((O,), dtype=torch.bool, device=times.device),
             t_norm=torch.ones((O,), **f32))
     t = torch.as_tensor(t, dtype=torch.float32, device=times.device)
-    i1 = torch.clamp(torch.searchsorted(times, t.reshape(1)), 0, F - 1)[0]
+    # The bracketing frames as (1,) index tensors: indexing with a 0-d
+    # tensor would read it back to the host at every lookup.
+    i1 = torch.clamp(torch.searchsorted(times, t.reshape(1)), 0, F - 1)
     i0 = torch.clamp(i1 - 1, 0, F - 1)
-    t0, t1 = times[i0], times[i1]
+
+    def at(x, i):
+        return x[i][0]
+
+    t0, t1 = at(times, i0), at(times, i1)
     exact1 = t == t1
     denom = torch.where(t1 > t0, t1 - t0, torch.ones_like(t1))
     w = torch.where(exact1, torch.ones_like(t),
                     torch.clamp((t - t0) / denom, 0.0, 1.0))
     in_range = (t >= times[0]) & (t <= times[-1])
 
-    c0, c1 = tracks.centers[i0], tracks.centers[i1]
+    c0, c1 = at(tracks.centers, i0), at(tracks.centers, i1)
     centers = c0 * (1.0 - w) + c1 * w
-    quats = quat.slerp(tracks.quats[i0], tracks.quats[i1], w)
-    v0, v1 = tracks.valid[i0], tracks.valid[i1]
+    quats = quat.slerp(at(tracks.quats, i0), at(tracks.quats, i1), w)
+    v0, v1 = at(tracks.valid, i0), at(tracks.valid, i1)
     visible = torch.where(w <= 0.0, v0, torch.where(w >= 1.0, v1, v0 & v1))
     visible = visible & in_range
 
-    frame_pos = i0.to(torch.float32) + w
+    frame_pos = i0[0].to(torch.float32) + w
     span = tracks.obj_last - tracks.obj_first
     t_norm = torch.where(
         span > 0, (frame_pos - tracks.obj_first) / torch.clamp(span, min=1e-6),
@@ -155,11 +163,11 @@ def interpolate_boxes(tracks: ObjectTracks, t: torch.Tensor,
     if delta_center is not None and mode != "off":
         fi = torch.where(exact1, i1, i0)
         gate = ((exact1 | (w <= 0.0))).to(torch.float32)
-        dc = delta_center[fi]
+        dc = at(delta_center, fi)
         if not differentiable:
             dc = dc.detach()
         if mode in ("SO3xR3", "SE3") and delta_rot is not None:
-            dr = delta_rot[fi]
+            dr = at(delta_rot, fi)
             if not differentiable:
                 dr = dr.detach()
             tangent = torch.cat([dc, dr], dim=-1) * gate[..., None]
@@ -169,7 +177,7 @@ def interpolate_boxes(tracks: ObjectTracks, t: torch.Tensor,
             quats = quat.multiply(quat.from_rotmat(corr[..., :3, :3]),
                                   quats)
         else:
-            dy = (delta_yaw[fi] if delta_yaw is not None
+            dy = (at(delta_yaw, fi) if delta_yaw is not None
                   else torch.zeros(centers.shape[:-1], dtype=torch.float32,
                                    device=times.device))
             if not differentiable:
@@ -226,6 +234,7 @@ def object2world(means: torch.Tensor, quats_g: torch.Tensor,
     return means_w, quats_w
 
 
+@spanned("scene.compose")
 def compose(store: SceneGraphStore, tracks: ObjectTracks, time: torch.Tensor,
             config: Optional[SceneGraphConfig] = None):
     """Flatten background + posed objects into one splat set.

@@ -16,6 +16,7 @@ from ..core.sh import eval_sh
 from ..ops.cubemap import sample_cubemap
 from ..ops.render import RenderConfig, render
 from ..ops.ssim import ssim
+from ..utils.profiling import spanned
 from .fourier import fourier_dc
 from .gaussians import GaussianParams, activated_opacities
 
@@ -61,6 +62,7 @@ class SplatfactoConfig:
     refine_parent_cap_div: int = 16
 
 
+@spanned("scene.sh")
 def sh_colors(means: torch.Tensor, features_dc_t: torch.Tensor,
               features_rest: torch.Tensor, camera: Camera, step: int,
               config: SplatfactoConfig, training: bool = True) -> torch.Tensor:
@@ -83,6 +85,7 @@ def init_env_map(config: SplatfactoConfig, device="cuda") -> torch.Tensor:
     return torch.full((6, r, r, 3), 0.5, dtype=torch.float32, device=device)
 
 
+@spanned("scene.sky")
 def sky_color(env_map: torch.Tensor, camera: Camera,
               jitter: torch.Tensor | None = None,
               dirs_grad: bool = False, row0: int = 0,
@@ -94,7 +97,8 @@ def sky_color(env_map: torch.Tensor, camera: Camera,
     (the model-sharded sky, parallel.sharded)."""
     dirs = pixel_directions(camera, jitter, row0=row0, rows=rows)
     to_opengl = torch.tensor([[1.0, 0.0, 0.0], [0.0, 0.0, 1.0],
-                              [0.0, -1.0, 0.0]], device=dirs.device)
+                              [0.0, -1.0, 0.0]]).to(dirs.device,
+                                                    non_blocking=True)
     return sample_cubemap(env_map, dirs @ to_opengl.T, dirs_grad=dirs_grad)
 
 
@@ -113,8 +117,12 @@ def forward(params: GaussianParams, active: torch.Tensor, camera: Camera,
     training and through the pixel centers otherwise. `xys_offset` is the
     screen-space gradient hook of ops.render.render."""
     dev = params.means.device
-    t = torch.as_tensor(0.0 if time is None else time, dtype=torch.float32,
-                        device=dev)
+    # A host number is filled in on the device, not copied there (a copy
+    # from the host waits for the card).
+    t = (torch.as_tensor(time, dtype=torch.float32, device=dev)
+         if isinstance(time, torch.Tensor) else
+         torch.full((), 0.0 if time is None else float(time),
+                    dtype=torch.float32, device=dev))
     dc_t = fourier_dc(params.features_dc, t * config.fourier_features_scale)
     rgbs = sh_colors(params.means, dc_t, params.features_rest, camera, step,
                      config, training)

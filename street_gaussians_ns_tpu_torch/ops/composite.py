@@ -79,6 +79,7 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import span
 from . import _cuda
 from .rasterize_ref import ALPHA_CLAMP, ALPHA_THRESH, SIGMA_MIN, T_EPS
 from . import scan
@@ -477,12 +478,13 @@ def _unsort_rank_sums(rank_sums: torch.Tensor,
 
 def _visited_pairs(tile_start, nvis) -> torch.Tensor:
     """Sorted-pair indices of every tile's first nvis pairs, tile by tile
-    (int64). The total is read from the device."""
+    (int64). The total is read from the device, once."""
     num_tiles = tile_start.shape[0]
     dev = tile_start.device
     nvis = nvis.to(torch.int64)
     tile_of = torch.repeat_interleave(
-        torch.arange(num_tiles, device=dev), nvis)
+        torch.arange(num_tiles, device=dev), nvis,
+        output_size=int(nvis.sum()))
     first = torch.cumsum(nvis, 0) - nvis
     within = torch.arange(tile_of.shape[0], device=dev) - first[tile_of]
     return tile_start.to(torch.int64)[tile_of] + within
@@ -496,7 +498,8 @@ def _reduce_pair_grads_ranked(gpair, tile_start, nvis, depth_order,
     visited -> (N, 10) per-gaussian gradients, or with unsort=False the
     (10, N) sums per depth rank. Only the visited pairs are gathered and
     sorted: everything else in gpair is zero."""
-    pair = _visited_pairs(tile_start, nvis)
+    with span("composite.visited", sync=True):
+        pair = _visited_pairs(tile_start, nvis)
     g = gpair[pair // K, :RANK_ROW + 1, pair % K]           # (L, 11)
     # Stable, so pairs of one rank stay in pair order and the sums repeat
     # from run to run.
@@ -640,9 +643,11 @@ class _FusedRasterize(torch.autograd.Function):
             xys, conics, tile_box, depth_key, colors.to(torch.float32),
             opacities, width, height, TILE, max_pairs, max_rowruns,
             last_color_is_depth=last_color_is_depth, precision=precision)
-        feat = pack_feat_cols(feats, max_pairs)
-        accum, tfin, ncon = composite_fwd(feat, bins.tile_start,
-                                          bins.tile_count, ntx, nc)
+        with span("composite.pack"):
+            feat = pack_feat_cols(feats, max_pairs)
+        with span("composite.fwd"):
+            accum, tfin, ncon = composite_fwd(feat, bins.tile_start,
+                                              bins.tile_count, ntx, nc)
         ctx.save_for_backward(feat, bins.tile_start, bins.tile_count, accum,
                               tfin, ncon, bins.depth_order)
         ctx.dims = (ntx, nty, width, height, nc)
@@ -656,11 +661,12 @@ class _FusedRasterize(torch.autograd.Function):
         feat, tile_start, tile_count, accum, tfin, ncon, depth_order = \
             ctx.saved_tensors
         ntx, nc = ctx.dims[0], ctx.dims[4]
-        g_accum, g_t = _cotangent_tiles(g_img, g_alpha, ctx.dims,
-                                        feat.device)
-        seg = _bwd_from_tiles(feat, tile_start, tile_count, ntx, accum, tfin,
-                              ncon, g_accum, g_t, depth_order,
-                              depth_order.shape[0])
+        with span("composite.bwd"):
+            g_accum, g_t = _cotangent_tiles(g_img, g_alpha, ctx.dims,
+                                            feat.device)
+            seg = _bwd_from_tiles(feat, tile_start, tile_count, ntx, accum,
+                                  tfin, ncon, g_accum, g_t, depth_order,
+                                  depth_order.shape[0])
         return (*_input_grads(seg, nc, ctx.colors_dtype),
                 None, None, None, None, None, None, None, None)
 

@@ -26,6 +26,7 @@ import torch
 
 from ..core.cameras import Camera, viewmat_from_c2w
 from ..core.projection import Projected, project
+from ..utils.profiling import span
 from .composite import rasterize_tiles_fused, rasterize_tiles_pallas
 from .composite_chunked import rasterize_tiles_chunked
 from .composite_scan import rasterize_tiles_scan
@@ -124,9 +125,10 @@ def rasterize(proj: Projected, colors: torch.Tensor, opacities: torch.Tensor,
                                                  config.chunk)
         else:
             img, alpha = rasterize_tiles_pallas(*args)
-    num_pairs, num_rowruns, densest = (int(v) for v in torch.stack(
-        [bins.num_pairs, bins.num_rowruns,
-         bins.max_tile_count.to(torch.int64)]).tolist())
+    with span("render.read_counts", sync=True):
+        num_pairs, num_rowruns, densest = (int(v) for v in torch.stack(
+            [bins.num_pairs, bins.num_rowruns,
+             bins.max_tile_count.to(torch.int64)]).tolist())
     if (num_pairs > config.max_pairs
             or num_rowruns > config.rowrun_capacity):
         warnings.warn(
@@ -164,23 +166,27 @@ def render(
     opacities detached. `xys_offset`, when given, is added to the
     projected screen centers; it is a zero-valued hook whose gradient is
     the screen-space positional gradient that drives densification."""
-    vm = viewmat_from_c2w(camera.c2w)
-    proj = project(means, scales, quats, vm, camera.fx, camera.fy,
-                   camera.cx, camera.cy, camera.width, camera.height,
-                   tile_size=config.tile_size, opacities=opacities.detach())
-    if active is not None:
-        proj = dataclasses.replace(
-            proj,
-            radii=torch.where(active, proj.radii, 0),
-            num_tiles_hit=torch.where(active, proj.num_tiles_hit, 0),
-        )
-    if xys_offset is not None:
-        proj = dataclasses.replace(proj, xys=proj.xys + xys_offset)
-    colors4 = torch.cat([rgbs, proj.depths[:, None]], dim=-1)
-    background = torch.zeros((4,), dtype=torch.float32, device=means.device)
-    img, alpha, bins = rasterize(proj, colors4, opacities, camera,
-                                 background, config,
-                                 last_color_is_depth=True)
+    with span("render.project"):
+        vm = viewmat_from_c2w(camera.c2w)
+        proj = project(means, scales, quats, vm, camera.fx, camera.fy,
+                       camera.cx, camera.cy, camera.width, camera.height,
+                       tile_size=config.tile_size,
+                       opacities=opacities.detach())
+        if active is not None:
+            proj = dataclasses.replace(
+                proj,
+                radii=torch.where(active, proj.radii, 0),
+                num_tiles_hit=torch.where(active, proj.num_tiles_hit, 0),
+            )
+        if xys_offset is not None:
+            proj = dataclasses.replace(proj, xys=proj.xys + xys_offset)
+    with span("render.rasterize"):
+        colors4 = torch.cat([rgbs, proj.depths[:, None]], dim=-1)
+        background = torch.zeros((4,), dtype=torch.float32,
+                                 device=means.device)
+        img, alpha, bins = rasterize(proj, colors4, opacities, camera,
+                                     background, config,
+                                     last_color_is_depth=True)
 
     rgb = torch.clamp(img[..., :3], max=1.0)
     alpha1 = alpha[..., None]

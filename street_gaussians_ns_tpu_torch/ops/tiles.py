@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..core.projection import Projected, coverage_q, row_tile_range
+from ..utils.profiling import span, spanned
 from . import expand, scan
 from .packing import round_bf16
 
@@ -108,6 +109,7 @@ def bins_from_numpy(arrays: dict, device="cuda") -> TileBins:
                     num_tiles_y=int(arrays["num_tiles_y"]), **fields)
 
 
+@spanned("tiles.row_trim")
 def _row_trim_counts(conics, xys, box, tile_size: int, max_h: int, q):
     """Per gaussian (first, last, count): box-relative indices of the
     first/last tile row of nonzero width (-1 if none) and the total pair
@@ -139,6 +141,7 @@ def _row_trim_counts(conics, xys, box, tile_size: int, max_h: int, q):
     return first, last, cnt
 
 
+@spanned("tiles.depth_sort")
 def _depth_sort_cols(xys, conics, tile_box, depth_key, colors, opacities,
                      last_color_is_depth: bool, precision: str = "f32"):
     """Depth sort of the gaussians, paid once however many windows are
@@ -238,107 +241,110 @@ def _bin_sorted(cols, depth_slice, width: int, height: int, tile_size: int,
 
     first, last, count_g = (trim if trim is not None else _row_trim_counts(
         fs[:, 2:5], fs[:, 0:2], box_s, tile_size, nty, q=coverage_q(op_s)))
-    nz = torch.isfinite(dk_s) & (count_g > 0)
-    if rank_window is not None:
-        ridx = torch.arange(n, dtype=i32, device=dev)
-        nz = nz & (ridx >= rank_window[0]) & (ridx < rank_window[1])
-    if local_window is not None:
-        lidx = torch.arange(nloc, dtype=i32, device=dev)
-        nz = nz & (lidx >= local_window[0]) & (lidx < local_window[1])
-    count_g = torch.where(nz, count_g, 0)
-    true_pairs = count_g.sum(dtype=torch.int64)
-    y0t = torch.where(nz, y0_s + first, 0)
-    y1t = torch.where(nz, y0_s + last + 1, 0)
-    hrows = torch.where(nz, y1t - y0t, 0)
-    # What a pair carries to say whose it is: the original index when
-    # gauss_idx is asked for, else the (global) depth rank.
-    ident = (idx_s if with_gauss_idx
-             else rank0 + torch.arange(nloc, device=dev)).to(f32)
+    with span("tiles.bin_rest"):
+        nz = torch.isfinite(dk_s) & (count_g > 0)
+        if rank_window is not None:
+            ridx = torch.arange(n, dtype=i32, device=dev)
+            nz = nz & (ridx >= rank_window[0]) & (ridx < rank_window[1])
+        if local_window is not None:
+            lidx = torch.arange(nloc, dtype=i32, device=dev)
+            nz = nz & (lidx >= local_window[0]) & (lidx < local_window[1])
+        count_g = torch.where(nz, count_g, 0)
+        true_pairs = count_g.sum(dtype=torch.int64)
+        y0t = torch.where(nz, y0_s + first, 0)
+        y1t = torch.where(nz, y0_s + last + 1, 0)
+        hrows = torch.where(nz, y1t - y0t, 0)
+        # What a pair carries to say whose it is: the original index when
+        # gauss_idx is asked for, else the (global) depth rank.
+        ident = (idx_s if with_gauss_idx
+                 else rank0 + torch.arange(nloc, device=dev)).to(f32)
 
-    # Level 1: gaussians -> (gaussian, tile-row) runs.
-    cum_r = scan.cumsum_flat(hrows)
-    starts_r = cum_r - hrows
-    src16 = torch.stack([
-        fs[:, 0], fs[:, 1], ident, starts_r.to(f32),
-        x0_s.to(f32), x1_s.to(f32), y0t.to(f32), y1t.to(f32),
-        fs[:, 2], fs[:, 3], fs[:, 4], op_s,
-        fs[:, 6], fs[:, 7], fs[:, 8], fs[:, 9],
-    ])                                                  # (16, N)
-    r = expand.expand_ragged(src16, starts_r, cum_r, max_rowruns)
-    rr = torch.arange(max_rowruns, dtype=i32, device=dev)
-    ty = r[6].to(i32) + (rr - r[3].to(i32))
-    rbox = r[4:8].T.to(i32)
-    total_r = (cum_r[-1].to(torch.int64) if nloc > 0
-               else torch.zeros((), dtype=torch.int64, device=dev))
-    rvalid = rr < torch.clamp(total_r, max=max_rowruns)
-    x0r, x1r = row_tile_range(r[8:11].T, r[0:2].T, rbox, ty, tile_size,
-                              coverage_q(r[11]))
-    wr = torch.where(rvalid, x1r - x0r, 0)
+        # Level 1: gaussians -> (gaussian, tile-row) runs.
+        cum_r = scan.cumsum_flat(hrows)
+        starts_r = cum_r - hrows
+        src16 = torch.stack([
+            fs[:, 0], fs[:, 1], ident, starts_r.to(f32),
+            x0_s.to(f32), x1_s.to(f32), y0t.to(f32), y1t.to(f32),
+            fs[:, 2], fs[:, 3], fs[:, 4], op_s,
+            fs[:, 6], fs[:, 7], fs[:, 8], fs[:, 9],
+        ])                                                  # (16, N)
+        r = expand.expand_ragged(src16, starts_r, cum_r, max_rowruns)
+        rr = torch.arange(max_rowruns, dtype=i32, device=dev)
+        ty = r[6].to(i32) + (rr - r[3].to(i32))
+        rbox = r[4:8].T.to(i32)
+        total_r = (cum_r[-1].to(torch.int64) if nloc > 0
+                   else torch.zeros((), dtype=torch.int64, device=dev))
+        rvalid = rr < torch.clamp(total_r, max=max_rowruns)
+        x0r, x1r = row_tile_range(r[8:11].T, r[0:2].T, rbox, ty, tile_size,
+                                  coverage_q(r[11]))
+        wr = torch.where(rvalid, x1r - x0r, 0)
 
-    # Level 2: runs -> pairs.
-    cum2 = scan.cumsum_flat(wr)
-    starts2 = cum2 - wr
-    total = cum2[-1]
-    src14 = torch.cat([
-        r[0:3],                                         # x, y, ident
-        (ty * ntx + x0r).to(f32)[None],                 # first tile of run
-        starts2.to(f32)[None],
-        torch.ones((1, max_rowruns), dtype=f32, device=dev),   # hit flag
-        r[8:16],                                        # ca..op, f0..f3
-    ])                                                  # (14, MR)
-    p = expand.expand_ragged(src14, starts2, cum2, max_pairs)
-    slot = torch.arange(max_pairs, dtype=i32, device=dev)
-    valid = (slot < total) & (p[5] > 0.5)
-    tile_id = torch.where(valid, p[3].to(i32) + (slot - p[4].to(i32)),
-                          num_tiles)
+        # Level 2: runs -> pairs.
+        cum2 = scan.cumsum_flat(wr)
+        starts2 = cum2 - wr
+        total = cum2[-1]
+        src14 = torch.cat([
+            r[0:3],                                         # x, y, ident
+            (ty * ntx + x0r).to(f32)[None],                 # first tile of run
+            starts2.to(f32)[None],
+            torch.ones((1, max_rowruns), dtype=f32, device=dev),   # hit flag
+            r[8:16],                                        # ca..op, f0..f3
+        ])                                                  # (14, MR)
+        p = expand.expand_ragged(src14, starts2, cum2, max_pairs)
+        slot = torch.arange(max_pairs, dtype=i32, device=dev)
+        valid = (slot < total) & (p[5] > 0.5)
+        tile_id = torch.where(valid, p[3].to(i32) + (slot - p[4].to(i32)),
+                              num_tiles)
 
-    count_g = torch.where(starts_r < max_rowruns, count_g, 0)
-    exp_starts = scan.cumsum_flat(count_g) - count_g
+        count_g = torch.where(starts_r < max_rowruns, count_g, 0)
+        exp_starts = scan.cumsum_flat(count_g) - count_g
 
-    feat_rows = torch.tensor([0, 1, 6, 7, 8, 9, 10, 11, 12, 13], device=dev)
-    if with_gauss_idx:
-        # (tile, slot) order: a stable sort by tile keeps the slots, which
-        # ascend, in order.
-        tile_sorted, perm = torch.sort(tile_id, stable=True)
-        pair_valid = tile_sorted < num_tiles
-        feats = list(p.index_select(0, feat_rows).index_select(1, perm)
-                     .unbind(0))
-        g = torch.where(valid, p[2].to(i32), n)
-        extra = dict(gauss_idx=g.index_select(0, perm),
-                     exp_slot=torch.where(pair_valid, perm.to(i32),
-                                          max_pairs))
-    else:
-        # (tile, depth rank) order as one int64 key; dead slots tie at
-        # (num_tiles, n) and carry all-zero features.
-        rank_col = torch.where(valid, p[2], float(n))
-        key = tile_id.to(torch.int64) * (n + 1) + rank_col.to(torch.int64)
-        key_s, perm = torch.sort(key, stable=True)
-        tile_sorted = key_s // (n + 1)
-        pair_valid = tile_sorted < num_tiles
-        pf = p.index_select(0, feat_rows).index_select(1, perm)  # (10, MP)
-        feats = list(pf.unbind(0)) + [rank_col.index_select(0, perm)]
-        extra = {}
+        def feat_rows(perm):
+            # x, y, ca..op, f0..f3 in pair order
+            return torch.cat([p[0:2], p[6:14]]).index_select(1, perm)
 
-    bounds = torch.searchsorted(
-        tile_sorted,
-        torch.arange(num_tiles + 1, dtype=tile_sorted.dtype, device=dev),
-        side="left").to(i32)
-    bins = TileBins(
-        pair_valid=pair_valid,
-        tile_start=bounds[:-1],
-        tile_count=bounds[1:] - bounds[:-1],
-        num_pairs=true_pairs,
-        num_rowruns=total_r,
-        # The full depth order even for a window: the gradient reduce
-        # un-sorts full-N rank sums with it.
-        depth_order=order.to(i32),
-        exp_starts=exp_starts,
-        exp_counts=count_g,
-        num_tiles_x=ntx,
-        num_tiles_y=nty,
-        **extra,
-    )
-    return bins, feats
+        if with_gauss_idx:
+            # (tile, slot) order: a stable sort by tile keeps the slots, which
+            # ascend, in order.
+            tile_sorted, perm = torch.sort(tile_id, stable=True)
+            pair_valid = tile_sorted < num_tiles
+            feats = list(feat_rows(perm).unbind(0))
+            g = torch.where(valid, p[2].to(i32), n)
+            extra = dict(gauss_idx=g.index_select(0, perm),
+                         exp_slot=torch.where(pair_valid, perm.to(i32),
+                                              max_pairs))
+        else:
+            # (tile, depth rank) order as one int64 key; dead slots tie at
+            # (num_tiles, n) and carry all-zero features.
+            rank_col = torch.where(valid, p[2], float(n))
+            key = tile_id.to(torch.int64) * (n + 1) + rank_col.to(torch.int64)
+            key_s, perm = torch.sort(key, stable=True)
+            tile_sorted = key_s // (n + 1)
+            pair_valid = tile_sorted < num_tiles
+            pf = feat_rows(perm)                                # (10, MP)
+            feats = list(pf.unbind(0)) + [rank_col.index_select(0, perm)]
+            extra = {}
+
+        bounds = torch.searchsorted(
+            tile_sorted,
+            torch.arange(num_tiles + 1, dtype=tile_sorted.dtype, device=dev),
+            side="left").to(i32)
+        bins = TileBins(
+            pair_valid=pair_valid,
+            tile_start=bounds[:-1],
+            tile_count=bounds[1:] - bounds[:-1],
+            num_pairs=true_pairs,
+            num_rowruns=total_r,
+            # The full depth order even for a window: the gradient reduce
+            # un-sorts full-N rank sums with it.
+            depth_order=order.to(i32),
+            exp_starts=exp_starts,
+            exp_counts=count_g,
+            num_tiles_x=ntx,
+            num_tiles_y=nty,
+            **extra,
+        )
+        return bins, feats
 
 
 def bin_and_pack(

@@ -10,7 +10,8 @@ CPU.
   of the same camera.
 - python -m ...scripts.viewer --device cpu --port 0 on that run: the URL
   line, one frame, terminated.
-- profiling: stats of timed calls, and trace() writing a Chrome trace.
+- profiling: spans and their snapshot, and trace() writing a Chrome trace
+  and the spans' snapshot.
 """
 import dataclasses
 import io
@@ -260,30 +261,42 @@ def test_viewer_cli_serves_a_frame(live):
 
 
 def test_profiling_stats_and_trace(tmp_path):
+    """span / spanned / snapshot / reset, and trace() writing a Chrome
+    trace with the spans in it and their snapshot beside it."""
     profiling.reset()
 
-    @profiling.time_function
+    @profiling.spanned("work")
     def work(n):
-        return {"x": torch.arange(n).sum(), "y": [torch.ones(2)]}
+        with profiling.span("work.read", sync=True):
+            return int(torch.arange(n).sum())
 
-    @profiling.time_function(name="named")
-    def other():
-        return 3
-
-    for n in (10, 100):
-        assert int(work(n)["x"]) == n * (n - 1) // 2
-    assert other() == 3
-    st = profiling.stats()
-    assert set(st) == {work.__qualname__, "named"}
-    assert st[work.__qualname__]["count"] == 2 and st["named"]["count"] == 1
-    assert st["named"]["mean_ms"] >= 0 and st["named"]["last_ms"] >= 0
-    assert st[work.__qualname__]["total_s"] > 0
+    assert work(10) == 45                  # tracing off: nothing recorded
+    assert profiling.snapshot() == {}
+    profiling.enable(True)
+    try:
+        for n in (10, 100):
+            assert work(n) == n * (n - 1) // 2
+        with profiling.span("other"):
+            pass
+    finally:
+        profiling.enable(False)
+    st = profiling.snapshot()
+    assert set(st) == {"work", "work.read", "other"}
+    assert st["work"]["count"] == 2 and st["other"]["count"] == 1
+    assert st["work.read"]["parent"] == "work"
+    assert st["work"]["parent"] is None
+    assert st["work.read"]["syncs"] == 2 and "syncs" not in st["work"]
+    assert 0 <= st["work.read"]["wait_ms"] <= st["work"]["host_ms"]
+    assert st["other"]["device_ms"] is None          # no card
     profiling.reset()
-    assert profiling.stats() == {}
+    assert profiling.snapshot() == {}
 
     with profiling.trace(tmp_path / "trace") as prof:
         torch.randn(64, 64) @ torch.randn(64, 64)
+        work(5)
     trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
     names = {e.get("name") for e in trace["traceEvents"]}
-    assert "aten::mm" in names
+    assert {"aten::mm", "sgnt::work", "sgnt::work.read"} <= names
     assert any(e.key == "aten::mm" for e in prof.key_averages())
+    spans = json.loads((tmp_path / "trace" / "spans.json").read_text())
+    assert spans["work.read"]["syncs"] == 1 and spans["work"]["count"] == 1
