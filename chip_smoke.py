@@ -88,8 +88,9 @@ Phases, each printing one JSON line:
                 falling, both checkpoints, finite PSNR / SSIM / LPIPS, the
                 PSNR equal to a direct render of the restored state (1e-3
                 dB), a PNG per eval frame and head, the exported rows equal
-                to the active counts, kernels A-F launched in training and
-                A-D in eval + render (the counts set to 0 before each), no
+                to the active counts, kernels A-F and I launched in training
+                and A-D and I in eval + render (the counts set to 0 before
+                each), no
                 capacity overflow, the native COLMAP reader used. Prints the
                 trainer's construction split, steps/s, the refine pass,
                 checkpoint, eval_setup, eval, render and export times, the
@@ -142,8 +143,8 @@ Phases, each printing one JSON line:
                 at 960x540 and parks one more during the final step
                 (JPEGs of the ladder's sizes, rank 1 bound no port, every
                 frame bit for bit the single-device _viewer_render of the
-                same state, A-D counted in the frames and A-F in the
-                steps, no render_error, no overflow, both ranks exit 0),
+                same state, A-D and I counted in the frames and A-F and I
+                in the steps, no render_error, no overflow, both ranks exit 0),
                 then 20 steps with the viewer on and 20 off (steps/s
                 each, the hand-off's ms), each request's latency, the
                 gather's and the render's ms, each rank's peak memory;
@@ -166,8 +167,8 @@ Phases, each printing one JSON line:
                 scripts.train.main on FRONT with the combined seeds for
                 20 steps and scripts.eval.main: 200,000 seeds, 6 tracks,
                 each car's ply holding its returns, a finite loss, A-F
-                launched in training and A-D in eval (the counts set to
-                0 before each), no capacity overflow. Prints each tool's
+                and I launched in training and A-D and I in eval (the
+                counts set to 0 before each), no capacity overflow. Prints each tool's
                 seconds on the card and on the CPU, and for each JPEG the
                 pixels that Pillow's decode (segs, pcd2colmap) and
                 OpenCV's (the masks tool, as the reference) differ by;
@@ -194,8 +195,8 @@ Phases, each printing one JSON line:
                 statistics and moments exact and parameters within 1e-6;
                 kernels A-F of one train step at the final state against
                 their plain versions at phase 21's tolerances; the final
-                loss below the first; A-F launched in training (the counts
-                set to 0 before it). Prints each refine's counts, the
+                loss below the first; A-F and I launched in training (the
+                counts set to 0 before it). Prints each refine's counts, the
                 gaussians after it, its host and device ms, each capacity
                 growth and overflow with its step, steps/s before
                 densification, while densifying and past stop_split_at,
@@ -221,7 +222,12 @@ Phases, each printing one JSON line:
                 the pairs a rank owns; G and H counted for device launches
                 a call (1) and also timed behind a busy card, G beside
                 index_add_, H's float32 sum repeated 200 times over two
-                streams. A line of its own before the `kernels` line
+                streams; I (the row trim) on the eval render's and the
+                train render's own arguments, first, last and count
+                equal to the plain trim's, counted for device launches a
+                call (1), also timed behind a busy card, its bound the
+                bytes it reads and writes (52 a gaussian). A line of its
+                own before the `kernels` line
                 quotes the times rows A, E, D, F, G and H had before their
                 redesign; every number in the `kernels` line itself is
                 this run's. Each row's `launches` is the main path's;
@@ -855,7 +861,7 @@ def phase_main(seed: int, size: Size = FLAGSHIP, dev="cuda"):
     peak = torch.cuda.max_memory_allocated() if dev == "cuda" else None
 
     per_frame = {"flat_scan": 9, "expand_ragged": 6, "pack_feat_cols": 3,
-                 "composite_fwd": 3}
+                 "composite_fwd": 3, "row_trim": 3}
     for name, n in per_frame.items():
         if dev == "cuda" and launches[name] != n * len(cams):
             raise AssertionError(f"{name} launched {launches[name]} times "
@@ -977,7 +983,8 @@ def phase_train(seed: int, tracks, cfg, rcfg, cam, size: Size = FLAGSHIP,
     backwards = sum(2 if s else 1 for s in plan)
     expected = {"flat_scan": 3 * renders, "expand_ragged": 2 * renders,
                 "pack_feat_cols": renders, "composite_fwd": renders,
-                "composite_bwd": backwards, "rank_rowsum": backwards}
+                "composite_bwd": backwards, "rank_rowsum": backwards,
+                "row_trim": renders}
     for name, n in expected.items():
         if dev == "cuda" and launches[name] != n:
             raise AssertionError(f"train: {name} launched {launches[name]} "
@@ -1036,10 +1043,12 @@ def phase_train(seed: int, tracks, cfg, rcfg, cam, size: Size = FLAGSHIP,
 
 def capture_train(state, tracks, cfg, rcfg, cam, batch):
     """Inputs of kernels E and F in one full-width backward (one step's
-    full render), with the step's results."""
+    full render) and of kernel I in its binning, with the step's
+    results."""
     jitter = draw_pixel_jitter(cam, state.generator)
     recs = [Recorder(composite, "composite_bwd"),
-            Recorder(composite, "rank_rowsum")]
+            Recorder(composite, "rank_rowsum"),
+            Recorder(tiles, "_row_trim_counts")]
     for r in recs:
         r.__enter__()
     try:
@@ -1048,7 +1057,9 @@ def capture_train(state, tracks, cfg, rcfg, cam, batch):
     finally:
         for r in recs:
             r.__exit__()
-    return {r.name: r.calls for r in recs}, jitter, res
+    calls = {r.name: r.calls for r in recs}
+    calls["row_trim[train]"] = calls.pop("_row_trim_counts")
+    return calls, jitter, res
 
 
 def phase_train_stages(state, tracks, cfg, rcfg, cam, batch, calls, jitter,
@@ -1477,7 +1488,7 @@ def phase_sliced(state, tracks, cfg, rcfg, cams, batch, k: int = 2,
             "composite_fwd[t_in]": (k - 1) * renders,
             "composite_bwd": k * backwards,
             "composite_bwd[t_in]": (k - 1) * backwards,
-            "rank_rowsum": k * backwards})
+            "rank_rowsum": k * backwards, "row_trim": renders})
     for loss in losses:
         if not math.isfinite(loss):
             raise AssertionError(f"sliced_path: loss {loss}")
@@ -1612,7 +1623,7 @@ def phase_unfused(store, tracks, cfg, rcfg, cam, dev="cuda", reps: int = 3):
         check_launches("unfused_path", launches, {
             "flat_scan": 5, "composite_fwd": 1, "composite_bwd": 1,
             "segment_rowsum": 1, "expand_ragged": 0, "pack_feat_cols": 0,
-            "rank_rowsum": 0})
+            "rank_rowsum": 0, "row_trim": 0})
     bins, = last_bins
     n_pairs, n_runs = int(bins.num_pairs), int(bins.num_rowruns)
     if n_pairs > mp or n_runs > mr:
@@ -2042,12 +2053,10 @@ def phase_cli(seed: int, workdir: Path, clip: Clip = CLIP, dev="cuda"):
     if ply_rows != active or exported != active:
         fails.append(f"exported rows {ply_rows} / {exported}, active "
                      f"{active}")
-    for name in ("flat_scan", "expand_ragged", "pack_feat_cols",
-                 "composite_fwd", "composite_bwd", "rank_rowsum"):
+    for name in FUSED_KERNELS:
         if cuda and train_launches.get(name, 0) == 0:
             fails.append(f"training launched no {name}")
-    for name in ("flat_scan", "expand_ragged", "pack_feat_cols",
-                 "composite_fwd"):
+    for name in RENDER_KERNELS:
         if cuda and eval_launches.get(name, 0) == 0:
             fails.append(f"eval + render launched no {name}")
     if overflow:
@@ -2248,7 +2257,7 @@ def phase_splatfacto(seed: int, size: Size = FLAGSHIP, dev="cuda"):
         check_launches("splatfacto_path eval", eval_launches, {
             "flat_scan": 3 * len(cams), "expand_ragged": 2 * len(cams),
             "pack_feat_cols": len(cams), "composite_fwd": len(cams),
-            "composite_bwd": 0, "rank_rowsum": 0})
+            "composite_bwd": 0, "rank_rowsum": 0, "row_trim": len(cams)})
     acc_max = []
     for outputs, out in outs:
         for h, v in outputs.items():
@@ -2313,7 +2322,8 @@ def phase_splatfacto(seed: int, size: Size = FLAGSHIP, dev="cuda"):
     if dev == "cuda":
         check_launches("splatfacto_path train", train_launches, {
             "flat_scan": 9, "expand_ragged": 6, "pack_feat_cols": 3,
-            "composite_fwd": 3, "composite_bwd": 3, "rank_rowsum": 3})
+            "composite_fwd": 3, "composite_bwd": 3, "rank_rowsum": 3,
+            "row_trim": 3})
     moved = {}
     for k in sts.GAUSSIAN_GROUPS:
         new = getattr(state.store.params, k)
@@ -2500,7 +2510,8 @@ def phase_camopt(seed: int, tracks, cfg, rcfg, size: Size = FLAGSHIP,
         if dev == "cuda":
             check_launches(f"camopt_path {mode}", launches, {
                 "flat_scan": 9, "expand_ragged": 6, "pack_feat_cols": 3,
-                "composite_fwd": 3, "composite_bwd": 3, "rank_rowsum": 3})
+                "composite_fwd": 3, "composite_bwd": 3, "rank_rowsum": 3,
+                "row_trim": 3})
         cam_opt = state.opt["camera_opt"]
         acc = cam_opt.acc
         stepped = torch.zeros(8, dtype=torch.bool)
@@ -2704,7 +2715,8 @@ def phase_viewer(run: Path, dev="cuda"):
     n = len(requests)
     if cuda:
         for name, per in (("flat_scan", 9), ("expand_ragged", 6),
-                          ("pack_feat_cols", 3), ("composite_fwd", 3)):
+                          ("pack_feat_cols", 3), ("composite_fwd", 3),
+                          ("row_trim", 3)):
             if launches[name] != per * n:
                 fails.append(f"{name} launched {launches[name]} times for "
                              f"{n} frames of 3 renders")
@@ -2826,12 +2838,15 @@ def phase_viewer(run: Path, dev="cuda"):
 # bf16_path and mesh_path.
 # ---------------------------------------------------------------------------
 
-A_TO_F = ("flat_scan", "expand_ragged", "pack_feat_cols", "composite_fwd",
-          "composite_bwd", "rank_rowsum")
+# The kernels every fused render launches (A-D and the row trim, I), and
+# with those a fused training step's (E, F).
+RENDER_KERNELS = ("flat_scan", "expand_ragged", "pack_feat_cols",
+                  "composite_fwd", "row_trim")
+FUSED_KERNELS = RENDER_KERNELS + ("composite_bwd", "rank_rowsum")
 
 
-def check_a_to_f(phase: str, launches: dict) -> None:
-    missing = [k for k in A_TO_F if launches.get(k, 0) <= 0]
+def check_fused_kernels(phase: str, launches: dict) -> None:
+    missing = [k for k in FUSED_KERNELS if launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"{phase}: {missing} never launched")
 
@@ -2899,7 +2914,7 @@ def phase_bf16(seed: int, tracks, cfg, rcfg, size: Size = FLAGSHIP):
     (refined, info), refine_ms = timed(lambda: sts.scene_refine_step(
         st, cfg, NUM_TRAIN_DATA, max(size.width, size.height)))
     launches = read_launches()
-    check_a_to_f("bf16_path", launches)
+    check_fused_kernels("bf16_path", launches)
     for out in frames:
         for k, v in out.items():
             if not bool(torch.isfinite(v).all()):
@@ -3078,7 +3093,7 @@ def phase_mesh_unit(seed: int, cfg, rcfg, size: Size = FLAGSHIP):
             launches_single = read_launches()
             reset_launches()
     launches = read_launches()
-    check_a_to_f("mesh_path[(1,1)]", launches)
+    check_fused_kernels("mesh_path[(1,1)]", launches)
     a, b = runs["mesh"], runs["single"]
     loss_err = max(abs(x - y) for x, y in zip(a["losses"], b["losses"]))
     if loss_err > 2e-5:
@@ -3186,7 +3201,7 @@ def phase_mesh_shared(seed: int, cfg, rcfg, workdir: Path,
     for rk in ranks:
         for k, v in rk["launches"].items():
             launches[k] = launches.get(k, 0) + v
-    check_a_to_f("mesh_path[gloo]", launches)
+    check_fused_kernels("mesh_path[gloo]", launches)
     emit("mesh_path_shared", backend="gloo", world=2,
          card_shared_by_ranks=True, size=[size.width, size.height],
          mesh_2x1={"loss": loss, "loss_single_mean": loss_ref,
@@ -3224,7 +3239,7 @@ def phase_mesh_cli(run_dir: Path, clip_root: Path, steps: int = 20):
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t
     launches = read_launches()
-    check_a_to_f("mesh_path[cli]", launches)
+    check_fused_kernels("mesh_path[cli]", launches)
     ckpt = run_dir / "checkpoints" / f"step-{steps:09d}.ckpt.npz"
     if not ckpt.exists():
         raise AssertionError(f"mesh cli: no checkpoint {ckpt}")
@@ -3270,8 +3285,9 @@ def phase_mesh_viewer(clip_root: Path, workdir: Path, card: str,
     a server; every answered frame's uint8 rgb equal, bit for bit, to the
     single-device Trainer._viewer_render of the same state (gather_state
     at the same hand-off, which the harness makes every rank join); A-D
-    counted in the frames, A-F in the steps; no render_error, no capacity overflow; both
-    ranks exit 0 after the last-step request. Prints each request's
+    and I counted in the frames, A-F and I in the steps; no render_error,
+    no capacity overflow; both ranks exit 0 after the last-step request.
+    Prints each request's
     latency on the client's clock, the gather's and the render's ms per
     frame, steps/s with the viewer on against off, the on run's per-step
     hand-off ms and each rank's peak memory, beside `card`. Correctness
@@ -3338,10 +3354,11 @@ def phase_mesh_viewer(clip_root: Path, workdir: Path, card: str,
                      f"{frames[-1]['step']}")
     if r0["servers"] != [0] or r1["servers"] or r1["port"] is not None:
         fails.append(f"servers {r0['servers']} / {r1['servers']}")
-    missing = [k for k in A_TO_F[:4] if r0["frame_launches"].get(k, 0) <= 0]
+    missing = [k for k in RENDER_KERNELS
+               if r0["frame_launches"].get(k, 0) <= 0]
     steps_launches = {k: r0["step_launches"].get(k, 0)
-                      + r1["step_launches"].get(k, 0) for k in A_TO_F}
-    missing += [k for k in A_TO_F if steps_launches[k] <= 0]
+                      + r1["step_launches"].get(k, 0) for k in FUSED_KERNELS}
+    missing += [k for k in FUSED_KERNELS if steps_launches[k] <= 0]
     if missing and dev == "cuda":
         fails.append(f"never launched: {missing}")
     overflow = r0["overflow"] + r1["overflow"]
@@ -3718,8 +3735,8 @@ def phase_preprocess(seed: int, workdir: Path, clip: RawClip = RAW_CLIP,
     combined seeds for clip.steps steps and scripts.eval.main, the counts
     set to 0 before each. Checks: the outputs equal, 10,000 seeds a
     sweep, one ply per moving car holding its returns, as many tracks as
-    moving cars, a finite loss, kernels A-F launched in training and A-D
-    in eval, no capacity overflow. `card` (nvidia-smi's name and power
+    moving cars, a finite loss, kernels A-F and I launched in training
+    and A-D and I in eval, no capacity overflow. `card` (nvidia-smi's name and power
     limit) is printed beside the times. Returns the launch counts of
     both."""
     cuda = dev == "cuda"
@@ -3792,8 +3809,9 @@ def phase_preprocess(seed: int, workdir: Path, clip: RawClip = RAW_CLIP,
     if not losses or not np.isfinite(losses).all():
         fails.append(f"losses {losses}")
     if cuda:
-        for phase, launches, names in (("training", train_launches, A_TO_F),
-                                       ("eval", eval_launches, A_TO_F[:4])):
+        for phase, launches, names in (
+                ("training", train_launches, FUSED_KERNELS),
+                ("eval", eval_launches, RENDER_KERNELS)):
             fails += [f"{phase} launched no {k}" for k in names
                       if launches.get(k, 0) <= 0]
     if overflow:
@@ -4298,7 +4316,7 @@ def phase_schedule(seed: int, workdir: Path, random_bwd=None,
         fails.append(f"loss {losses[0]} -> {losses[-1]}")
     if any("render_error" in r for r in rows):
         fails.append("a render_error was logged")
-    for name in A_TO_F:
+    for name in FUSED_KERNELS:
         if cuda and launches.get(name, 0) == 0:
             fails.append(f"training launched no {name}")
     res = evaluated["results"]
@@ -4351,7 +4369,8 @@ def capture(store, tracks, cfg, rcfg, cam):
     op = torch.where(active, op, torch.zeros_like(op))
     recs = [Recorder(scan, "cumsum_flat"), Recorder(expand, "expand_ragged"),
             Recorder(composite, "pack_feat_cols"),
-            Recorder(composite, "composite_fwd")]
+            Recorder(composite, "composite_fwd"),
+            Recorder(tiles, "_row_trim_counts")]
     for r in recs:
         r.__enter__()
     try:
@@ -4360,7 +4379,9 @@ def capture(store, tracks, cfg, rcfg, cam):
     finally:
         for r in recs:
             r.__exit__()
-    return {r.name: r.calls for r in recs}
+    calls = {r.name: r.calls for r in recs}
+    calls["row_trim"] = calls.pop("_row_trim_counts")
+    return calls
 
 
 def _max_err(a, b):
@@ -4673,6 +4694,71 @@ def _bwd_row(name: str, call, launches: int, reps: int,
                 max_visited_in_a_tile=int(nvis.max()),
                 bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                 ops_bound_ms=ops / FP32_OPS_PER_S * 1e3, **extra)
+
+
+def _trim_row(calls, launches: int, train_launches: int, reps: int):
+    """Kernel I on the arguments the eval frame's render and the train
+    step's render handed it (strided views of the depth-sorted table, its
+    tile boxes and q): first, last and count equal to the plain trim's,
+    one device launch a call, its time, the plain trim's and its bound."""
+    ms = plain = queued_ms = nbytes = 0.0
+    shapes, per_call = [], []
+    names = ("conics", "xys", "box", "tile_size", "max_h", "q")
+    for key in ("row_trim", "row_trim[train]"):
+        for a, kw in calls[key]:
+            bound_args = dict(zip(names, a), **kw)
+            args = tuple(bound_args[k] for k in names)
+            conics, xys, box, tile_size, max_h, q = args
+            got = tiles._row_trim_counts(*args)
+            want = tiles._row_trim_counts_plain(*args)
+            for name, g, w in zip(("first", "last", "count"), got, want):
+                if not torch.equal(g, w):
+                    raise AssertionError(
+                        f"row_trim ({key}): {name} differs from the plain "
+                        f"trim at {int((g != w).sum())} gaussians (must be "
+                        f"exact)")
+            if not all(torch.equal(a, b) for a, b in zip(
+                    got, tiles._row_trim_counts(*args))):
+                raise AssertionError("row_trim: two launches differ")
+            n = conics.shape[0]
+            per_call.append(_cuda.captured_launches(
+                tiles.TRIM_KERNEL, lambda: tiles._row_trim_counts(*args)))
+            one = time_ms(lambda: tiles._row_trim_counts(*args), reps)
+            one_q = time_ms_queued(lambda: tiles._row_trim_counts(*args),
+                                   reps)
+            one_plain = time_ms(
+                lambda: tiles._row_trim_counts_plain(*args), reps)
+            ms += one
+            queued_ms += one_q
+            plain += one_plain
+            # Read: the conic 12, the centre 8, the box 16, q 4; written:
+            # first, last, count 12.
+            nbytes += 52 * n
+            shapes.append(dict(path=key, n=n, max_h=max_h,
+                               tile_size=tile_size, ms=one,
+                               ms_behind_a_busy_card=one_q,
+                               plain_ms=one_plain,
+                               pairs=int(want[2].sum()),
+                               box_rows=int((box[:, 3] - box[:, 2]).clamp(
+                                   0, max_h).sum())))
+    if (not calls["row_trim"] or not calls["row_trim[train]"]
+            or any(k != 1 for k in per_call)):
+        raise AssertionError(f"row_trim: {len(calls['row_trim'])} eval and "
+                             f"{len(calls['row_trim[train]'])} train calls "
+                             f"made {per_call} device launches, expected "
+                             f"calls from both, 1 launch each")
+    b, by = bound(nbytes)
+    return dict(name="row_trim", route="cuda",
+                source=_rel(_cuda.CSRC / tiles.TRIM_KERNEL.source),
+                replaces=tiles.TRIM_KERNEL.replaces,
+                launches=launches,
+                launches_on_train_path=train_launches,
+                max_abs_err=0.0,
+                tolerance="first, last and count exact; two launches "
+                          "bit-equal",
+                ms=ms, ms_behind_a_busy_card=queued_ms, plain_ms=plain,
+                bound_ms=b, bound_by=by, library_ms=None,
+                device_launches_per_call=per_call, shapes=shapes)
 
 
 def _rel(path) -> str:
@@ -5016,6 +5102,9 @@ def phase_kernels(calls, launches, train_launches, sliced_launches,
                      library_ms=lib,
                      library="torch.cummax / torch.cumsum along dim 0",
                      on_render_path=False, shapes=shapes))
+
+    rows.append(_trim_row(calls, launches["row_trim"],
+                          train_launches["row_trim"], reps))
     return rows
 
 

@@ -9,11 +9,10 @@ source is rebuilt. A missing nvcc or a failed build raises with the
 compiler's output; nothing falls back to the plain PyTorch versions.
 
 Each kernel wrapper (ops/scan.py, ops/expand.py, ops/composite.py,
-ops/segreduce.py)
-dispatches on the device of its tensors: CPU tensors run the plain
-PyTorch version beside it, CUDA tensors launch the kernel on the current
-stream or raise. The wrapper adds one to its Kernel's `launches` where it
-launches, and nowhere else.
+ops/segreduce.py, ops/tiles.py) dispatches on the device of its tensors:
+CPU tensors run the plain PyTorch version beside it, CUDA tensors launch
+the kernel on the current stream or raise. The wrapper adds one to its
+Kernel's `launches` where it launches, and nowhere else.
 """
 from __future__ import annotations
 
@@ -228,8 +227,11 @@ def is_cpu(*tensors: torch.Tensor) -> bool:
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype,
-          shape: tuple | None = None, ndim: int | None = None) -> None:
-    """Validate a kernel operand before its pointer is passed to C."""
+          shape: tuple | None = None, ndim: int | None = None,
+          strided_rows: bool = False) -> None:
+    """Validate a kernel operand before its pointer is passed to C.
+    strided_rows: a 2-d view whose rows may lie apart (the kernel takes the
+    row stride) but whose columns are adjacent."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if ndim is not None and t.dim() != ndim:
@@ -237,7 +239,11 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype,
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
                          f"{tuple(t.shape)}")
-    if not t.is_contiguous():
+    if strided_rows:
+        if t.dim() != 2 or (t.numel() and t.stride(1) != 1):
+            raise ValueError(f"{name}: needs 2 dims with a unit column "
+                             f"stride, got strides {t.stride()}")
+    elif not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
 
 

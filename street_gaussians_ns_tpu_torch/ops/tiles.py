@@ -14,7 +14,8 @@ order match it bit for bit):
      values, as in the JAX package; xy and the depth key stay float32;
   2. `_trim_full`: per gaussian the first/last tile row its coverage
      ellipse touches and its exact pair count
-     (core.projection.row_tile_range);
+     (core.projection.row_tile_range), kernel I on the card (one thread a
+     gaussian, `csrc/row_trim.cu`), the chunked broadcast on the CPU;
   3. `_bin_sorted`, on all ranks or on a depth-rank window of them:
      level 1, gaussians -> (gaussian, tile-row) runs — scan (kernel A) and
      ragged expansion (kernel B) of 16 rows; level 2, runs -> (gaussian,
@@ -36,6 +37,7 @@ ops.composite_scan).
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Optional
 
@@ -44,7 +46,7 @@ import torch
 
 from ..core.projection import Projected, coverage_q, row_tile_range
 from ..utils.profiling import span, spanned
-from . import expand, scan
+from . import _cuda, expand, scan
 from .packing import round_bf16
 
 PRECISIONS = ("f32", "bf16")
@@ -109,12 +111,24 @@ def bins_from_numpy(arrays: dict, device="cuda") -> TileBins:
                     num_tiles_y=int(arrays["num_tiles_y"]), **fields)
 
 
-@spanned("tiles.row_trim")
-def _row_trim_counts(conics, xys, box, tile_size: int, max_h: int, q):
-    """Per gaussian (first, last, count): box-relative indices of the
-    first/last tile row of nonzero width (-1 if none) and the total pair
-    count, from one (N, max_h) broadcast of the coverage predicate,
-    evaluated in chunks of gaussians."""
+TRIM_KERNEL = _cuda.register(_cuda.Kernel(
+    name="row_trim",
+    source="row_trim.cu",
+    replaces="none: street_gaussians_ns_tpu/ops/tiles.py:93 "
+             "_row_trim_counts is jnp code that XLA fuses",
+    entries={"sg_row_trim": (ctypes.c_void_p, ctypes.c_longlong,
+                             ctypes.c_void_p, ctypes.c_longlong,
+                             ctypes.c_void_p, ctypes.c_void_p,
+                             ctypes.c_void_p, ctypes.c_void_p,
+                             ctypes.c_void_p, ctypes.c_longlong,
+                             ctypes.c_int, ctypes.c_int, ctypes.c_void_p)},
+))
+
+
+def _row_trim_counts_plain(conics, xys, box, tile_size: int, max_h: int, q):
+    """_row_trim_counts as one (N, max_h) broadcast of the coverage
+    predicate, evaluated in chunks of gaussians: kernel I's specification,
+    and what the CPU runs."""
     n = conics.shape[0]
     dev = conics.device
     first = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -139,6 +153,43 @@ def _row_trim_counts(conics, xys, box, tile_size: int, max_h: int, q):
         last[sl] = torch.where(any_nz, l_, -1)
         cnt[sl] = w.sum(dim=1, dtype=torch.int32)
     return first, last, cnt
+
+
+def _row_trim_kernel(conics, xys, box, tile_size: int, max_h: int, q):
+    """Kernel I: one launch on the current stream. conics (N, 3) and xys
+    (N, 2) float32 may be row-strided views (a unit column stride), as the
+    columns of the depth-sorted table are; box (N, 4) int32 contiguous, q
+    (N,) float32."""
+    n = conics.shape[0]
+    _cuda.check(conics, "conics", torch.float32, shape=(n, 3),
+                strided_rows=True)
+    _cuda.check(xys, "xys", torch.float32, shape=(n, 2), strided_rows=True)
+    _cuda.check(box, "box", torch.int32, shape=(n, 4))
+    _cuda.check(q, "q", torch.float32, shape=(n,))
+    if box.data_ptr() % 16:
+        raise ValueError("box: must start on a 16-byte boundary")
+    # Three allocations, not one (3, N): a caller that drops the count
+    # early frees it, as with the plain version.
+    first, last, cnt = (torch.empty((n,), dtype=torch.int32,
+                                    device=conics.device) for _ in range(3))
+    TRIM_KERNEL.launch("sg_row_trim", _cuda.ptr(conics), conics.stride(0),
+                       _cuda.ptr(xys), xys.stride(0), _cuda.ptr(box),
+                       _cuda.ptr(q), _cuda.ptr(first), _cuda.ptr(last),
+                       _cuda.ptr(cnt), n, tile_size, max_h,
+                       _cuda.stream(conics))
+    return first, last, cnt
+
+
+@spanned("tiles.row_trim")
+def _row_trim_counts(conics, xys, box, tile_size: int, max_h: int, q):
+    """Per gaussian (first, last, count): box-relative indices of the
+    first/last tile row of nonzero width (-1 if none) and the total pair
+    count, over the box's first max_h rows. CUDA tensors launch kernel I
+    (`csrc/row_trim.cu`), CPU tensors run the plain broadcast; the two
+    agree bit for bit on the card."""
+    if _cuda.is_cpu(conics, xys, box, q):
+        return _row_trim_counts_plain(conics, xys, box, tile_size, max_h, q)
+    return _row_trim_kernel(conics, xys, box, tile_size, max_h, q)
 
 
 @spanned("tiles.depth_sort")

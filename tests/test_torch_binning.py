@@ -12,11 +12,12 @@ import pytest
 import torch
 
 from street_gaussians_ns_tpu.ops import tiles as jtiles
-from street_gaussians_ns_tpu_torch.core.projection import Projected
+from street_gaussians_ns_tpu_torch.core.projection import Projected, coverage_q
 from street_gaussians_ns_tpu_torch.ops import tiles as ttiles
 
 from test_fused_binning import _project
 from test_pallas_composite import make_scene
+from trim_cases import table as trim_table
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -117,3 +118,33 @@ def test_count_pairs_matches_jax():
         got = ttiles.count_pairs(tp, 50, 37, 16,
                                  opacities=None if op is None else T(op))
         assert [int(v) for v in got] == [int(v) for v in want]
+
+
+@pytest.mark.parametrize("n,width,height,trim_elems", [
+    (0, 1600, 1056, None),
+    (1, 1600, 1056, None),
+    (255, 1600, 1056, None),
+    (257, 480, 270, None),
+    (3000, 1600, 1056, None),             # max_h 66
+    (3000, 480, 270, None),               # max_h 17
+    (3000, 480, 270, 1000),               # chunks of 58 gaussians
+    ((1 << 23) // 66 + 257, 1600, 1056, None),   # past the first chunk
+])
+def test_row_trim_matches_jax(monkeypatch, n, width, height, trim_elems):
+    """The plain trim, kernel I's specification, against the JAX package's
+    on trim_cases' rows: (first, last, count) exact."""
+    if trim_elems is not None:
+        monkeypatch.setattr(ttiles, "_TRIM_ELEMS", trim_elems)
+    max_h = -(-height // 16)
+    tab, box = trim_table(np.random.default_rng(n + width), n, width, height)
+    q = coverage_q(T(tab[:, 5]))
+    got = ttiles._row_trim_counts(T(tab)[:, 2:5], T(tab)[:, 0:2], T(box), 16,
+                                  max_h, q)
+    want = jtiles._row_trim_counts(jnp.asarray(tab[:, 2:5]),
+                                   jnp.asarray(tab[:, 0:2]),
+                                   jnp.asarray(box), 16, max_h,
+                                   jnp.asarray(q.numpy()))
+    for name, g, w in zip(("first", "last", "count"), got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+    if n >= 3000:
+        assert int(got[2].sum()) > n and int((got[0] > 0).sum()) > 0

@@ -24,19 +24,24 @@ int32 exact, the float32 sum at rtol 1e-5 of the column's largest running
 magnitude against float64, bit for bit their model, one device launch a
 call, 200 launches over two streams equal. The compositors' t_in
 mode is held as the plain launches are; a tile0 strip must equal the same
-tiles of the full launch bit for bit."""
+tiles of the full launch bit for bit. The row trim (kernel I) equals its
+plain version bit for bit in first, last and count, on every input
+(tests/trim_cases.py), in one device launch a call."""
 import numpy as np
 import pytest
 import torch
 
 from street_gaussians_ns_tpu_torch.core.cameras import Camera, viewmat_from_c2w
-from street_gaussians_ns_tpu_torch.core.projection import project
+from street_gaussians_ns_tpu_torch.core.projection import (_floor_int,
+                                                          coverage_q,
+                                                          project)
 from street_gaussians_ns_tpu_torch.ops import (_cuda, composite, expand, scan,
-                                               segreduce)
+                                               segreduce, tiles)
 from street_gaussians_ns_tpu_torch.ops.tiles import bin_and_pack
 from test_torch_redesign_df import F_CASES, _case, ranksum_model
 from test_torch_redesign_gh import (G_CASES, g_case, h_rows, rowscan_model,
                                     segsum_model)
+from trim_cases import table as trim_table
 
 
 @pytest.fixture
@@ -841,6 +846,15 @@ def test_wrappers_raise_on_bad_cuda_input(cuda):
     with pytest.raises(ValueError):
         expand.expand_ragged(torch.zeros((2, 4), device=cuda), x[:4].cpu(),
                              x[:4], 4)              # mixed devices
+    tab = torch.zeros((4, 10), device=cuda)
+    box = torch.zeros((4, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):                 # a column stride of 2
+        tiles._row_trim_counts(tab[:, 2:8:2], tab[:, 0:2], box, 16, 4,
+                               tab[:, 5].contiguous())
+    with pytest.raises(ValueError):                 # box not contiguous
+        tiles._row_trim_counts(tab[:, 2:5], tab[:, 0:2],
+                               torch.cat([box, box], 1)[:, ::2], 16, 4,
+                               tab[:, 5].contiguous())
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -860,9 +874,139 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 def test_library_is_keyed_by_the_sources():
 
     paths = {k.library_path() for k in _cuda.KERNELS}
-    assert len(paths) == len(_cuda.KERNELS) == 8
+    assert len(paths) == len(_cuda.KERNELS) == 9
     for k in _cuda.KERNELS:
         p = k.library_path()
         assert p.parent == _cuda.BUILD_DIR and p.suffix == ".so"
         assert p.name.startswith(k.source.split(".")[0] + "-")
         assert (_cuda.CSRC / k.source).exists()
+
+
+@pytest.mark.parametrize("view,error", [
+    ("contiguous", None),
+    ("columns of a table", None),       # rows 10 floats apart
+    ("one row", None),
+    ("no rows", None),
+    ("column stride 2", ValueError),
+    ("flat", ValueError),
+    ("float64", TypeError),
+])
+def test_check_takes_strided_rows_with_adjacent_columns(view, error):
+    """_cuda.check(strided_rows=True), as kernel I's wrapper checks the
+    conics and centres: rows may lie apart, a row's values may not."""
+    tab = torch.arange(40, dtype=torch.float32).reshape(4, 10)
+    t = {"contiguous": tab[:, :3].contiguous(),
+         "columns of a table": tab[:, 2:5], "one row": tab[:1, 2:5],
+         "no rows": tab[:0, 2:5], "column stride 2": tab[:, 2:8:2],
+         "flat": tab[:, 2:5].reshape(-1)[:3],
+         "float64": tab[:, 2:5].double()}[view]
+    n = t.shape[0] if t.dim() == 2 else 3
+    if error is None:
+        _cuda.check(t, "conics", torch.float32, shape=(n, 3),
+                    strided_rows=True)
+    else:
+        with pytest.raises(error):
+            _cuda.check(t, "conics", torch.float32, strided_rows=True)
+    if view == "columns of a table":
+        with pytest.raises(ValueError):      # the default wants contiguous
+            _cuda.check(t, "conics", torch.float32, shape=(4, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,width,height,tile", [
+    (1_179_648, 1600, 1056, 16),    # the cells' N: max_h 66
+    (1_179_648, 480, 270, 16),      # max_h 17
+    (0, 1600, 1056, 16),
+    (1, 1600, 1056, 16),
+    (255, 1600, 1056, 16),
+    (257, 480, 270, 16),
+    (70_001, 1600, 1056, 12),       # a tile size whose reciprocal rounds
+])
+def test_row_trim_kernel_matches_plain(cuda, n, width, height, tile):
+    """Kernel I against the plain trim on the card, bit for bit, on
+    strided views of an (N, 10) table as _trim_full passes them; one
+    launch a call."""
+    tab, box = trim_table(np.random.default_rng(n + width), n, width,
+                          height, tile)
+    tab = torch.from_numpy(tab).to(cuda)
+    box = torch.from_numpy(box).to(cuda)
+    q = coverage_q(tab[:, 5])
+    max_h = -(-height // tile)
+    args = (tab[:, 2:5], tab[:, 0:2], box, tile, max_h, q)
+    before = tiles.TRIM_KERNEL.launches
+    got = tiles._row_trim_counts(*args)
+    assert tiles.TRIM_KERNEL.launches == before + 1
+    want = tiles._row_trim_counts_plain(*args)
+    for name, g, w in zip(("first", "last", "count"), got, want):
+        assert g.dtype == torch.int32 and g.shape == (n,)
+        assert torch.equal(g, w), (
+            name, int((g != w).sum()), torch.nonzero(g != w)[:8].tolist())
+    if n >= 70_000:
+        assert int(want[2].sum()) > n and int((want[0] > 0).sum()) > 0
+        assert _cuda.captured_launches(
+            tiles.TRIM_KERNEL, lambda: tiles._row_trim_counts(*args)) == 1
+
+
+@pytest.mark.cuda
+def test_floor_int_on_the_card_saturates_as_the_explicit_form(cuda):
+    """core/projection._floor_int's card branch (the bare conversion)
+    against its explicit CPU form: NaN to 0, values past int32's ends
+    saturated, every finite value in range unchanged."""
+    edges = torch.tensor([float("nan"), float("inf"), -float("inf"), 3e38,
+                          -3e38, 2.0 ** 31, -2.0 ** 31, 2.0 ** 31 - 128,
+                          -2.0 ** 31 - 256, 0.5, -0.5, -1e-30, 1e-30])
+    x = torch.cat([edges, torch.randn(100_000) * 4e9,
+                   torch.randn(100_000) * 3000.0])
+    got = _floor_int(x.to(cuda)).cpu()
+    want = _floor_int(x)
+    assert got.dtype == want.dtype == torch.int32
+    assert torch.equal(got, want), torch.nonzero(got != want)[:8].tolist()
+    assert want[:7].tolist() == [0, 2 ** 31 - 1, -2 ** 31, 2 ** 31 - 1,
+                                 -2 ** 31, 2 ** 31 - 1, -2 ** 31]
+
+
+@pytest.mark.cuda
+def test_binning_same_with_kernel_and_plain_trim(cuda, monkeypatch):
+    """bin_and_pack and count_pairs on the card give the same TileBins,
+    feature columns and counts with kernel I as with the plain trim."""
+    rng = np.random.default_rng(7)
+    n, w, h = 60_000, 640, 360
+    means = np.concatenate([rng.standard_normal((n, 2)) * 2.0,
+                            -rng.random((n, 1)) * 8.0 - 2.0], 1)
+    qt = rng.standard_normal((n, 4))
+    args = [torch.tensor(a, dtype=torch.float32, device=cuda) for a in (
+        means, np.exp(rng.standard_normal((n, 3)) * 0.5 - 2.5),
+        qt / np.linalg.norm(qt, axis=1, keepdims=True))]
+    op = torch.tensor(rng.random(n) * 0.9 + 0.05, dtype=torch.float32,
+                      device=cuda)
+    colors = torch.tensor(rng.random((n, 4)), dtype=torch.float32,
+                          device=cuda)
+    cam = Camera.make(300.0, 300.0, w / 2, h / 2, np.eye(3, 4), w, h,
+                      device=cuda)
+    p = project(*args, viewmat_from_c2w(cam.c2w), cam.fx, cam.fy, cam.cx,
+                cam.cy, w, h, opacities=op)
+    depth_key = torch.where(p.num_tiles_hit > 0, p.depths,
+                            torch.full_like(p.depths, float("inf")))
+
+    def run():
+        bins, feats = bin_and_pack(p.xys, p.conics, p.tile_box, depth_key,
+                                   colors, op, w, h, 16, 1 << 20)
+        return bins, feats, tiles.count_pairs(p, w, h, 16, opacities=op)
+
+    before = tiles.TRIM_KERNEL.launches
+    kb, kf, kc = run()
+    assert tiles.TRIM_KERNEL.launches == before + 2
+    monkeypatch.setattr(tiles, "_row_trim_counts",
+                        tiles._row_trim_counts_plain)
+    pb, pf, pc = run()
+    assert tiles.TRIM_KERNEL.launches == before + 2
+    assert 0 < int(kb.num_pairs) <= 1 << 20
+    for name in tiles._TENSOR_FIELDS:
+        a, b = getattr(kb, name), getattr(pb, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert torch.equal(a, b), name
+    assert len(kf) == len(pf) == 11
+    for i, (a, b) in enumerate(zip(kf, pf)):
+        assert torch.equal(a, b), f"feature column {i}"
+    assert [int(v) for v in kc] == [int(v) for v in pc]
