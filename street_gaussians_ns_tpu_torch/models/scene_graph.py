@@ -22,7 +22,7 @@ import torch
 from ..core import quaternions as quat
 from ..core.cameras import Camera
 from ..ops.render import RenderConfig, render
-from ..utils.profiling import spanned
+from ..utils.profiling import span, spanned
 from .camera_opt import exp_map_SE3, exp_map_SO3xR3
 from .fourier import fourier_dc
 from .gaussians import GaussianStore
@@ -155,10 +155,11 @@ def interpolate_boxes(tracks: ObjectTracks, t: torch.Tensor,
     visible = visible & in_range
 
     frame_pos = i0[0].to(torch.float32) + w
-    span = tracks.obj_last - tracks.obj_first
+    frames = tracks.obj_last - tracks.obj_first
     t_norm = torch.where(
-        span > 0, (frame_pos - tracks.obj_first) / torch.clamp(span, min=1e-6),
-        torch.ones_like(span))
+        frames > 0,
+        (frame_pos - tracks.obj_first) / torch.clamp(frames, min=1e-6),
+        torch.ones_like(frames))
 
     if delta_center is not None and mode != "off":
         fi = torch.where(exact1, i1, i0)
@@ -245,14 +246,17 @@ def compose(store: SceneGraphStore, tracks: ObjectTracks, time: torch.Tensor,
     obj = store.objects
     mode = config.bbox_mode if config is not None else "simple"
     diff = config.bbox_differentiable if config is not None else False
-    boxes = interpolate_boxes(
-        tracks, time,
-        delta_center=store.delta_center if store.delta_center.numel() else None,
-        delta_yaw=store.delta_yaw if store.delta_yaw.numel() else None,
-        delta_rot=store.delta_rot if store.delta_rot.numel() else None,
-        mode=mode, differentiable=diff)
-    means_w, quats_w = object2world(obj.params.means, obj.params.quats, boxes)
-    dc_obj = fourier_dc(obj.params.features_dc, boxes.t_norm)
+    with span("scene.pose"):
+        boxes = interpolate_boxes(
+            tracks, time,
+            delta_center=(store.delta_center if store.delta_center.numel()
+                          else None),
+            delta_yaw=store.delta_yaw if store.delta_yaw.numel() else None,
+            delta_rot=store.delta_rot if store.delta_rot.numel() else None,
+            mode=mode, differentiable=diff)
+        means_w, quats_w = object2world(obj.params.means, obj.params.quats,
+                                        boxes)
+        dc_obj = fourier_dc(obj.params.features_dc, boxes.t_norm)
     dc_bg = fourier_dc(bg.params.features_dc,
                        torch.zeros((), device=bg.active.device))
 

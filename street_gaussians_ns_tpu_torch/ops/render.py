@@ -26,7 +26,7 @@ import torch
 
 from ..core.cameras import Camera, viewmat_from_c2w
 from ..core.projection import Projected, project
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from .composite import rasterize_tiles_fused, rasterize_tiles_pallas
 from .composite_chunked import rasterize_tiles_chunked
 from .composite_scan import rasterize_tiles_scan
@@ -129,6 +129,7 @@ def rasterize(proj: Projected, colors: torch.Tensor, opacities: torch.Tensor,
         num_pairs, num_rowruns, densest = (int(v) for v in torch.stack(
             [bins.num_pairs, bins.num_rowruns,
              bins.max_tile_count.to(torch.int64)]).tolist())
+    count("render.pairs", num_pairs)
     if (num_pairs > config.max_pairs
             or num_rowruns > config.rowrun_capacity):
         warnings.warn(

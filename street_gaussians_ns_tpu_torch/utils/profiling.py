@@ -17,13 +17,15 @@ events are read in `snapshot()`, never on the hot path). Its parent is
 the innermost span open on the same thread (autograd's backward runs on a
 thread of its own on the card). `sync=True` marks a place where the host
 blocks on the card; such a span also counts as a host sync and its host
-time as time waited.
+time as time waited. `count(name, value)` adds a host number the program
+already holds to a counter, under the same switch (off: one check).
 
 `snapshot()` synchronises and returns, by span name, `count`, `host_ms`,
 `device_ms` (the elapsed device time between the span's two stream
 markers, busy and idle alike, so spans that partition a unit sum to its
 device timeline; None without CUDA), `parent` and, for sync spans,
-`syncs` and `wait_ms`. The registry records only while tracing is on;
+`syncs` and `wait_ms`; for a counter, `count` (calls), `total` (the sum of
+its values) and `parent`. The registry records only while tracing is on;
 `reset()` clears it. `trace(dir)` resets it, records the CPU's and the
 card's activity under torch.profiler and writes <dir>/trace.json (Chrome
 trace) and <dir>/spans.json (the snapshot).
@@ -64,6 +66,7 @@ class _Registry:
         self.on = False
         self.lock = threading.Lock()
         self.stats = {}
+        self.counters = {}       # name -> [calls, total, parent]
         self.pending = []        # (stat, start event, end event)
         self.pool = []
         self.local = threading.local()
@@ -91,6 +94,16 @@ class _Registry:
                 self.pending.append((st,) + events)
                 if len(self.pending) >= _FOLD_AT:
                     self._fold(wait=False)
+
+    def add_count(self, name, value):
+        st = self.stack()
+        parent = st[-1].name if st else None
+        with self.lock:
+            row = self.counters.get(name)
+            if row is None:
+                row = self.counters[name] = [0, 0, parent]
+            row[0] += 1
+            row[1] += value
 
     def _fold(self, wait: bool):
         """Read the pending event pairs, oldest first: all of them (the
@@ -184,10 +197,20 @@ def spanned(name: str, sync: bool = False):
     return wrap
 
 
+def count(name: str, value) -> None:
+    """Add `value`, a host number, to the counter `name` while tracing is
+    on; its parent is the innermost span open on this thread. Off, one
+    check and nothing else."""
+    if not (_REG.on or _profiler_enabled()):
+        return
+    _REG.add_count(name, value)
+
+
 def snapshot() -> dict:
     """{name: {"count", "host_ms", "device_ms", "parent"[, "syncs",
-    "wait_ms"]}} of everything recorded since reset(); waits for the card
-    first when spans recorded CUDA events."""
+    "wait_ms"]}} of every span and {name: {"count", "total", "parent"}}
+    of every counter recorded since reset(); waits for the card first
+    when spans recorded CUDA events."""
     with _REG.lock:
         if _REG.pending:
             torch.cuda.synchronize()
@@ -199,6 +222,8 @@ def snapshot() -> dict:
             if st.sync:
                 row.update(syncs=st.count, wait_ms=1e3 * st.host_s)
             out[name] = row
+        for name, (calls, total, parent) in _REG.counters.items():
+            out[name] = {"count": calls, "total": total, "parent": parent}
         return out
 
 
@@ -206,6 +231,7 @@ def reset() -> None:
     """Clear the registry (pending events are dropped unread)."""
     with _REG.lock:
         _REG.stats.clear()
+        _REG.counters.clear()
         _REG.pool += [e for _, e0, e1 in _REG.pending for e in (e0, e1)]
         _REG.pending.clear()
 

@@ -56,12 +56,14 @@ REFINE_STEP = 100                # a refine and a capacity check follow it
 R = "render.rasterize"
 RENDER = {"render.project": None, R: None, "tiles.depth_sort": R,
           "tiles.row_trim": R, "tiles.bin_rest": R, "composite.pack": R,
-          "composite.fwd": R, "render.read_counts": R}
+          "composite.fwd": R, "render.read_counts": R, "render.pairs": R}
 STEP = {"step.forward": None, "step.backward": None, "step.adam": None,
         "step.stats": None, "scene.sh": "step.forward",
         "scene.sky": "step.forward", "composite.bwd": "step.backward",
         "composite.visited": "composite.bwd",
         **{k: v or "step.forward" for k, v in RENDER.items()}}
+COMPOSE = {"scene.compose": "step.forward", "scene.pose": "scene.compose"}
+COUNTERS = {"render.pairs"}
 SYNCS = {"render.read_counts", "composite.visited", "trainer.target_copy",
          "trainer.capacity_check", "trainer.log_scalars", "refine.nonzero"}
 
@@ -75,7 +77,10 @@ def _parents_and_counts(snap, parents, counts):
         if name in SYNCS:
             assert row["syncs"] == row["count"]
             assert row["wait_ms"] == row["host_ms"] >= 0.0
-        assert row["device_ms"] is None     # no card
+        if name in COUNTERS:
+            assert set(row) == {"count", "total", "parent"}, name
+        else:
+            assert row["device_ms"] is None     # no card
 
 
 @pytest.fixture(autouse=True)
@@ -193,7 +198,7 @@ def test_trainer_loop_spans(cpu_run):
     loop = {"trainer.draw": None, "trainer.target_copy": None,
             "trainer.refine": None, "refine.nonzero": "trainer.refine",
             "trainer.capacity_check": None, "trainer.log_scalars": None,
-            "scene.compose": "step.forward"}
+            **COMPOSE}
     # image and semantic copied one after the other; the background's
     # refine finds free slots and valid children
     _parents_and_counts(snap, {**STEP, **loop},
@@ -204,7 +209,7 @@ def test_trainer_loop_spans(cpu_run):
 def test_scene_step_and_splatfacto_step_spans(cpu_run):
     batch = _batch("cpu")
     snap, _ = _profiled(lambda: _scene_step(cpu_run["scene"], batch))
-    _parents_and_counts(snap, {**STEP, "scene.compose": "step.forward"}, {})
+    _parents_and_counts(snap, {**STEP, **COMPOSE}, {})
     snap, _ = _profiled(lambda: _splat_step(cpu_run["splat"], batch))
     _parents_and_counts(snap, STEP, {})
     assert sum(r.get("syncs", 0) for r in snap.values()) == 2
@@ -212,8 +217,8 @@ def test_scene_step_and_splatfacto_step_spans(cpu_run):
 
 def test_eval_frame_spans_nest_in_the_chrome_trace(cpu_run, tmp_path):
     snap, prof = _profiled(lambda: _eval_frame(cpu_run["scene"]))
-    parents = {"scene.compose": None, "scene.sh": None, "scene.sky": None,
-               **RENDER}
+    parents = {"scene.compose": None, "scene.pose": "scene.compose",
+               "scene.sh": None, "scene.sky": None, **RENDER}
     _parents_and_counts(snap, parents,
                         {k: 3 for k in RENDER})       # three renders
     path = tmp_path / "trace.json"
@@ -223,11 +228,12 @@ def test_eval_frame_spans_nest_in_the_chrome_trace(cpu_run, tmp_path):
                  and e.get("name", "").startswith(profiling.PREFIX)),
                 key=lambda e: (e["ts"], -e["dur"]))
     names = [e["name"][len(profiling.PREFIX):] for e in ev]
-    assert names[:3] == ["scene.compose", "scene.sh", "scene.sky"]
+    assert names[:4] == ["scene.compose", "scene.pose", "scene.sh",
+                         "scene.sky"]
     render = ["render.project", R, "tiles.depth_sort", "tiles.row_trim",
               "tiles.bin_rest", "composite.pack", "composite.fwd",
               "render.read_counts"]
-    assert names[3:] == render * 3
+    assert names[4:] == render * 3
     # Each event lies inside its parent's, the last one of that name
     # opened before it.
     for i, e in enumerate(ev):
@@ -249,6 +255,39 @@ def test_trace_writes_spans_json(cpu_run, tmp_path):
     names = {e.get("name") for e in json.loads(
         (tmp_path / "t" / "trace.json").read_text())["traceEvents"]}
     assert "sgnt::tiles.row_trim" in names
+
+
+def test_pose_span_and_pairs_counter(cpu_run):
+    """`scene.pose` records once a compose, inside it; the counter
+    `render.pairs` adds the pair count each render read to the host: a
+    scene step's one render gives the step's own num_pairs, an eval
+    frame's three renders three counts."""
+    batch = _batch("cpu")
+    out = {}
+    snap, _ = _profiled(lambda: out.update(
+        step=_scene_step(cpu_run["scene"], batch)))
+    metrics = out["step"][1]
+    assert snap["scene.pose"]["count"] == snap["scene.compose"]["count"] == 1
+    assert snap["render.pairs"] == {"count": 1, "parent": R,
+                                    "total": int(metrics["num_pairs"])}
+    snap, _ = _profiled(lambda: out.update(frame=_eval_frame(
+        cpu_run["scene"])))
+    full = int(out["frame"][1].bins.num_pairs)
+    assert snap["scene.pose"]["count"] == 1
+    assert snap["render.pairs"]["count"] == 3
+    assert snap["render.pairs"]["total"] > full > 0
+
+
+def test_counter_off_records_nothing():
+    profiling.count("render.pairs", 7)
+    assert profiling.snapshot() == {}
+    profiling.enable(True)
+    profiling.count("render.pairs", 7)
+    profiling.count("render.pairs", 5)
+    profiling.enable(False)
+    profiling.count("render.pairs", 100)
+    assert profiling.snapshot() == {
+        "render.pairs": {"count": 2, "total": 12, "parent": None}}
 
 
 def test_threads_share_the_registry_without_losing_a_span():
@@ -332,9 +371,29 @@ def test_every_host_wait_is_a_sync_span(cuda, tmp_path, monkeypatch):
         torch.cuda.synchronize()
         syncs, warned, snap = _syncs_and_warnings(fn)
         seen[name], where[name] = (syncs, len(warned)), warned
-        assert all(r["device_ms"] is not None for r in snap.values())
+        assert all(r["device_ms"] is not None for k, r in snap.items()
+                   if k not in COUNTERS)
     print("syncs / synchronising operations:", seen)
     for name, (s, w) in seen.items():
         assert s == w, (name, s, where[name])
     assert seen["eval frame"] == (3, 3)
     assert seen["splatfacto step"] == (2, 2)
+
+
+@pytest.mark.cuda
+def test_pose_span_and_pairs_counter_on_the_card(cuda):
+    """On the card: `scene.pose` records once a compose with its device
+    time, `render.pairs` equals the count the step's render read, and a
+    scene step still makes two host syncs (the counter adds none)."""
+    scene, batch = _scene(cuda), _batch(cuda)
+    _scene_step(scene, batch)                  # warm-up
+    torch.cuda.synchronize()
+    out = {}
+    syncs, warned, snap = _syncs_and_warnings(
+        lambda: out.update(step=_scene_step(scene, batch)))
+    assert (syncs, len(warned)) == (2, 2), warned
+    assert snap["scene.pose"]["count"] == snap["scene.compose"]["count"] == 1
+    assert snap["scene.pose"]["parent"] == "scene.compose"
+    assert snap["scene.pose"]["device_ms"] is not None
+    assert snap["render.pairs"]["count"] == 1
+    assert snap["render.pairs"]["total"] == int(out["step"][1]["num_pairs"])
