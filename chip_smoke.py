@@ -226,7 +226,16 @@ Phases, each printing one JSON line:
                 train render's own arguments, first, last and count
                 equal to the plain trim's, counted for device launches a
                 call (1), also timed behind a busy card, its bound the
-                bytes it reads and writes (52 a gaussian). A line of its
+                bytes it reads and writes (52 a gaussian); J (the SH
+                colour) on the eval frame's and the train step's own
+                arguments, its colours equal to the k-order formulation
+                (tests/sh_cases.k_order) bit for bit and to the einsum's
+                within 2e-6, its gradients equal to autograd's through
+                both (the einsum's where its sum is on the same side of
+                the clamp), one device launch a call each way, forward
+                and backward also behind a busy card, beside the plain
+                path and the einsum alone, its bounds the bytes each way
+                reads and writes (217 a slot at degree 3). A line of its
                 own before the `kernels` line
                 quotes the times rows A, E, D, F, G and H had before their
                 redesign; every number in the `kernels` line itself is
@@ -256,6 +265,7 @@ import urllib.parse
 import urllib.request
 import warnings
 from pathlib import Path
+from types import SimpleNamespace
 from typing import Optional
 
 import numpy as np
@@ -269,6 +279,7 @@ from street_gaussians_ns_tpu_torch.core.cameras import (  # noqa: E402
 from street_gaussians_ns_tpu_torch.core.cameras import viewmat_from_c2w  # noqa: E402
 from street_gaussians_ns_tpu_torch.core.projection import (  # noqa: E402
     coverage_q, project)
+from street_gaussians_ns_tpu_torch.core.sh import sh_basis  # noqa: E402
 from street_gaussians_ns_tpu_torch.data import colmap_io  # noqa: E402
 from street_gaussians_ns_tpu_torch.data.ply_io import (  # noqa: E402
     read_ply, write_ply)
@@ -292,6 +303,7 @@ from street_gaussians_ns_tpu_torch.models.splatfacto import (  # noqa: E402
 from street_gaussians_ns_tpu_torch.ops import _cuda  # noqa: E402
 from street_gaussians_ns_tpu_torch.ops import (  # noqa: E402
     composite, expand, scan, segreduce, tiles)
+from street_gaussians_ns_tpu_torch.ops import sh_colors as sh_kernel  # noqa: E402
 from street_gaussians_ns_tpu_torch.ops.render import (  # noqa: E402
     RenderConfig, rasterize, render)
 from street_gaussians_ns_tpu_torch.ops.ssim import psnr  # noqa: E402
@@ -861,7 +873,7 @@ def phase_main(seed: int, size: Size = FLAGSHIP, dev="cuda"):
     peak = torch.cuda.max_memory_allocated() if dev == "cuda" else None
 
     per_frame = {"flat_scan": 9, "expand_ragged": 6, "pack_feat_cols": 3,
-                 "composite_fwd": 3, "row_trim": 3}
+                 "composite_fwd": 3, "row_trim": 3, "sh_colors": 1}
     for name, n in per_frame.items():
         if dev == "cuda" and launches[name] != n * len(cams):
             raise AssertionError(f"{name} launched {launches[name]} times "
@@ -984,9 +996,10 @@ def phase_train(seed: int, tracks, cfg, rcfg, cam, size: Size = FLAGSHIP,
     expected = {"flat_scan": 3 * renders, "expand_ragged": 2 * renders,
                 "pack_feat_cols": renders, "composite_fwd": renders,
                 "composite_bwd": backwards, "rank_rowsum": backwards,
-                "row_trim": renders}
+                "row_trim": renders, "sh_colors": 2 * len(plan),
+                "sh_colors[bwd]": len(plan)}
     for name, n in expected.items():
-        if dev == "cuda" and launches[name] != n:
+        if dev == "cuda" and launches.get(name, 0) != n:
             raise AssertionError(f"train: {name} launched {launches[name]} "
                                  f"times over {renders} renders and "
                                  f"{backwards} backward passes, expected "
@@ -1043,12 +1056,13 @@ def phase_train(seed: int, tracks, cfg, rcfg, cam, size: Size = FLAGSHIP,
 
 def capture_train(state, tracks, cfg, rcfg, cam, batch):
     """Inputs of kernels E and F in one full-width backward (one step's
-    full render) and of kernel I in its binning, with the step's
-    results."""
+    full render), of kernel I in its binning and of kernel J, with the
+    step's results."""
     jitter = draw_pixel_jitter(cam, state.generator)
     recs = [Recorder(composite, "composite_bwd"),
             Recorder(composite, "rank_rowsum"),
-            Recorder(tiles, "_row_trim_counts")]
+            Recorder(tiles, "_row_trim_counts"),
+            Recorder(sh_kernel, "sh_colors_cuda")]
     for r in recs:
         r.__enter__()
     try:
@@ -1059,6 +1073,7 @@ def capture_train(state, tracks, cfg, rcfg, cam, batch):
             r.__exit__()
     calls = {r.name: r.calls for r in recs}
     calls["row_trim[train]"] = calls.pop("_row_trim_counts")
+    calls["sh_colors[train]"] = calls.pop("sh_colors_cuda")
     return calls, jitter, res
 
 
@@ -1488,7 +1503,9 @@ def phase_sliced(state, tracks, cfg, rcfg, cams, batch, k: int = 2,
             "composite_fwd[t_in]": (k - 1) * renders,
             "composite_bwd": k * backwards,
             "composite_bwd[t_in]": (k - 1) * backwards,
-            "rank_rowsum": k * backwards, "row_trim": renders})
+            "rank_rowsum": k * backwards, "row_trim": renders,
+            "sh_colors": len(cams) + 2 * backwards,
+            "sh_colors[bwd]": backwards})
     for loss in losses:
         if not math.isfinite(loss):
             raise AssertionError(f"sliced_path: loss {loss}")
@@ -1623,7 +1640,7 @@ def phase_unfused(store, tracks, cfg, rcfg, cam, dev="cuda", reps: int = 3):
         check_launches("unfused_path", launches, {
             "flat_scan": 5, "composite_fwd": 1, "composite_bwd": 1,
             "segment_rowsum": 1, "expand_ragged": 0, "pack_feat_cols": 0,
-            "rank_rowsum": 0, "row_trim": 0})
+            "rank_rowsum": 0, "row_trim": 0, "sh_colors": 0})
     bins, = last_bins
     n_pairs, n_runs = int(bins.num_pairs), int(bins.num_rowruns)
     if n_pairs > mp or n_runs > mr:
@@ -2257,7 +2274,8 @@ def phase_splatfacto(seed: int, size: Size = FLAGSHIP, dev="cuda"):
         check_launches("splatfacto_path eval", eval_launches, {
             "flat_scan": 3 * len(cams), "expand_ragged": 2 * len(cams),
             "pack_feat_cols": len(cams), "composite_fwd": len(cams),
-            "composite_bwd": 0, "rank_rowsum": 0, "row_trim": len(cams)})
+            "composite_bwd": 0, "rank_rowsum": 0, "row_trim": len(cams),
+            "sh_colors": len(cams), "sh_colors[bwd]": 0})
     acc_max = []
     for outputs, out in outs:
         for h, v in outputs.items():
@@ -2323,7 +2341,7 @@ def phase_splatfacto(seed: int, size: Size = FLAGSHIP, dev="cuda"):
         check_launches("splatfacto_path train", train_launches, {
             "flat_scan": 9, "expand_ragged": 6, "pack_feat_cols": 3,
             "composite_fwd": 3, "composite_bwd": 3, "rank_rowsum": 3,
-            "row_trim": 3})
+            "row_trim": 3, "sh_colors": 6, "sh_colors[bwd]": 3})
     moved = {}
     for k in sts.GAUSSIAN_GROUPS:
         new = getattr(state.store.params, k)
@@ -2511,7 +2529,7 @@ def phase_camopt(seed: int, tracks, cfg, rcfg, size: Size = FLAGSHIP,
             check_launches(f"camopt_path {mode}", launches, {
                 "flat_scan": 9, "expand_ragged": 6, "pack_feat_cols": 3,
                 "composite_fwd": 3, "composite_bwd": 3, "rank_rowsum": 3,
-                "row_trim": 3})
+                "row_trim": 3, "sh_colors": 6, "sh_colors[bwd]": 3})
         cam_opt = state.opt["camera_opt"]
         acc = cam_opt.acc
         stepped = torch.zeros(8, dtype=torch.bool)
@@ -2716,7 +2734,7 @@ def phase_viewer(run: Path, dev="cuda"):
     if cuda:
         for name, per in (("flat_scan", 9), ("expand_ragged", 6),
                           ("pack_feat_cols", 3), ("composite_fwd", 3),
-                          ("row_trim", 3)):
+                          ("row_trim", 3), ("sh_colors", 1)):
             if launches[name] != per * n:
                 fails.append(f"{name} launched {launches[name]} times for "
                              f"{n} frames of 3 renders")
@@ -2838,10 +2856,10 @@ def phase_viewer(run: Path, dev="cuda"):
 # bf16_path and mesh_path.
 # ---------------------------------------------------------------------------
 
-# The kernels every fused render launches (A-D and the row trim, I), and
-# with those a fused training step's (E, F).
+# The kernels every fused render launches (A-D, the row trim, I, and the
+# SH colour, J), and with those a fused training step's (E, F).
 RENDER_KERNELS = ("flat_scan", "expand_ragged", "pack_feat_cols",
-                  "composite_fwd", "row_trim")
+                  "composite_fwd", "row_trim", "sh_colors")
 FUSED_KERNELS = RENDER_KERNELS + ("composite_bwd", "rank_rowsum")
 
 
@@ -4363,8 +4381,10 @@ def capture(store, tracks, cfg, rcfg, cam):
     """Inputs of every kernel in one full-width render (the full render of
     forward_scene on `cam`)."""
     flat, active, _ = compose(store, tracks, cam.time, config=cfg)
-    rgbs = sh_colors(flat["means"], flat["features_dc_t"],
-                     flat["features_rest"], cam, 0, cfg.base, training=False)
+    with Recorder(sh_kernel, "sh_colors_cuda") as sh_rec:
+        rgbs = sh_colors(flat["means"], flat["features_dc_t"],
+                         flat["features_rest"], cam, 0, cfg.base,
+                         training=False)
     op = torch.sigmoid(flat["opacities"][:, 0])
     op = torch.where(active, op, torch.zeros_like(op))
     recs = [Recorder(scan, "cumsum_flat"), Recorder(expand, "expand_ragged"),
@@ -4381,6 +4401,7 @@ def capture(store, tracks, cfg, rcfg, cam):
             r.__exit__()
     calls = {r.name: r.calls for r in recs}
     calls["row_trim"] = calls.pop("_row_trim_counts")
+    calls["sh_colors"] = sh_rec.calls
     return calls
 
 
@@ -4761,6 +4782,136 @@ def _trim_row(calls, launches: int, train_launches: int, reps: int):
                 device_launches_per_call=per_call, shapes=shapes)
 
 
+def _sh_row(calls, launches: dict, train_launches: dict, reps: int):
+    """Kernel J on the arguments the eval frame and the train step handed
+    it (compose's flat centres, DC and rest, the camera centre, the active
+    degree): colours equal to the k-order formulation bit for bit and to
+    the plain path's einsum within 2e-6; gradients (of a seeded random
+    cotangent) equal to autograd's through the k-order formulation bit for
+    bit and through the plain path wherever its sum is on the kernel's side
+    of the clamp; one device launch a call each way; forward and backward
+    times (also behind a busy card), the plain path's, the einsum's alone,
+    and the bytes bounds."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from sh_cases import k_order
+
+    def same(a, b):
+        return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+    tot = dict(ms=0.0, bwd_ms=0.0, queued_ms=0.0, bwd_queued_ms=0.0,
+               plain_ms=0.0, plain_bwd_ms=0.0, einsum_ms=0.0,
+               einsum_bwd_ms=0.0, fwd_bytes=0.0, bwd_bytes=0.0)
+    err, straddle = 0.0, 0
+    shapes, per_call = [], []
+    for key in ("sh_colors", "sh_colors[train]"):
+        for (means, dc, rest, center, degree), _ in calls[key]:
+            dc, rest, center = dc.detach(), rest.detach(), center.detach()
+            n, k = means.shape[0], rest.shape[1] + 1
+            cam = SimpleNamespace(c2w=torch.cat(
+                [torch.zeros((3, 3), device=means.device), center[:, None]],
+                1))
+            leaves = [t.clone().requires_grad_(True)
+                      for t in (dc, rest) * 3]
+            got = sh_kernel.sh_colors_cuda(means, *leaves[0:2], center,
+                                           degree)
+            ordered = k_order(means, *leaves[2:4], center, degree)
+            plain = splatfacto._sh_colors_plain(means, *leaves[4:6], cam,
+                                                degree)
+            if not same(got, ordered):
+                raise AssertionError(f"sh_colors ({key}): colours differ "
+                                     f"from the k-order formulation")
+            fin = torch.isfinite(plain)
+            e = _max_err(got[fin].detach(), plain[fin].detach())
+            if e > 2e-6 or not torch.equal(torch.isnan(got),
+                                           torch.isnan(plain)):
+                raise AssertionError(f"sh_colors ({key}): colours {e} from "
+                                     f"the plain path's (atol 2e-6)")
+            err = max(err, e)
+            g = torch.randn((n, 3), device=means.device, generator=(
+                torch.Generator(device=means.device).manual_seed(n)))
+            g_k = torch.autograd.grad(got, leaves[0:2], g)
+            g_o = torch.autograd.grad(ordered, leaves[2:4], g)
+            g_p = torch.autograd.grad(plain, leaves[4:6], g,
+                                      retain_graph=True)
+            pre = k_order(means, dc, rest, center, degree, clamp=False)
+            coeffs = torch.cat([dc[:, None], rest], 1)
+            d = means - center
+            d = d / torch.clamp(torch.linalg.vector_norm(
+                d, dim=-1, keepdim=True), min=1e-12)
+            basis = sh_basis(d, sh_kernel.sh_degree_of(k)) * (
+                torch.arange(k, device=d.device) < (degree + 1) ** 2).float()
+            pre_plain = torch.einsum("nk,nkc->nc", basis, coeffs) + 0.5
+            side = (pre >= 0) == (pre_plain >= 0)
+            straddle += int((~side).sum())
+            if not (same(g_k[0], g_o[0]) and same(g_k[1], g_o[1])
+                    and same(g_k[0][side], g_p[0][side])
+                    and same(g_k[1].transpose(0, 1)[:, side],
+                             g_p[1].transpose(0, 1)[:, side])):
+                raise AssertionError(f"sh_colors ({key}): gradients differ "
+                                     f"from autograd's")
+            _, mask = sh_kernel.sh_fwd(means, dc, rest, center, degree, True)
+            fwd = lambda: sh_kernel.sh_fwd(means, dc, rest, center, degree,
+                                           True)
+            bwd = lambda: sh_kernel.sh_bwd(means, center, k, degree, mask, g)
+            per_call.append([_cuda.captured_launches(sh_kernel.SH_KERNEL, f)
+                             for f in (fwd, bwd)])
+            one = dict(ms=time_ms(fwd, reps), bwd_ms=time_ms(bwd, reps),
+                       queued_ms=time_ms_queued(fwd, reps),
+                       bwd_queued_ms=time_ms_queued(bwd, reps),
+                       plain_ms=time_ms(lambda: splatfacto._sh_colors_plain(
+                           means, dc, rest, cam, degree), reps),
+                       plain_bwd_ms=time_ms(lambda: torch.autograd.grad(
+                           plain, leaves[4:6], g, retain_graph=True), reps))
+            cf = coeffs.clone().requires_grad_(True)
+            ein = torch.einsum("nk,nkc->nc", basis, cf)
+            one["einsum_ms"] = time_ms(
+                lambda: torch.einsum("nk,nkc->nc", basis, coeffs), reps)
+            one["einsum_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+                ein, cf, g, retain_graph=True), reps)
+            # Forward: centre 12, DC 12, rest 12 (K - 1) read; rgb 12 and
+            # the mask 1 written. Backward: centre 12, gradient 12, mask 1
+            # read; d_dc 12 and d_rest 12 (K - 1) written.
+            one["fwd_bytes"] = n * (12 * (k + 2) + 1)
+            one["bwd_bytes"] = n * (12 * (k + 2) + 1)
+            for name, v in one.items():
+                tot[name] += v
+            shapes.append(dict(path=key, n=n, k=k, active_degree=degree,
+                               channels_straddling_the_clamp=int(
+                                   (~side).sum()), **one))
+            del leaves, got, ordered, plain, g_p, ein, cf
+    if (not calls["sh_colors"] or not calls["sh_colors[train]"]
+            or any(c != [1, 1] for c in per_call)):
+        raise AssertionError(f"sh_colors: {len(calls['sh_colors'])} eval and "
+                             f"{len(calls['sh_colors[train]'])} train calls "
+                             f"made {per_call} device launches, expected "
+                             f"calls from both, 1 launch each way")
+    b, by = bound(tot["fwd_bytes"])
+    bb, bby = bound(tot["bwd_bytes"])
+    return dict(name="sh_colors", route="cuda",
+                source=_rel(_cuda.CSRC / sh_kernel.SH_KERNEL.source),
+                replaces=sh_kernel.SH_KERNEL.replaces,
+                launches=launches["sh_colors"],
+                launches_on_train_path=train_launches["sh_colors"],
+                backward_launches_on_train_path=train_launches.get(
+                    "sh_colors[bwd]", 0),
+                max_abs_err=err,
+                tolerance="colours bit-equal to the k-order formulation, "
+                          "within 2e-6 of the einsum; gradients bit-equal "
+                          "to autograd's through the k-order formulation, "
+                          "and through the einsum where its sum is on the "
+                          "same side of the clamp",
+                channels_straddling_the_clamp=straddle,
+                ms=tot["ms"], bwd_ms=tot["bwd_ms"],
+                ms_behind_a_busy_card=tot["queued_ms"],
+                bwd_ms_behind_a_busy_card=tot["bwd_queued_ms"],
+                plain_ms=tot["plain_ms"], plain_bwd_ms=tot["plain_bwd_ms"],
+                einsum_ms=tot["einsum_ms"],
+                einsum_bwd_ms=tot["einsum_bwd_ms"],
+                bound_ms=b, bound_by=by, bwd_bound_ms=bb, bwd_bound_by=bby,
+                library_ms=None, device_launches_per_call=per_call,
+                shapes=shapes)
+
+
 def _rel(path) -> str:
     return str(Path(path).resolve().relative_to(REPO))
 
@@ -5105,6 +5256,7 @@ def phase_kernels(calls, launches, train_launches, sliced_launches,
 
     rows.append(_trim_row(calls, launches["row_trim"],
                           train_launches["row_trim"], reps))
+    rows.append(_sh_row(calls, launches, train_launches, reps))
     return rows
 
 

@@ -13,6 +13,8 @@ import torch
 
 from ..core.cameras import Camera, pixel_directions
 from ..core.sh import eval_sh
+from ..ops import _cuda
+from ..ops import sh_colors as sh_kernel
 from ..ops.cubemap import sample_cubemap
 from ..ops.render import RenderConfig, render
 from ..ops.ssim import ssim
@@ -69,14 +71,29 @@ def sh_colors(means: torch.Tensor, features_dc_t: torch.Tensor,
     """Per-splat RGB by SH: view directions from the camera center (means
     and camera detached: no gradient flows through the directions), the
     active degree stepping up every sh_degree_interval steps in training
-    and the full degree at eval, then +0.5 and the clamp at 0."""
+    and the full degree at eval, then +0.5 and the clamp at 0. CUDA
+    tensors launch kernel J (ops.sh_colors, one launch forward and one
+    backward); CPU tensors run `_sh_colors_plain`."""
+    n = (min(int(step) // config.sh_degree_interval, config.sh_degree)
+         if training else config.sh_degree)
+    if _cuda.is_cpu(means, features_dc_t, features_rest, camera.c2w):
+        return _sh_colors_plain(means, features_dc_t, features_rest, camera,
+                                n)
+    return sh_kernel.sh_colors_cuda(means, features_dc_t, features_rest,
+                                    camera.c2w[:3, 3], n)
+
+
+def _sh_colors_plain(means: torch.Tensor, features_dc_t: torch.Tensor,
+                     features_rest: torch.Tensor, camera: Camera,
+                     active_degree: int) -> torch.Tensor:
+    """sh_colors in plain PyTorch (core.sh.eval_sh over the concatenated
+    coefficients): kernel J's specification, and what CPU tensors run."""
     viewdirs = means.detach() - camera.c2w[:3, 3].detach()
     viewdirs = viewdirs / torch.clamp(
         torch.linalg.vector_norm(viewdirs, dim=-1, keepdim=True), min=1e-12)
-    n = (min(int(step) // config.sh_degree_interval, config.sh_degree)
-         if training else config.sh_degree)
     coeffs = torch.cat([features_dc_t[:, None, :], features_rest], dim=1)
-    return torch.clamp(eval_sh(n, viewdirs, coeffs) + 0.5, min=0.0)
+    return torch.clamp(eval_sh(active_degree, viewdirs, coeffs) + 0.5,
+                       min=0.0)
 
 
 def init_env_map(config: SplatfactoConfig, device="cuda") -> torch.Tensor:

@@ -26,7 +26,14 @@ call, 200 launches over two streams equal. The compositors' t_in
 mode is held as the plain launches are; a tile0 strip must equal the same
 tiles of the full launch bit for bit. The row trim (kernel I) equals its
 plain version bit for bit in first, last and count, on every input
-(tests/trim_cases.py), in one device launch a call."""
+(tests/trim_cases.py), in one device launch a call. The SH colour
+(kernel J) equals the plain formulation that adds in k order bit for bit
+(tests/sh_cases.k_order) and the plain version's einsum within 2e-6;
+its gradients equal autograd's through the k-order formulation bit for
+bit, and through the plain version wherever the two sums are on the same
+side of the clamp at 0 (each gradient is one product), NaN where they are
+NaN and the sign of a zero not compared; one device launch a call each
+way."""
 import numpy as np
 import pytest
 import torch
@@ -35,12 +42,15 @@ from street_gaussians_ns_tpu_torch.core.cameras import Camera, viewmat_from_c2w
 from street_gaussians_ns_tpu_torch.core.projection import (_floor_int,
                                                           coverage_q,
                                                           project)
+from street_gaussians_ns_tpu_torch.core.sh import eval_sh
+from street_gaussians_ns_tpu_torch.models import splatfacto
 from street_gaussians_ns_tpu_torch.ops import (_cuda, composite, expand, scan,
-                                               segreduce, tiles)
+                                               segreduce, sh_colors, tiles)
 from street_gaussians_ns_tpu_torch.ops.tiles import bin_and_pack
 from test_torch_redesign_df import F_CASES, _case, ranksum_model
 from test_torch_redesign_gh import (G_CASES, g_case, h_rows, rowscan_model,
                                     segsum_model)
+from sh_cases import inputs as sh_inputs, k_order as sh_k_order
 from trim_cases import table as trim_table
 
 
@@ -874,7 +884,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 def test_library_is_keyed_by_the_sources():
 
     paths = {k.library_path() for k in _cuda.KERNELS}
-    assert len(paths) == len(_cuda.KERNELS) == 9
+    assert len(paths) == len(_cuda.KERNELS) == 10
     for k in _cuda.KERNELS:
         p = k.library_path()
         assert p.parent == _cuda.BUILD_DIR and p.suffix == ".so"
@@ -1010,3 +1020,194 @@ def test_binning_same_with_kernel_and_plain_trim(cuda, monkeypatch):
     for i, (a, b) in enumerate(zip(kf, pf)):
         assert torch.equal(a, b), f"feature column {i}"
     assert [int(v) for v in kc] == [int(v) for v in pc]
+
+
+# ---------------------------------------------------------------------------
+# Kernel J: the SH colour.
+# ---------------------------------------------------------------------------
+
+def _same(a, b) -> bool:
+    """Equal values, NaN where NaN (the sign of a zero not compared)."""
+    return a.shape == b.shape and bool(
+        ((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _sh_on(dev, n, degree, seed=0, rows_from=0, means_cols=3):
+    """Kernel J's inputs on `dev`: row views [rows_from, rows_from + n) of
+    larger tables, as compose's flat tensors are sliced, with the centres
+    in the first three of `means_cols` columns."""
+    m, dc, rest, c2w = sh_inputs(np.random.default_rng(seed + n), n, degree)
+    pad = lambda a: np.concatenate([np.zeros((rows_from,) + a.shape[1:],
+                                             np.float32), a])
+    mt = np.zeros((rows_from + n, means_cols), np.float32)
+    mt[rows_from:, :3] = m
+    means = torch.from_numpy(mt).to(dev)[rows_from:, :3]
+    dc_t = torch.from_numpy(pad(dc)).to(dev)[rows_from:]
+    rest_t = torch.from_numpy(pad(rest)).to(dev)[rows_from:]
+    cam = Camera.make(500.0, 500.0, 320.0, 240.0, c2w, 640, 480, device=dev)
+    return means, dc_t, rest_t, cam
+
+
+def _sh_case(cuda, means, dc, rest, cam, active):
+    """Kernel J against the plain versions on one input, both ways; one
+    launch a call each way by the counter. The gradients equal autograd's
+    through the k-order formulation everywhere, and through the einsum
+    wherever its sum is on the kernel's side of the clamp at 0: where the
+    two orders of addition straddle 0, each follows its own forward."""
+    center = cam.c2w[:3, 3]
+    kd, kr, od, orr, pd, pr = (t.clone().requires_grad_(True)
+                               for t in (dc, rest) * 3)
+    k = sh_colors.SH_KERNEL
+    before, before_bwd = k.launches, k.mode_launches.get("bwd", 0)
+    got = sh_colors.sh_colors_cuda(means, kd, kr, center, active)
+    assert k.launches == before + 1
+    ordered = sh_k_order(means, od, orr, center, active)
+    assert _same(got, ordered)
+    plain = splatfacto._sh_colors_plain(means, pd, pr, cam, active)
+    assert torch.equal(torch.isnan(got), torch.isnan(plain))
+    fin = torch.isfinite(plain)
+    torch.testing.assert_close(got[fin], plain[fin], rtol=0.0, atol=2e-6)
+    g = torch.randn(got.shape, device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(means.shape[0]))
+    g_kd, g_kr = torch.autograd.grad(got, (kd, kr), g)
+    assert k.launches == before + 2
+    assert k.mode_launches.get("bwd", 0) == before_bwd + 1
+    g_od, g_or = torch.autograd.grad(ordered, (od, orr), g,
+                                     allow_unused=True)
+    if g_or is None:                         # degree 0: no rest
+        g_or = torch.zeros_like(orr)
+    assert _same(g_kd, g_od) and _same(g_kr, g_or)
+    # The einsum's value before the clamp, as _sh_colors_plain forms it.
+    d = means - center
+    d = d / torch.clamp(torch.linalg.vector_norm(d, dim=-1, keepdim=True),
+                        min=1e-12)
+    v_plain = eval_sh(active, d, torch.cat([dc[:, None], rest], 1)) + 0.5
+    v_kernel = sh_k_order(means, dc, rest, center, active, clamp=False)
+    side = (v_plain >= 0) == (v_kernel >= 0)
+    assert bool((v_plain[~side].abs() <= 2e-6).all())
+    g_pd, g_pr = torch.autograd.grad(plain, (pd, pr), g)
+    assert _same(g_kd[side], g_pd[side])
+    assert _same(g_kr.transpose(0, 1)[:, side], g_pr.transpose(0, 1)[:, side])
+    return got, g, g_kd, g_kr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,degree", [
+    (4_587_520, 3),     # the Waymo segment's slots: 2^22 + 12 x 2^15
+    (1_179_648, 3),     # the flagship's
+    (0, 3), (1, 3), (255, 3), (257, 3),
+    (257, 0), (257, 1), (257, 2), (70_001, 4),
+])
+def test_sh_colors_kernel_matches_plain(cuda, n, degree):
+    """Kernel J at every active degree up to its own: colours bit-equal
+    to the k-order formulation and within 2e-6 of the einsum, gradients
+    bit-equal to autograd's through the plain version; one device launch
+    a call each way."""
+    means, dc, rest, cam = _sh_on(cuda, n, degree)
+    for active in range(degree + 1) if n < 1_000_000 else (degree,):
+        _sh_case(cuda, means, dc, rest, cam, active)
+    if n > 0:
+        kd = dc.clone().requires_grad_(True)
+        center = cam.c2w[:3, 3]
+        assert _cuda.captured_launches(
+            sh_colors.SH_KERNEL, lambda: sh_colors.sh_colors_cuda(
+                means, kd, rest, center, degree)) == 1
+        _, mask = sh_colors.sh_fwd(means, dc, rest, center, degree, True)
+        g = torch.ones((n, 3), device=cuda)
+        assert _cuda.captured_launches(
+            sh_colors.SH_KERNEL, lambda: sh_colors.sh_bwd(
+                means, center, rest.shape[1] + 1, degree, mask, g)) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_from,means_cols", [(1, 3), (4, 4), (7, 10)])
+def test_sh_colors_kernel_on_views(cuda, rows_from, means_cols):
+    """Row views of larger tables, as compose's flat tensors are sliced
+    (rest 180 bytes a row, so a view 16-byte aligned or not), and the
+    centres as a column view of a wider table: the same bits as on
+    contiguous copies."""
+    means, dc, rest, cam = _sh_on(cuda, 3001, 3, rows_from=rows_from,
+                                  means_cols=means_cols)
+    got, g, g_dc, g_rest = _sh_case(cuda, means, dc, rest, cam, 3)
+    copies = [t.contiguous() for t in (means, dc, rest)]
+    assert means.is_contiguous() == (means_cols == 3)
+    assert (rest.data_ptr() % 16 == 0) == (rows_from % 4 == 0)
+    got2, _, g_dc2, g_rest2 = _sh_case(cuda, *copies, cam, 3)
+    assert _same(got, got2) and _same(g_dc, g_dc2) and _same(g_rest, g_rest2)
+
+
+@pytest.mark.cuda
+def test_sh_colors_kernel_clamp_edges(cuda):
+    """A pre-clamp value of exactly 0 passes its gradient, one below 0
+    stops it, NaN coefficients give NaN colours (tests/sh_cases.inputs'
+    edge rows, the first 32), through models.splatfacto.sh_colors."""
+    means, dc, rest, cam = _sh_on(cuda, 64, 3)
+    kd, kr = (t.clone().requires_grad_(True) for t in (dc, rest))
+    cfg = splatfacto.SplatfactoConfig()
+    rgb = splatfacto.sh_colors(means, kd, kr, cam, 30_000, cfg)
+    g = torch.full_like(rgb, 2.0)
+    g_dc, g_rest = torch.autograd.grad(rgb, (kd, kr), g)
+    c0 = torch.tensor(0.28209479177387814, dtype=torch.float32)
+    for i in range(0, 32, 8):                # v exactly 0
+        assert torch.equal(rgb[i], torch.zeros(3, device=cuda))
+        assert torch.equal(g_dc[i].cpu(), (c0 * 2.0).expand(3))
+    for i in range(1, 32, 8):                # v below 0
+        assert torch.equal(rgb[i], torch.zeros(3, device=cuda))
+        assert not g_dc[i].any() and not g_rest[i].any()
+    for i in range(2, 32, 8):                # NaN on the last basis
+        assert bool(torch.isnan(rgb[i, i % 3]))
+        assert not bool(torch.isnan(g_dc[i]).any())   # clamp stops it
+    for i in range(3, 32, 8):                # NaN DC
+        assert bool(torch.isnan(rgb[i, (i + 1) % 3]))
+
+
+@pytest.mark.parametrize("bad,error", [
+    ("dc float64", TypeError),
+    ("means (N, 4)", ValueError),
+    ("dc column stride 2", ValueError),
+    ("rest not contiguous", ValueError),
+    ("rest K = 15", ValueError),
+    ("rest (N, 15, 2)", ValueError),
+    ("rest rows", ValueError),
+    ("center (4,)", ValueError),
+    ("center float64", TypeError),
+    ("mask int32", TypeError),
+    ("mask rows", ValueError),
+    ("grad (N, 4)", ValueError),
+    ("grad float64", ValueError),
+])
+def test_sh_colors_wrapper_raises_on_bad_input(bad, error):
+    """Kernel J's wrappers check dtypes, shapes and strides before any
+    pointer reaches C (no launch, no build: these run on the CPU)."""
+    n = 6
+    tab = torch.zeros((n, 8))
+    a = dict(means=tab[:, :3], dc=tab[:, 3:6], rest=torch.zeros((n, 15, 3)),
+             center=torch.zeros((3, 4))[:, 3])
+    b = dict(mask=torch.zeros((n,), dtype=torch.uint8),
+             grad=torch.zeros((n, 3)))
+    fix = {
+        "dc float64": ("dc", tab[:, 3:6].double()),
+        "means (N, 4)": ("means", tab[:, :4]),
+        "dc column stride 2": ("dc", tab[:, 2:8:2]),
+        "rest not contiguous": ("rest", torch.zeros((n, 3, 15)).mT),
+        "rest K = 15": ("rest", torch.zeros((n, 14, 3))),
+        "rest (N, 15, 2)": ("rest", torch.zeros((n, 15, 2))),
+        "rest rows": ("rest", torch.zeros((n + 1, 15, 3))),
+        "center (4,)": ("center", torch.zeros(4)),
+        "center float64": ("center", torch.zeros(3, dtype=torch.float64)),
+        "mask int32": ("mask", torch.zeros((n,), dtype=torch.int32)),
+        "mask rows": ("mask", torch.zeros((n + 1,), dtype=torch.uint8)),
+        "grad (N, 4)": ("grad", torch.zeros((n, 4))),
+        "grad float64": ("grad", torch.zeros((n, 3), dtype=torch.float64)),
+    }
+    key, val = fix[bad]
+    (a if key in a else b)[key] = val
+    before = sh_colors.SH_KERNEL.launches
+    with pytest.raises(error):
+        if key in b:
+            sh_colors.sh_bwd(a["means"], a["center"], 16, 3, b["mask"],
+                             b["grad"])
+        else:
+            sh_colors.sh_fwd(a["means"], a["dc"], a["rest"], a["center"], 3,
+                             True)
+    assert sh_colors.SH_KERNEL.launches == before

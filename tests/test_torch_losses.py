@@ -36,6 +36,7 @@ from street_gaussians_ns_tpu_torch.ops import cubemap as tcube
 from street_gaussians_ns_tpu_torch.ops import render as trender
 from street_gaussians_ns_tpu_torch.ops import ssim as tssim
 
+from sh_cases import inputs as sh_inputs
 from test_rasterize import make_scene
 from test_torch_render import assert_heads_close
 from test_torch_scene_graph import (DEPTH_OF, MAX_PAIRS, _forward_both,
@@ -202,6 +203,26 @@ def test_sh_colors_sends_no_gradient_into_means():
     assert g_means is None or not g_means.any()
     assert float(g_dc.abs().max()) > 0
 
+
+
+@pytest.mark.parametrize("sh_degree,step,training", [
+    (3, 0, True), (3, 1500, True), (3, 2999, True), (3, 30_000, True),
+    (3, 0, False), (1, 5000, True), (0, 5000, False)])
+def test_sh_colors_on_the_cpu_matches_jax(sh_degree, step, training):
+    """models.splatfacto.sh_colors on CPU tensors (the plain version,
+    kernel J's specification) against the JAX package's, at eval_sh's
+    tolerance, at each active degree of the schedule and at eval."""
+    means, dc, rest, _ = sh_inputs(np.random.default_rng(step + sh_degree),
+                                   300, sh_degree, edges=False)
+    jc, tc = _cams()
+    want = jsplat.sh_colors(jnp.asarray(means), jnp.asarray(dc),
+                            jnp.asarray(rest), jc, jnp.asarray(step),
+                            jsplat.SplatfactoConfig(sh_degree=sh_degree),
+                            training)
+    got = tsplat.sh_colors(T(means), T(dc), T(rest), tc, step,
+                           tsplat.SplatfactoConfig(sh_degree=sh_degree),
+                           training)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-6)
 
 def _render_args(n=300, seed=0, w=64, h=48):
     means, scales, quats, colors, opac, _ = make_scene(n, seed, w=w, h=h)
