@@ -64,8 +64,8 @@ bit for bit, accum at atol 2e-5. The report adds the pairs each tile
 needed (from the shipped kernel's `evals`), the pairs a tile walks at each
 batch size, and the per-SM busy spans of both versions.
 
-`--kernel segsum`, kernel G, on the arguments of the unfused route's
-segment sum (camera 0 of the flagship scene, one render and backward):
+`--kernel segsum`, kernel G, on per-rank segments of the full-width
+training step's gradient rows (`captured_segments`):
 its first version (a thread per segment; `segsum.cu` beside
 `--first-version`'s default) and the shipped kernel (4 warps over 128
 segments) as it is, with 8 warps over 256 segments (built for 3 and for 5
@@ -656,7 +656,8 @@ def captured_backward(seed: int, kernel: str = "composite_bwd"):
     chip_smoke.phase_device()
     store, tracks, cfg, rcfg, cam0, _ = chip_smoke.phase_main(seed)
     del store
-    state, batch, _ = chip_smoke.phase_train(seed, tracks, cfg, rcfg, cam0)
+    state, batch, _, _ = chip_smoke.phase_train(seed, tracks, cfg, rcfg,
+                                                cam0)
     calls, _, _ = chip_smoke.capture_train(state, tracks, cfg, rcfg, cam0,
                                            batch)
     (args, _), = calls[kernel]
@@ -847,14 +848,10 @@ def main_rowsum(args, report: list) -> None:
         shape=[ng + 1, p_len, n_out])
 
 
-def captured_unfused(seed: int):
-    """The arguments of the unfused route's segment_rowsum at full width
-    (camera 0 of the flagship scene, one render and backward)."""
-    chip_smoke.phase_device()
-    store, tracks, cfg, rcfg, cam0, _ = chip_smoke.phase_main(seed)
-    calls, _ = chip_smoke.phase_unfused(store, tracks, cfg, rcfg, cam0)
-    args, _ = calls["segment_rowsum"]
-    return args
+def captured_segments(seed: int):
+    """Kernel G's arguments at full width, made from the training step's
+    rank_rowsum arguments (`chip_smoke.rank_segments`)."""
+    return chip_smoke.rank_segments(*captured_backward(seed, "rank_rowsum"))
 
 
 def _in_turns_both(runs, args, report, **fields):
@@ -875,7 +872,7 @@ def main_segsum(args, report: list) -> None:
         first_version = None
     libs = build_all(first_version, "segsum")
     report.append(emit("build", variants={k: v[1] for k, v in libs.items()}))
-    rows, starts, ends = captured_unfused(args.seed)
+    rows, starts, ends = captured_segments(args.seed)
     c, p_len = rows.shape
     n_seg = starts.shape[0]
     out = torch.empty((c, n_seg), dtype=torch.float32, device=rows.device)

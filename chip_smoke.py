@@ -39,25 +39,10 @@ Phases, each printing one JSON line:
                 counter is set to 0 just before the steps and read just after;
   8. train_profile / train_stages  one step under torch.profiler, and the
                 device time of the stages of one step (CUDA events);
-  9. reference_modes  the small scene on the card against the CPU through
-                every other route of ops.render.rasterize: depth_slices=3,
-                impl="chunked" and "scan" (heads, one step's loss and
-                gradients), shared bins through the unfused kernel route
-                and three tile strips (image, loss, gradients); and on the
-                card sliced, unfused and strips against the fused route;
- 10. sliced_path  the flagship scene with RenderConfig(depth_slices=2): 2
-                eval frames and 2 training steps, the counts set to 0 just
-                before and read just after (kernels D and E run with t_in
-                once per render / backward), then sliced and unsliced in
-                turns for the latencies;
- 11. unfused_path  the flagship scene, one render + backward through
-                ops.tiles.bin_gaussians and rasterize_tiles_pallas (kernels
-                A in max mode, D, E, G), held against the fused route, with
-                stage times;
- 12. row_scan_path  kernel H, which no render path of either package
+  9. row_scan_path  kernel H, which no render path of either package
                 calls, through its entry points cumsum_rows / cummax_rows at
                 the three shapes of the JAX package's micro-benchmark;
- 13. splatfacto_path  the single-model pipeline at full width: the
+ 10. splatfacto_path  the single-model pipeline at full width: the
                 flagship's background alone (1,048,576 gaussians, SH degree
                 3, Fourier dim 1, the 6x1024x1024 sky) through
                 models.splatfacto.forward(training=False) for 4 cameras of
@@ -65,7 +50,7 @@ Phases, each printing one JSON line:
                 step 3600 and one refine_step, each counted; first the same
                 pipeline at 64x48 on the card against the CPU (heads, loss,
                 gradients, statistics, refine counts);
- 14. camopt_path  the flagship train state with the camera optimizer,
+ 11. camopt_path  the flagship train state with the camera optimizer,
                 "SO3xR3", then "SE3" with bbox_mode="SE3" and
                 bbox_differentiable=True: 3 counted steps each on rows 0, 3,
                 5 of 8 pose deltas (calls 3, the accumulator non-zero on
@@ -73,7 +58,7 @@ Phases, each printing one JSON line:
                 time beside train_path's; first 100 calls at 64x48 on the
                 card and on the CPU (the deltas still through call 99,
                 moved at call 100, the two equal);
- 15. cli_path   the entry points a user runs, on a clip on disk at full
+ 12. cli_path   the entry points a user runs, on a clip on disk at full
                 width: write_clip writes 10 frames of 1600x1056 (PNG renders
                 of a seeded truth scene by the port, segs with the top third
                 sky), a COLMAP model with 1,000,000 points in the corridor,
@@ -95,7 +80,7 @@ Phases, each printing one JSON line:
                 trainer's construction split, steps/s, the refine pass,
                 checkpoint, eval_setup, eval, render and export times, the
                 peak memory and the card machine's Pillow and OpenCV;
- 16. viewer_path  the live viewer on cli_path's run: eval_setup +
+ 13. viewer_path  the live viewer on cli_path's run: eval_setup +
                 attach_viewer(port=0) on 127.0.0.1 serving /, /init, /state
                 and 8 frames (4 at 480x270, 4 at 960x540) to a client
                 thread while this thread services them (JPEGs of the
@@ -106,7 +91,7 @@ Phases, each printing one JSON line:
                 then a Trainer on the clip with viewer_port=0 and
                 camera_opt_mode="SE3" answering 4 requests between its 20
                 steps;
- 17. bf16_path  RenderConfig(precision="bf16"): the small scene's render,
+ 14. bf16_path  RenderConfig(precision="bf16"): the small scene's render,
                 step and refine on the card against the CPU
                 (reference_bf16, reference_train_bf16, at reference's and
                 reference_train's tolerances), then the flagship: the f32
@@ -114,7 +99,7 @@ Phases, each printing one JSON line:
                 difference, beside the JAX docstring's "sub-1e-2"), and,
                 counted, 4 bf16 eval frames, 3 bf16 steps and a refine
                 pass, the f32 frame and step beside them;
- 18. mesh_path  parallel/ at full width: (a) mesh_path_unit, a (1, 1)
+ 15. mesh_path  parallel/ at full width: (a) mesh_path_unit, a (1, 1)
                 mesh on NCCL (world 1, this process): 3 sharded steps and
                 a sharded refine against scene_train_step /
                 scene_refine_step from the same state (losses 2e-5, the
@@ -148,7 +133,7 @@ Phases, each printing one JSON line:
                 then 20 steps with the viewer on and 20 off (steps/s
                 each, the hand-off's ms), each request's latency, the
                 gather's and the render's ms, each rank's peak memory;
- 19. preprocess_path  the offline preprocess, raw clip to trained scene:
+ 16. preprocess_path  the offline preprocess, raw clip to trained scene:
                 write_raw_clip writes a clip in extract_waymo's layout (20
                 frames 0.1 s apart of Waymo's five cameras as JPEG, FRONT,
                 FRONT_LEFT, FRONT_RIGHT at 1920x1280 and the SIDEs at
@@ -172,7 +157,7 @@ Phases, each printing one JSON line:
                 seconds on the card and on the CPU, and for each JPEG the
                 pixels that Pillow's decode (segs, pcd2colmap) and
                 OpenCV's (the masks tool, as the reference) differ by;
- 20. schedule_path  the whole training schedule through sgnt-train:
+ 17. schedule_path  the whole training schedule through sgnt-train:
                 write_clip's clip with 500,000 seeds (10 frames of
                 1600x1056, 4 vehicles of 30,000 LiDAR points), scripts.
                 train.main for 1,000 steps of the default model with
@@ -194,7 +179,7 @@ Phases, each printing one JSON line:
                 CPU from the same state and split noise, counts, masks,
                 statistics and moments exact and parameters within 1e-6;
                 kernels A-F of one train step at the final state against
-                their plain versions at phase 21's tolerances; the final
+                their plain versions at phase 18's tolerances; the final
                 loss below the first; A-F and I launched in training (the
                 counts set to 0 before it). Prints each refine's counts, the
                 gaussians after it, its host and device ms, each capacity
@@ -204,14 +189,16 @@ Phases, each printing one JSON line:
                 memory, and the final step's pair counts and visited /
                 contributing shares beside train_path's random-weight
                 step's;
- 21. kernels    every kernel of these paths, on the inputs captured from
+ 18. kernels    every kernel of these paths, on the inputs captured from
                 them, against its plain version, with its time, the plain
                 version's time, a PyTorch library call's time where one
                 computes the same function (for C the JAX package's own
                 off-TPU formulation: a stack and a transposing copy), and
-                its bound; D and E also in
-                their t_in mode and with a tile0 strip held bit for bit
-                against the full launch; A also in float32, counted for
+                its bound; D and E also in their t_in mode (no caller in
+                the port: a second window over each tile's trailing
+                pairs, its t_in from a first pass over the leading ones)
+                and with a tile0 strip held bit for bit against the full
+                launch; A also in float32, counted for
                 device launches a call (1) and repeated 200 times over two
                 streams; D and E with their registers and occupancy from
                 the build log and the pairs a tile needs (D) or visits
@@ -219,10 +206,12 @@ Phases, each printing one JSON line:
                 every pixel; E also as the fused routes call it (into an
                 undefined buffer), with the time of the zero fill it
                 spares; F also behind a busy card, beside index_add_, with
-                the pairs a rank owns; G and H counted for device launches
-                a call (1) and also timed behind a busy card, G beside
-                index_add_, H's float32 sum repeated 200 times over two
-                streams; I (the row trim) on the eval render's and the
+                the pairs a rank owns; G (no caller in the port) on the
+                train step's rank-ordered gradient rows, one segment per
+                rank; G and H counted for device launches a call (1) and
+                also timed behind a busy card, G beside index_add_, H's
+                float32 sum repeated 200 times over two streams; I (the
+                row trim) on the eval render's and the
                 train render's own arguments, first, last and count
                 equal to the plain trim's, counted for device launches a
                 call (1), also timed behind a busy card, its bound the
@@ -240,9 +229,9 @@ Phases, each printing one JSON line:
                 quotes the times rows A, E, D, F, G and H had before their
                 redesign; every number in the `kernels` line itself is
                 this run's. Each row's `launches` is the main path's;
-                `launches_on_later_paths` adds those of phases 13, 14 (its
-                SE3 mode), 16, 17, 18 (each of its four parts, the
-                viewer's frames and steps apart), 19 and 20.
+                `launches_on_later_paths` adds those of phases 10, 11 (its
+                SE3 mode), 13, 14, 15 (each of its four parts, the
+                viewer's frames and steps apart), 16 and 17.
 The line before the last is the `kernels` JSON; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 """
@@ -305,7 +294,7 @@ from street_gaussians_ns_tpu_torch.ops import (  # noqa: E402
     composite, expand, scan, segreduce, tiles)
 from street_gaussians_ns_tpu_torch.ops import sh_colors as sh_kernel  # noqa: E402
 from street_gaussians_ns_tpu_torch.ops.render import (  # noqa: E402
-    RenderConfig, rasterize, render)
+    RenderConfig, render)
 from street_gaussians_ns_tpu_torch.ops.ssim import psnr  # noqa: E402
 from street_gaussians_ns_tpu_torch.scripts import eval as eval_cli  # noqa: E402
 from street_gaussians_ns_tpu_torch.scripts import export as export_cli  # noqa: E402
@@ -1249,475 +1238,6 @@ def phase_stages(store, tracks, cfg, rcfg, cam, reps: int = 5):
 # ---------------------------------------------------------------------------
 # The secondary routes of ops.render.rasterize.
 # ---------------------------------------------------------------------------
-
-def _flat_inputs(store, tracks, cfg, cam, training: bool = False):
-    """What `render` hands the rasterizer for the full render of `cam`:
-    (proj, colors4 = rgb + depth, opacities), the inactive slots masked."""
-    flat, active, _ = compose(store, tracks, cam.time, config=cfg)
-    rgbs = sh_colors(flat["means"], flat["features_dc_t"],
-                     flat["features_rest"], cam, 0, cfg.base,
-                     training=training)
-    op = torch.sigmoid(flat["opacities"][:, 0])
-    op = torch.where(active, op, torch.zeros_like(op))
-    proj = project(flat["means"], torch.exp(flat["scales"]), flat["quats"],
-                   viewmat_from_c2w(cam.c2w), cam.fx, cam.fy, cam.cx, cam.cy,
-                   cam.width, cam.height, opacities=op)
-    proj = dataclasses.replace(
-        proj, num_tiles_hit=torch.where(active, proj.num_tiles_hit, 0),
-        radii=torch.where(active, proj.radii, 0))
-    colors4 = torch.cat([rgbs, proj.depths[:, None]], dim=-1)
-    return proj, colors4, op
-
-
-def _raster_loss_and_grads(proj, colors4, op, route):
-    """A mean-type loss of the image and alpha that `route` rasterizes,
-    and its gradients with respect to (xys, conics, colours, opacities)."""
-    leaves = [t.detach().clone().requires_grad_(True)
-              for t in (proj.xys, proj.conics, colors4, op)]
-    pr = dataclasses.replace(proj, xys=leaves[0], conics=leaves[1])
-    img, alpha = route(pr, leaves[2], leaves[3])
-    loss = (img - 0.5).abs().mean() + 0.3 * (alpha ** 2).mean()
-    grads = torch.autograd.grad(loss, leaves)
-    return dict(loss=float(loss.detach()), img=img.detach(), alpha=alpha.detach(),
-                grads=dict(zip(("xys", "conics", "colors", "opacities"),
-                               grads)))
-
-
-def _raster_routes(cam, rcfg, n_strips: int = 3):
-    """The rasterizer-level routes: fused, shared bins through the unfused
-    kernel compositor, and tile strips put together."""
-    w, h = cam.width, cam.height
-    ntx, nty = -(-w // 16), -(-h // 16)
-    bg = lambda t: torch.zeros(4, device=t.device)       # noqa: E731
-
-    def fused(pr, colors, op):
-        return rasterize(pr, colors, op, cam, bg(op), rcfg,
-                         last_color_is_depth=True)[:2]
-
-    def shared_bins(pr, colors, op):
-        bins = tiles.bin_gaussians(pr, w, h, 16, rcfg.max_pairs,
-                                   rcfg.max_rowruns, opacities=op.detach())
-        return rasterize(pr, colors, op, cam, bg(op), rcfg, bins=bins)[:2]
-
-    def strips(pr, colors, op):
-        per = -(-ntx * nty // n_strips)
-        parts = [composite.composite_tiles_fused(
-            pr, colors, op, s_ * per, per, w, h, rcfg.max_pairs,
-            rcfg.max_rowruns, last_color_is_depth=True)
-            for s_ in range(n_strips)]
-        accum = torch.cat([p_[0] for p_ in parts])[:ntx * nty]
-        alpha = torch.cat([p_[1] for p_ in parts])[:ntx * nty]
-        return (composite._tiles_to_image(accum, ntx, nty, w, h),
-                composite._tiles_to_image(alpha, ntx, nty, w, h))
-
-    return {"fused": fused, "shared_bins": shared_bins, "strips": strips}
-
-
-def _close_grads(phase, got, want, rtol_of_top, errs, prefix=""):
-    for k, w in want.items():
-        top = float(w.abs().max())
-        err = float((got[k].cpu() - w.cpu()).abs().max())
-        if k.startswith("bbox/"):
-            if top != 0.0 or err != 0.0:
-                raise AssertionError(f"{phase}: {prefix}{k} must be zero")
-            continue
-        if not top > 0 or err > rtol_of_top * top:
-            raise AssertionError(f"{phase}: {prefix}gradient {k} differs by "
-                                 f"{err} (largest |g| {top})")
-        errs[f"{prefix}grad {k}"] = err / top
-
-
-def phase_reference_modes(seed: int, devices=("cpu", "cuda")):
-    """The small scene through every route of ops.render.rasterize but
-    the fused one, on the card (the kernels) against the CPU (their plain
-    versions): heads at atol 2e-5 (depths rtol 1e-4), one training step's
-    loss at atol 2e-5, every gradient at 1e-4 of its group's largest |g|.
-    And on the card against the fused route: depth_slices=3 (image atol
-    3e-5, gradients 2e-4 of the group's largest), shared bins (1e-6, 1e-4)
-    and three tile strips (1e-5, 2e-4)."""
-    store_np, tracks_np = make_scene(seed + 1, 600, 2, 80, 16, sh_degree=1)
-    cfg = scene_config(1, 16, 5)
-    late = cfg.background.stop_split_at + 1
-    base = dict(max_pairs=1 << 14)
-    configs = {"fused": RenderConfig(**base),
-               "depth_slices=3": RenderConfig(depth_slices=3, **base),
-               "impl=chunked": RenderConfig(impl="chunked",
-                                            max_per_tile=1024, **base),
-               "impl=scan": RenderConfig(impl="scan", max_per_tile=1024,
-                                         **base)}
-    rng = np.random.default_rng(seed + 3)
-    jitter = rng.random((2, 48, 64), dtype=np.float32)
-    heads = ("rgb", "accumulation", "depth")
-    scene, raster = {}, {}
-    for dev in devices:
-        tracks = tracks_from_numpy(tracks_np, device=dev)
-        cam = Camera.make(60.0, 60.0, 32.0, 24.0,
-                          np.eye(3, 4, dtype=np.float32), 64, 48, time=0.6,
-                          device=dev)
-        batch = make_batch(seed, 64, 48, dev)
-        jit = torch.from_numpy(jitter).to(dev)
-        state = train_state_from_numpy(train_arrays(store_np, late), cfg,
-                                       device=dev, seed=seed)
-        scene[dev] = {}
-        with warnings.catch_warnings():
-            warnings.simplefilter("error", RuntimeWarning)
-            for mode, rc in configs.items():
-                outs = forward_scene(state.store, tracks, cam, 0, cfg, rc,
-                                     eval_extras=True)[0]
-                total, _, _, rout, grads = sts.scene_loss_and_grads(
-                    state, tracks, cam, batch, cfg, rc, subset_accs=True,
-                    jitter=jit)
-                scene[dev][mode] = dict(
-                    heads={k: outs[k].detach().cpu() for k in heads},
-                    loss=float(total), densest=int(rout.bins.max_tile_count),
-                    grads={k: v.cpu() for k, v in _all_grads(grads)})
-            proj, colors4, op = _flat_inputs(state.store, tracks, cfg, cam)
-            raster[dev] = {
-                name: _raster_loss_and_grads(proj, colors4, op, route)
-                for name, route in _raster_routes(cam,
-                                                  configs["fused"]).items()}
-    ref, dut = devices[0], devices[-1]
-    errs = {}
-    for mode in configs:
-        if mode == "fused":
-            continue
-        want, got = scene[ref][mode], scene[dut][mode]
-        for k, e in _heads_close(got["heads"], want["heads"],
-                                 atol=2e-5).items():
-            errs[f"{mode} {k}"] = e
-        errs[f"{mode} loss"] = abs(got["loss"] - want["loss"])
-        if errs[f"{mode} loss"] > 2e-5:
-            raise AssertionError(f"reference_modes: {mode} loss differs by "
-                                 f"{errs[f'{mode} loss']}")
-        _close_grads("reference_modes", got["grads"], want["grads"], 1e-4,
-                     errs, prefix=f"{mode} ")
-    for name in ("shared_bins", "strips"):
-        want, got = raster[ref][name], raster[dut][name]
-        errs[f"{name} loss"] = abs(got["loss"] - want["loss"])
-        errs[f"{name} image"] = float(
-            (got["img"].cpu()[..., :3] - want["img"].cpu()[..., :3])
-            .abs().max())
-        if errs[f"{name} loss"] > 2e-5 or errs[f"{name} image"] > 2e-5:
-            raise AssertionError(f"reference_modes: {name} differs from the "
-                                 f"CPU: {errs}")
-        _close_grads("reference_modes", got["grads"], want["grads"], 1e-4,
-                     errs, prefix=f"{name} ")
-    # On the device under test, against the fused route.
-    fused_s, sliced = scene[dut]["fused"], scene[dut]["depth_slices=3"]
-    for k, e in _heads_close(sliced["heads"], fused_s["heads"],
-                             atol=3e-5).items():
-        errs[f"sliced vs fused {k}"] = e
-    if sliced["densest"] != fused_s["densest"]:
-        raise AssertionError("reference_modes: the sliced max_tile_count "
-                             f"{sliced['densest']} is not the scene's "
-                             f"{fused_s['densest']}")
-    _close_grads("reference_modes", sliced["grads"], fused_s["grads"], 2e-4,
-                 errs, prefix="sliced vs fused ")
-    fused_r = raster[dut]["fused"]
-    for name, img_tol, g_tol in (("shared_bins", 1e-6, 1e-4),
-                                 ("strips", 1e-5, 2e-4)):
-        got = raster[dut][name]
-        e = max(float((got["img"][..., :3] - fused_r["img"][..., :3])
-                      .abs().max()),
-                float((got["alpha"] - fused_r["alpha"]).abs().max()))
-        errs[f"{name} vs fused image"] = e
-        if e > img_tol:
-            raise AssertionError(f"reference_modes: {name} image differs "
-                                 f"from the fused route by {e}")
-        _close_grads("reference_modes", got["grads"], fused_r["grads"],
-                     g_tol, errs, prefix=f"{name} vs fused ")
-    if float(fused_r["alpha"].max()) <= 0.3:
-        raise AssertionError("reference_modes: the scene renders almost "
-                             "nothing")
-    emit("reference_modes", size=[64, 48], devices=list(devices),
-         modes=list(configs)[1:] + ["shared_bins", "strips"],
-         tolerance="against the CPU: heads atol 2e-5 (depth rtol 1e-4), "
-                   "loss atol 2e-5, gradients 1e-4 of the group's largest; "
-                   "against the fused route: sliced 3e-5 / 2e-4, shared "
-                   "bins 1e-6 / 1e-4, strips 1e-5 / 2e-4",
-         densest_tile=fused_s["densest"], max_err=errs)
-
-
-def phase_sliced(state, tracks, cfg, rcfg, cams, batch, k: int = 2,
-                 dev="cuda"):
-    """The flagship scene through RenderConfig(depth_slices=k): eval
-    frames on `cams` and 2 training steps on cams[0], counted; then sliced
-    and unsliced in turns. The capacities are grown from the demand counts
-    of a sizing render, as a trainer grows them. Returns the captured
-    second-window launches of kernels D and E and the counted launches."""
-    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
-    store = state.store
-
-    def up(v, step=8192):
-        return -(-int(v) // step) * step
-
-    def frame(cam, rc):
-        with torch.no_grad():
-            return forward_scene(store, tracks, cam, 0, cfg, rc,
-                                 eval_extras=True)
-
-    def step(st, rc):
-        return sts.scene_train_step(st, tracks, cams[0], batch, cfg, rc,
-                                    subset_accs=False)
-
-    # Sizing (and warm-up): a generous first guess, then the demand.
-    guess = RenderConfig(max_pairs=up(1.25 * rcfg.max_pairs),
-                         max_rowruns=up(2 * rcfg.rowrun_capacity),
-                         depth_slices=k)
-    demand_p = demand_r = 0
-    for cam in cams:
-        bins = frame(cam, guess)[1].bins
-        demand_p = max(demand_p, int(bins.num_pairs))
-        demand_r = max(demand_r, int(bins.num_rowruns))
-    rc = RenderConfig(max_pairs=up(demand_p), max_rowruns=up(demand_r),
-                      depth_slices=k)
-    step(state, rc)
-    sync()
-    if dev == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    frame_ms, step_ms, losses, outs = [], [], [], []
-    st = state
-    with warnings.catch_warnings():
-        warnings.simplefilter("error", RuntimeWarning)
-        for cam in cams:
-            t = time.perf_counter()
-            outputs, out, _ = frame(cam, rc)
-            sync()
-            frame_ms.append((time.perf_counter() - t) * 1e3)
-            outs.append((outputs, out))
-        for _ in range(2):
-            t = time.perf_counter()
-            st, metrics = step(st, rc)
-            sync()
-            step_ms.append((time.perf_counter() - t) * 1e3)
-            losses.append(float(metrics["loss"]))
-    launches = read_launches()
-    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else None
-    renders, backwards = 3 * len(cams) + 2, 2
-    if dev == "cuda":
-        check_launches("sliced_path", launches, {
-            "flat_scan": (1 + 3 * k) * renders,
-            "expand_ragged": 2 * k * renders, "pack_feat_cols": k * renders,
-            "composite_fwd": k * renders,
-            "composite_fwd[t_in]": (k - 1) * renders,
-            "composite_bwd": k * backwards,
-            "composite_bwd[t_in]": (k - 1) * backwards,
-            "rank_rowsum": k * backwards, "row_trim": renders,
-            "sh_colors": len(cams) + 2 * backwards,
-            "sh_colors[bwd]": backwards})
-    for loss in losses:
-        if not math.isfinite(loss):
-            raise AssertionError(f"sliced_path: loss {loss}")
-    demand = []
-    for (outputs, out), cam in zip(outs, cams):
-        for h, v in outputs.items():
-            if not bool(torch.isfinite(v).all()):
-                raise AssertionError(f"sliced_path: head {h} is not finite")
-        demand.append([int(out.bins.num_pairs), int(out.bins.num_rowruns)])
-        if demand[-1][0] > rc.max_pairs or demand[-1][1] > rc.rowrun_capacity:
-            raise AssertionError("sliced_path: capacity overflow")
-        # Against the unsliced frame: the same pairs in the same order,
-        # the windows' accums added in another.
-        want = frame(cam, rcfg)
-        diff = float((outputs["rgb"] - want[0]["rgb"]).abs().max())
-        dacc = float((outputs["accumulation"]
-                      - want[0]["accumulation"]).abs().max())
-        if max(diff, dacc) > 3e-5:
-            raise AssertionError(f"sliced_path: the sliced frame differs "
-                                 f"from the unsliced by {diff} (rgb), "
-                                 f"{dacc} (accumulation)")
-        if int(out.bins.max_tile_count) != int(want[1].bins.max_tile_count):
-            raise AssertionError("sliced_path: max_tile_count is not the "
-                                 "unsliced render's")
-        demand[-1] += [diff, dacc, int(want[1].bins.num_pairs),
-                       int(want[1].bins.num_rowruns)]
-
-    # Sliced and unsliced in turns, on the host's clock and on the card's.
-    turns = {"sliced": ([], [], rc), "unsliced": ([], [], rcfg)}
-    st_turn = st
-    for _ in range(2):
-        for name, (f_ms, s_ms, rcx) in turns.items():
-            t = time.perf_counter()
-            frame(cams[0], rcx)
-            sync()
-            f_ms.append((time.perf_counter() - t) * 1e3)
-            t = time.perf_counter()
-            st_turn, _ = step(st_turn, rcx)
-            sync()
-            s_ms.append((time.perf_counter() - t) * 1e3)
-    proj, colors4, op = _flat_inputs(store, tracks, cfg, cams[0])
-    bg = torch.zeros(4, device=op.device)
-    device_ms = {
-        name: time_ms(lambda rcx=rcx: composite.rasterize_tiles_fused(
-            proj, colors4, op, cams[0].width, cams[0].height, 16, bg,
-            rcx.max_pairs, rcx.max_rowruns, last_color_is_depth=True,
-            depth_slices=rcx.depth_slices), 3)
-        for name, (_, _, rcx) in turns.items()}
-
-    # One sliced step with the compositor launches recorded.
-    recs = [Recorder(composite, "composite_fwd"),
-            Recorder(composite, "composite_bwd")]
-    for r in recs:
-        r.__enter__()
-    try:
-        sts.scene_loss_and_grads(
-            st, tracks, cams[0], batch, cfg, rc, subset_accs=False,
-            jitter=draw_pixel_jitter(cams[0], st.generator))
-    finally:
-        for r in recs:
-            r.__exit__()
-    fwd_calls, bwd_calls = (r.calls for r in recs)
-    if len(fwd_calls) != k or len(bwd_calls) != k:
-        raise AssertionError("sliced_path: expected one forward and one "
-                             "backward launch per window")
-    captured = {
-        "composite_fwd[t_in]": next(c for c in fwd_calls
-                                    if c[1].get("t_in") is not None),
-        "composite_bwd[t_in]": next(c for c in bwd_calls
-                                    if c[1].get("t_in") is not None)}
-    emit("sliced_path", depth_slices=k, frames=len(cams), steps=2,
-         renders=renders, backward_passes=backwards,
-         max_pairs=rc.max_pairs, max_rowruns=rc.rowrun_capacity,
-         unsliced_max_pairs=rcfg.max_pairs,
-         unsliced_max_rowruns=rcfg.rowrun_capacity,
-         per_frame=[dict(zip(("demand_pairs", "demand_rowruns",
-                              "rgb_diff_vs_unsliced",
-                              "accumulation_diff_vs_unsliced",
-                              "unsliced_pairs", "unsliced_rowruns"), d))
-                    for d in demand],
-         pairs_per_window=[int(c[0][2].sum()) for c in fwd_calls],
-         pairs_visited_per_window=[
-             int(composite.visited_counts(c[0][8], c[0][2]).sum())
-             for c in bwd_calls],
-         ms_per_frame=frame_ms, ms_per_step=step_ms, loss_per_step=losses,
-         max_memory_allocated=peak, launches=launches,
-         in_turns={name: dict(ms_per_frame=f_ms, ms_per_step=s_ms,
-                              rasterize_device_ms=device_ms[name])
-                   for name, (f_ms, s_ms, _) in turns.items()})
-    return captured, launches
-
-
-def phase_unfused(store, tracks, cfg, rcfg, cam, dev="cuda", reps: int = 3):
-    """The flagship scene through shared bins: ops.tiles.bin_gaussians,
-    then one render and backward of rasterize_tiles_pallas, counted, held
-    against the fused route on the same inputs, with stage times. Returns
-    kernel G's captured arguments and the counted launches."""
-    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
-    w, h = cam.width, cam.height
-    with torch.no_grad():
-        proj, colors4, op = _flat_inputs(store, tracks, cfg, cam)
-    bg = torch.zeros(4, device=op.device)
-    mp, mr = rcfg.max_pairs, rcfg.rowrun_capacity
-
-    last_bins = []
-
-    def unfused(pr, colors, opac):
-        bins = tiles.bin_gaussians(pr, w, h, 16, mp, mr,
-                                   opacities=opac.detach())
-        last_bins[:] = [bins]
-        return composite.rasterize_tiles_pallas(pr.xys, pr.conics, colors,
-                                                opac, bins, w, h, 16, bg)
-
-    def fused(pr, colors, opac):
-        return composite.rasterize_tiles_fused(
-            pr, colors, opac, w, h, 16, bg, mp, mr,
-            last_color_is_depth=True)[:2]
-
-    _raster_loss_and_grads(proj, colors4, op, unfused)       # warm-up
-    sync()
-    if dev == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    with Recorder(composite, "segment_rowsum") as rec:
-        t = time.perf_counter()
-        got = _raster_loss_and_grads(proj, colors4, op, unfused)
-        sync()
-        ms = (time.perf_counter() - t) * 1e3
-    launches = read_launches()
-    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else None
-    if dev == "cuda":
-        check_launches("unfused_path", launches, {
-            "flat_scan": 5, "composite_fwd": 1, "composite_bwd": 1,
-            "segment_rowsum": 1, "expand_ragged": 0, "pack_feat_cols": 0,
-            "rank_rowsum": 0, "row_trim": 0, "sh_colors": 0})
-    bins, = last_bins
-    n_pairs, n_runs = int(bins.num_pairs), int(bins.num_rowruns)
-    if n_pairs > mp or n_runs > mr:
-        raise AssertionError(f"unfused_path: capacity overflow ({n_pairs} "
-                             f"pairs, {n_runs} runs)")
-    want = _raster_loss_and_grads(proj, colors4, op, fused)
-    errs = {"loss": abs(got["loss"] - want["loss"]),
-            "image": float((got["img"] - want["img"]).abs().max()),
-            "alpha": float((got["alpha"] - want["alpha"]).abs().max())}
-    if errs["loss"] > 1e-6 or errs["image"] > 1e-5 or errs["alpha"] > 1e-6:
-        raise AssertionError(f"unfused_path: differs from the fused route: "
-                             f"{errs}")
-    _close_grads("unfused_path", got["grads"], want["grads"], 1e-4, errs)
-    if float(got["alpha"].max()) <= 0.5:
-        raise AssertionError("unfused_path: renders almost nothing")
-
-    # Stage times, on the captured pieces.
-    xys, conics = proj.xys, proj.conics
-    feat = composite._build_feat(xys, conics, colors4, op, bins)
-    ntx = bins.num_tiles_x
-    accum, tfin, ncon = composite.composite_fwd(feat, bins.tile_start,
-                                                bins.tile_count, ntx, 4)
-    g_accum = torch.full_like(accum, 1e-6)
-    g_t = torch.full_like(tfin, -1e-6)
-    gpair = composite.composite_bwd(feat, bins.tile_start, bins.tile_count,
-                                    ntx, 4, g_accum, g_t, tfin, ncon, accum)
-    (g_args, _), = rec.calls
-    rows_cm, starts, ends = g_args
-    rank_sums = segreduce.segment_rowsum(rows_cm, starts, ends)
-    cols = gpair[:mp // 128, :10].permute(1, 0, 2).reshape(10, mp)
-    slot = bins.exp_slot.to(torch.int64)
-
-    def scatter_back():
-        out = torch.zeros((10, mp + 1), dtype=torch.float32,
-                          device=cols.device)
-        out.index_copy_(1, slot, cols)
-        return out[:, :mp].contiguous()
-
-    def no_grad(fn):
-        def run():
-            with torch.no_grad():
-                return fn(proj, colors4, op)
-        return run
-
-    stages = {
-        "bin_gaussians": lambda: tiles.bin_gaussians(
-            proj, w, h, 16, mp, mr, opacities=op),
-        "_build_feat": lambda: composite._build_feat(xys, conics, colors4,
-                                                     op, bins),
-        "composite_fwd": lambda: composite.composite_fwd(
-            feat, bins.tile_start, bins.tile_count, ntx, 4),
-        "composite_bwd": lambda: composite.composite_bwd(
-            feat, bins.tile_start, bins.tile_count, ntx, 4, g_accum, g_t,
-            tfin, ncon, accum),
-        "reduce.scatter_to_expansion_order": scatter_back,
-        "reduce.segment_rowsum": lambda: segreduce.segment_rowsum(
-            rows_cm, starts, ends),
-        "reduce.unsort": lambda: composite._unsort_rank_sums(
-            rank_sums, bins.depth_order),
-        "_reduce_pair_grads": lambda: composite._reduce_pair_grads(
-            gpair, bins, 4),
-        "forward(unfused)": no_grad(unfused),
-        "forward(fused)": no_grad(fused),
-        "forward+backward(unfused)": lambda: _raster_loss_and_grads(
-            proj, colors4, op, unfused),
-        "forward+backward(fused)": lambda: _raster_loss_and_grads(
-            proj, colors4, op, fused),
-    }
-    stage_ms = {k_: time_ms(fn, reps) for k_, fn in stages.items()}
-    emit("unfused_path", size=[w, h], max_pairs=mp, max_rowruns=mr,
-         num_pairs=n_pairs, num_rowruns=n_runs,
-         ms_render_and_backward=ms, max_memory_allocated=peak,
-         tolerance="against the fused route: loss 1e-6, image 1e-5, alpha "
-                   "1e-6, gradients 1e-4 of the group's largest",
-         max_err=errs, stage_ms=stage_ms, launches=launches)
-    return {"segment_rowsum": rec.calls[0]}, launches
-
 
 ROW_SCAN_ROWS = 4_456_448      # rows of the JAX micro-benchmark's arrays
 
@@ -4006,12 +3526,11 @@ def hold_to_plain(calls) -> dict:
         if err[name] != 0.0:
             raise AssertionError(f"{name} differs from its plain version "
                                  f"by {err[name]} (must be exact)")
-    (feat, ts, tc, ntx, nc), kw = calls["composite_fwd"][0]
-    kw = dict(t_in=kw.get("t_in"), mark_done=kw.get("mark_done", False))
+    (feat, ts, tc, ntx, nc), _ = calls["composite_fwd"][0]
     evals = torch.zeros((2 + ts.numel(),), dtype=torch.int64,
                         device=feat.device)
-    got = composite.composite_fwd(feat, ts, tc, ntx, nc, evals=evals, **kw)
-    want = composite.composite_fwd_plain(feat, ts, tc, ntx, nc, **kw)
+    got = composite.composite_fwd(feat, ts, tc, ntx, nc, evals=evals)
+    want = composite.composite_fwd_plain(feat, ts, tc, ntx, nc)
     err["composite_fwd"] = max(_max_err(got[0], want[0]),
                                _max_err(got[1], want[1]))
     n_bad = int((got[2] != want[2]).sum())
@@ -4020,15 +3539,15 @@ def hold_to_plain(calls) -> dict:
                              f"{err['composite_fwd']} (atol 2e-5), "
                              f"n_contrib differs on {n_bad} pixels")
     fwd_evals, fwd_need = (int(v) for v in evals[:2].tolist())
-    bwd_args, kw = calls["composite_bwd"][0]
+    bwd_args, _ = calls["composite_bwd"][0]
     feat, ts, tc, ntx, nc, g_accum, g_t, tfin, ncon, accum = bwd_args
     nvis = composite.visited_counts(ncon, tc)
     shallow = nvis <= E_PLAIN_DEPTH
     tc_cmp = torch.where(shallow, tc, torch.zeros_like(tc))
     cmp_args = (feat, ts, tc_cmp, ntx, nc, g_accum, g_t, tfin, ncon, accum)
-    got = composite.composite_bwd(*cmp_args, t_in=kw.get("t_in"))
+    got = composite.composite_bwd(*cmp_args)
     want = composite.composite_bwd_plain(
-        *cmp_args[:-1], torch.sum(g_accum * accum, dim=-1), kw.get("t_in"))
+        *cmp_args[:-1], torch.sum(g_accum * accum, dim=-1))
     top = float(want[:, :10].abs().max())
     err["composite_bwd"] = _max_err(got[:, :10], want[:, :10])
     rel = float(((got[:, :10] - want[:, :10]).abs()
@@ -4056,10 +3575,10 @@ def hold_to_plain(calls) -> dict:
 def step_shares(bwd_call) -> dict:
     """Pairs in the stream, visited and contributing shares of one
     captured backward (kernel E's counters)."""
-    bwd_args, kw = bwd_call
+    bwd_args, _ = bwd_call
     tc = bwd_args[2]
     evals = torch.zeros((3,), dtype=torch.int64, device=tc.device)
-    composite.composite_bwd(*bwd_args, evals=evals, t_in=kw.get("t_in"))
+    composite.composite_bwd(*bwd_args, evals=evals)
     n_eval, n_vis, n_contrib = (int(v) for v in evals.tolist())
     pairs = int(tc.sum())
     return {"pairs_in_stream": pairs, "bwd_pairs_visited": n_vis,
@@ -4521,6 +4040,43 @@ def _ptxas_entry(kernel, instantiation: str, name: str):
     return entry
 
 
+def second_windows(fwd_call, bwd_call):
+    """The t_in launches of kernels D and E, which no route of the port
+    makes: the captured whole-image launches split at half of each tile's
+    pairs, as the JAX package's depth-sliced route splits them. The first
+    window's forward (mark_done) hands its signed T on as the second
+    window's t_in; the tiles with every pixel done there get no pairs.
+    The backward's second window replays its own forward on the train
+    step's stream and takes the image's cotangents."""
+    def split(feat, ts, tc, ntx, nc):
+        lead = tc // 2
+        _, t_prev, _ = composite.composite_fwd(feat, ts, lead, ntx, nc,
+                                               mark_done=True)
+        done = t_prev.amax(dim=1) <= composite.T_EPS
+        return ts + lead, torch.where(done, 0, tc - lead), t_prev
+
+    (feat, ts, tc, ntx, nc), _ = fwd_call
+    ts2, tc2, t_prev = split(feat, ts, tc, ntx, nc)
+    fwd = ((feat, ts2, tc2, ntx, nc), dict(t_in=t_prev, mark_done=True))
+    (feat, ts, tc, ntx, nc, g_accum, g_t, *_), _ = bwd_call
+    ts2, tc2, t_prev = split(feat, ts, tc, ntx, nc)
+    accum, t_signed, ncon = composite.composite_fwd(
+        feat, ts2, tc2, ntx, nc, t_in=t_prev, mark_done=True)
+    bwd = ((feat, ts2, tc2, ntx, nc, g_accum, g_t, t_signed.abs(), ncon,
+            accum), dict(t_in=t_prev.abs()))
+    return fwd, bwd
+
+
+def rank_segments(rows11, rank_s, n_out):
+    """Kernel G's arguments from kernel F's: the ten gradient rows in depth
+    rank order, one segment per rank (the JAX package's shared-bins route
+    sums the same per-rank runs, over every pair in expansion order)."""
+    ranks = torch.arange(n_out, dtype=rank_s.dtype, device=rank_s.device)
+    starts = torch.searchsorted(rank_s, ranks).to(torch.int32)
+    ends = torch.searchsorted(rank_s, ranks, right=True).to(torch.int32)
+    return rows11[:10].contiguous(), starts, ends
+
+
 def _fwd_row(name: str, call, launches: int, reps: int,
              tile0_check: bool = False) -> dict:
     """Kernel D on one captured launch (with its t_in when it has one)
@@ -4916,12 +4472,11 @@ def _rel(path) -> str:
     return str(Path(path).resolve().relative_to(REPO))
 
 
-def phase_kernels(calls, launches, train_launches, sliced_launches,
-                  unfused_launches, scan_launches, reps: int = REPS):
+def phase_kernels(calls, launches, train_launches, scan_launches,
+                  reps: int = REPS):
     """calls: the captured arguments of every kernel; launches: of the
-    eval frames; train_launches, sliced_launches, unfused_launches,
-    scan_launches: of the paths that first drove kernels E and F, the
-    t_in modes, kernel G and kernel H."""
+    eval frames; train_launches, scan_launches: of the paths that first
+    drove kernels E and F, and kernel H."""
     rows = []
 
     # A: flat scan, the render's 3 int32 cumsums (2 of N, 1 of max_rowruns):
@@ -5052,6 +4607,15 @@ def phase_kernels(calls, launches, train_launches, sliced_launches,
                          train_launches["composite_bwd"], reps,
                          tile0_check=True))
 
+    # D and E continuing a transmittance: the second window of the same
+    # launches. No route of the port makes these launches.
+    fwd_t_in, bwd_t_in = second_windows(calls["composite_fwd"][0],
+                                        calls["composite_bwd"][0])
+    rows.append(_fwd_row("composite_fwd[t_in]", fwd_t_in, 0, reps,
+                         tile0_check=True))
+    rows.append(_bwd_row("composite_bwd[t_in]", bwd_t_in, 0, reps))
+    del fwd_t_in, bwd_t_in
+
     # F: rank-keyed row sum, on the same backward's sorted gradient rows.
     (f_args, _), = calls["rank_rowsum"]
     rows11, rank_s, n_out = f_args
@@ -5102,17 +4666,9 @@ def phase_kernels(calls, launches, train_launches, sliced_launches,
                      runs_over_1024=int((runs > 1024).sum()),
                      ranks_with_pairs=int((runs > 0).sum())))
 
-    # D and E continuing a transmittance: the second window of one sliced
-    # full-width render and of its backward.
-    rows.append(_fwd_row("composite_fwd[t_in]", calls["composite_fwd[t_in]"],
-                         sliced_launches["composite_fwd[t_in]"], reps,
-                         tile0_check=True))
-    rows.append(_bwd_row("composite_bwd[t_in]", calls["composite_bwd[t_in]"],
-                         sliced_launches["composite_bwd[t_in]"], reps))
-
-    # G: segmented row sum, on the unfused backward's rows in expansion
-    # order and the bins' runs.
-    (rows_cm, starts, ends), _ = calls["segment_rowsum"]
+    # G: segmented row sum, which no route of the port calls, on the same
+    # gradient rows cut into one segment per rank.
+    rows_cm, starts, ends = rank_segments(rows11, rank_s, n_out)
     got = segreduce.segment_rowsum(rows_cm, starts, ends)
     want = segreduce.segment_rowsum_plain(rows_cm, starts, ends)
     top = float(want.abs().max())
@@ -5160,8 +4716,7 @@ def phase_kernels(calls, launches, train_launches, sliced_launches,
     rows.append(dict(name="segment_rowsum", route="cuda",
                      source=_rel(_cuda.CSRC / segreduce.SEG_KERNEL.source),
                      replaces=segreduce.SEG_KERNEL.replaces,
-                     launches=unfused_launches["segment_rowsum"],
-                     max_abs_err=err,
+                     launches=0, max_abs_err=err,
                      tolerance="rtol 1e-4 + atol 1e-5 of the largest |sum|; "
                                "two launches bit-equal",
                      largest_sum=top, ms=ms, plain_ms=plain, bound_ms=b,
@@ -5175,6 +4730,7 @@ def phase_kernels(calls, launches, train_launches, sliced_launches,
                      covered_pairs=covered, longest_run=int(lens.max()),
                      runs_over_32=int((lens > 32).sum()),
                      empty_runs=int((lens == 0).sum())))
+    del rows_cm, starts, ends, seg_ids, vals
 
     # H: row scans at the three shapes of the JAX package's
     # micro-benchmark. int32 exact; the float32 sum at rtol 1e-5 of the
@@ -5270,7 +4826,6 @@ def main():
     phase_build()
     phase_reference(args.seed)
     phase_reference_train(args.seed)
-    phase_reference_modes(args.seed)
     store, tracks, cfg, rcfg, cam0, launches = phase_main(args.seed)
     phase_profile("profile", lambda: forward_scene(
         store, tracks, cam0, 0, cfg, rcfg, eval_extras=True))
@@ -5287,14 +4842,6 @@ def main():
                        jitter, res)
     del res
     calls.update(train_calls)
-    cams2 = cameras(2, FLAGSHIP.width, FLAGSHIP.height, FLAGSHIP.focal,
-                    "cuda")
-    sliced_calls, sliced_launches = phase_sliced(state, tracks, cfg, rcfg,
-                                                 cams2, batch)
-    calls.update(sliced_calls)
-    unfused_calls, unfused_launches = phase_unfused(state.store, tracks, cfg,
-                                                    rcfg, cam0)
-    calls.update(unfused_calls)
     del state
     scan_calls, scan_launches = phase_row_scans(args.seed)
     calls.update(scan_calls)
@@ -5325,8 +4872,7 @@ def main():
     with tempfile.TemporaryDirectory(prefix="sgnt_schedule_") as tmp:
         new_paths["schedule_path"] = phase_schedule(
             args.seed, Path(tmp), calls["composite_bwd"][0], card=smi)
-    rows = phase_kernels(calls, launches, train_launches, sliced_launches,
-                         unfused_launches, scan_launches)
+    rows = phase_kernels(calls, launches, train_launches, scan_launches)
     for r in rows:
         r["card"] = smi
         r["launches_on_later_paths"] = {

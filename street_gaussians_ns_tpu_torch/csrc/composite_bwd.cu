@@ -9,10 +9,8 @@
 // (kernel F). Pairs that no pixel of their tile reached keep what the
 // caller's buffer held (zeros, or nothing defined: ops/composite.py says
 // which caller asks for which); a visited pair has all of rows 0..10
-// written (rows 6 + NC..9 as zeros). The unfused path's stream has zeros
-// in row 10 (the TPU
-// kernel's with_rank=False); the copy then writes zeros and that path's
-// reduce does not read the row.
+// written (rows 6 + NC..9 as zeros). A stream without ranks has zeros in
+// row 10 (the TPU kernel's with_rank=False); the copy then writes zeros.
 //
 // Continuation (TIN) and strips (tile0) as in the forward kernel
 // (composite_fwd.cu): the replay starts from the pixel's incoming

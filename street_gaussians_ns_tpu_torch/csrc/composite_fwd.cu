@@ -19,7 +19,7 @@
 // build's -fmad=false): kernel E replays them from the same stream and
 // must take this kernel's branch at every (pixel, pair).
 //
-// Continuation (TIN, the TPU kernel's with_tin): the depth-sliced path
+// Continuation (TIN, the TPU kernel's with_tin): a depth-sliced route
 // composites one depth-rank window after another, and a later window's
 // launch starts every pixel from the transmittance `tin` the earlier ones
 // left (done where tin <= 1e-4) instead of 1. The accumulated colours then

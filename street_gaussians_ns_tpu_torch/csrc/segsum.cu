@@ -10,7 +10,7 @@
 //
 // Bound on the H100: memory. The function reads the rows that lie in some
 // run (C x covered pairs) and the two bounds, and writes out (C x S), 4
-// bytes an element. The unfused backward calls it on (10, 3,991,531)
+// bytes an element. The shared-bins backward called it on (10, 3,991,531)
 // covered rows and 1,310,720 segments, a quarter of them empty and the
 // non-empty ones ~4 pairs long (the longest 665). The first version ran a
 // thread per segment, each walking its own run with 4-byte loads, so a

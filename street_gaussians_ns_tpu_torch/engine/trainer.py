@@ -10,11 +10,13 @@ steps_per_save and at the end. The single-model pipeline is the scene
 graph with zero objects.
 
 The device is an argument of `Trainer` (default "cuda"), not a config
-field, so config.json keeps the JAX schema; asking for "cuda" without a
-card raises. `render_impl="pallas"` (the default) is the port's fused
-kernel route; `render_precision="auto"` resolves to "f32", as it does off
-a TPU. Randomness comes from one `torch.Generator` on the device seeded
-with `TrainerConfig.seed`: the store's init noise first, then the sky
+field, so config.json keeps the JAX schema but for the render route;
+asking for "cuda" without a card raises. The port renders through its one fused kernel route, so the
+JAX package's field that picks a render route has no counterpart here (a
+config.json that names a route loads and renders through the fused one);
+`render_precision="auto"` resolves to "f32", as it does off a TPU.
+Randomness comes from one `torch.Generator` on the device seeded with
+`TrainerConfig.seed`: the store's init noise first, then the sky
 jitter and the split noise of training, so its numbers differ from the JAX
 package's by design (parity tests hand the JAX draws to `build_stores` and
 to the step).
@@ -63,7 +65,8 @@ SAMPLER_PREFIX = "dm/"     # checkpoint keys of the datamanager's sampler
 
 @dataclasses.dataclass
 class TrainerConfig:
-    """The JAX package's TrainerConfig: the same fields and defaults."""
+    """The JAX package's TrainerConfig: the same fields and defaults but
+    the render route's."""
 
     max_num_iterations: int = 30000
     steps_per_save: int = 2000
@@ -80,8 +83,6 @@ class TrainerConfig:
     seed: int = 42
     output_dir: Path = Path("outputs/run")
     resume: bool = True
-    render_impl: str = "pallas"     # the fused kernel route; or "chunked",
-    #                                 "scan" (plain PyTorch compositors)
     render_precision: str = "auto"  # "auto" -> "f32" off a TPU
     viewer_port: Optional[int] = None   # live viewer; None = off
 
@@ -295,7 +296,6 @@ class Trainer:
                 self.writer.log(f"resumed from {latest} @ {self.start_step}")
 
         self.render_config = RenderConfig(max_pairs=trainer_config.max_pairs,
-                                          impl=trainer_config.render_impl,
                                           precision=precision)
         if trainer_config.presize_pairs:
             with self._timed("presize"):
@@ -460,16 +460,6 @@ class Trainer:
             if step % 10 == 0:
                 with span("trainer.log_scalars", sync=True):
                     m = _scalars(metrics)
-                if (not self.render_config.kernel_impl
-                        and m.get("max_tile_count", 0)
-                        > self.render_config.max_per_tile):
-                    self.writer.log(
-                        "WARNING: densest tile has "
-                        f"{int(m['max_tile_count'])} pairs > max_per_tile="
-                        f"{self.render_config.max_per_tile}; the "
-                        f"'{self.render_config.impl}' compositor is "
-                        "truncating splats: raise RenderConfig.max_per_tile "
-                        "or use render_impl='pallas'.")
                 dt = time.time() - t_last
                 t_last = time.time()
                 m["steps_per_sec"] = (10 if step else 1) / max(dt, 1e-9)

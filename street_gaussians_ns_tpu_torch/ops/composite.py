@@ -2,16 +2,11 @@
 (counterpart of street_gaussians_ns_tpu/ops/composite_pallas.py:
 `_pack_feat_cols`, `_fwd_call`, `_bwd_call`, `_tiles_to_image`,
 `_img_to_tiles`, `_bwd_from_tiles`, `_reduce_pair_grads_ranked`,
-`_reduce_pair_grads`, `_unsort_rank_sums`, `_build_feat`, and its four
-rasterizers, each one `torch.autograd.Function`):
+`_unsort_rank_sums`, and two of its rasterizers, each one
+`torch.autograd.Function`):
 
-  rasterize_tiles_fused       bin + pack + composite
-                              (`rasterize_tiles_pallas_fused`), whole or
-                              in `depth_slices` depth-rank windows
-                              composited one after another;
-  rasterize_tiles_pallas      composite over bins the caller shares
-                              (`ops.tiles.bin_gaussians`), the features
-                              gathered per pair (`rasterize_tiles_pallas`);
+  rasterize_tiles_fused       bin + pack + composite (its fused
+                              rasterizer);
   composite_tiles_fused       bin + pack + composite of a strip of tiles
                               [tile0, tile0 + n_tiles), optionally of one
                               depth window, in tile layout
@@ -20,10 +15,9 @@ rasterizers, each one `torch.autograd.Function`):
                               pair-balanced depth windows of a model
                               group (`_balanced_window`).
 
-`precision="bf16"` reaches the fused routes only (ops.tiles.
-_depth_sort_cols rounds the feature columns); the shared-bins route
-ignores it, as in the JAX package. The backward stays float32 (the JAX
-package packs its gradient reduce in bf16 only on a TPU).
+`precision="bf16"` rounds the feature columns (ops.tiles._depth_sort_cols).
+The backward stays float32 (the JAX package packs its gradient reduce in
+bf16 only on a TPU).
 
 Kernel C, `pack_feat_cols` (replaces `composite_pallas.py:_pack_kernel`,
 CUDA in `csrc/pack.cu`): interleaves the sorted-pair feature columns into
@@ -57,8 +51,10 @@ loads) in batches double-buffered with cp.async; g . accum is formed in
 the kernel; the fused routes leave the rows nobody reads unwritten
 (`zero_fill=False`).
 
-Kernels D and E take an incoming transmittance `t_in` (a later depth
-window continues the earlier ones' chain) and a strip offset `tile0`.
+Kernels D and E take a strip offset `tile0`, and an incoming
+transmittance `t_in` (a later depth window continues the earlier ones'
+chain), the JAX kernels' mode of its depth-sliced route, which no route of
+the port calls.
 
 The gradient reduce around kernel F (`ops.segreduce.rank_rowsum`) is plain
 PyTorch: the visited pairs are gathered out of the gradient stream by
@@ -66,9 +62,7 @@ their tile intervals (a tile's backward visits the first max(n_contrib)
 pairs of its range, so no mask pass over the stream is needed), sorted by
 rank, summed per rank by kernel F and un-sorted by `depth_order`. The JAX
 package's cap ladder and nested conds exist for XLA's static shapes and
-have no counterpart. The unfused rasterizer's reduce (`_reduce_pair_grads`)
-goes through expansion order and kernel G
-(`ops.segreduce.segment_rowsum`) instead.
+have no counterpart.
 
 Each wrapper runs its plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors.
@@ -83,9 +77,8 @@ from ..utils.profiling import span
 from . import _cuda
 from .rasterize_ref import ALPHA_CLAMP, ALPHA_THRESH, SIGMA_MIN, T_EPS
 from . import scan
-from .segreduce import rank_rowsum, segment_rowsum
-from .tiles import (TileBins, _bin_sorted, _depth_sort_cols, _trim_full,
-                    bin_and_pack)
+from .segreduce import rank_rowsum
+from .tiles import _bin_sorted, _depth_sort_cols, _trim_full, bin_and_pack
 
 TILE = 16
 PIX = TILE * TILE     # pixels per tile
@@ -491,13 +484,11 @@ def _visited_pairs(tile_start, nvis) -> torch.Tensor:
 
 
 def _reduce_pair_grads_ranked(gpair, tile_start, nvis, depth_order,
-                              num_gaussians: int,
-                              unsort: bool = True) -> torch.Tensor:
+                              num_gaussians: int) -> torch.Tensor:
     """Rank-keyed gradient reduction of the fused paths: gpair (rows, 16,
     128) from composite_bwd, nvis (T,) the pairs each tile's backward
-    visited -> (N, 10) per-gaussian gradients, or with unsort=False the
-    (10, N) sums per depth rank. Only the visited pairs are gathered and
-    sorted: everything else in gpair is zero."""
+    visited -> (N, 10) per-gaussian gradients. Only the visited pairs are
+    gathered and sorted: everything else in gpair is zero."""
     with span("composite.visited", sync=True):
         pair = _visited_pairs(tile_start, nvis)
     g = gpair[pair // K, :RANK_ROW + 1, pair % K]           # (L, 11)
@@ -506,31 +497,7 @@ def _reduce_pair_grads_ranked(gpair, tile_start, nvis, depth_order,
     rank_s, perm = torch.sort(g[:, RANK_ROW].to(torch.int32), stable=True)
     rows11 = g.index_select(0, perm).T.contiguous()          # (11, L)
     rank_sums = rank_rowsum(rows11, rank_s, num_gaussians)
-    return _unsort_rank_sums(rank_sums, depth_order) if unsort else rank_sums
-
-
-def _reduce_pair_grads(gpair: torch.Tensor, bins: TileBins,
-                       nc: int) -> torch.Tensor:
-    """Gradient reduction over shared bins: gpair (rows, 16, 128) from
-    composite_bwd -> (N, 6 + nc) per-gaussian gradients. The live rows go
-    back to expansion order, where every depth rank's pairs are one
-    contiguous run [exp_starts, exp_starts + exp_counts), kernel G sums
-    the runs, and depth_order un-sorts the sums. exp_slot is a permutation
-    on the valid pairs, so the way back is a scatter by it (the JAX
-    package sorts by it, which XLA does faster than it scatters); invalid
-    pairs carry the sentinel max_pairs and fall into a spare column. Row
-    10 of gpair (the fused paths' rank) is not read."""
-    max_pairs = bins.exp_slot.shape[0]
-    ng = 6 + nc
-    cols = gpair[:max_pairs // K, :ng].permute(1, 0, 2).reshape(ng, max_pairs)
-    rows_cm = torch.zeros((ng, max_pairs + 1), dtype=torch.float32,
-                          device=gpair.device)
-    rows_cm.index_copy_(1, bins.exp_slot.to(torch.int64), cols)
-    starts = bins.exp_starts.clamp(0, max_pairs)
-    ends = (bins.exp_starts + bins.exp_counts).clamp(0, max_pairs)
-    rank_sums = segment_rowsum(rows_cm[:, :max_pairs].contiguous(), starts,
-                               ends)                          # (ng, N)
-    return _unsort_rank_sums(rank_sums, bins.depth_order)
+    return _unsort_rank_sums(rank_sums, depth_order)
 
 
 # ---------------------------------------------------------------------------
@@ -591,22 +558,19 @@ def _input_grads(seg: torch.Tensor, nc: int, colors_dtype):
 
 def _bwd_from_tiles(feat, tile_start, tile_count, ntx: int, accum, tfin,
                     ncon, g_accum, g_t, depth_order, num_gaussians: int,
-                    unsort: bool = True, t_in=None,
                     tile0: int = 0) -> torch.Tensor:
     """Backward from tile-layout cotangents (g_accum (T, PIX, C) of the
     premultiplied accum, g_t (T, PIX) of T_final): kernel E, then the
-    rank-keyed reduce -> (N, 10) per-gaussian gradients, or with
-    unsort=False the (10, N) sums per depth rank (the sliced path adds its
-    windows' sums and un-sorts once). t_in, tile0 as composite_fwd took
-    them. The reduce reads the visited pairs only, so kernel E is not
-    asked to define the rest of the stream."""
+    rank-keyed reduce -> (N, 10) per-gaussian gradients. tile0 as
+    composite_fwd took it. The reduce reads the visited pairs only, so
+    kernel E is not asked to define the rest of the stream."""
     nc = accum.shape[-1]
     nvis = visited_counts(ncon, tile_count)
     gpair = composite_bwd(feat, tile_start, tile_count, ntx, nc, g_accum,
-                          g_t, tfin, ncon, accum, t_in=t_in, tile0=tile0,
+                          g_t, tfin, ncon, accum, tile0=tile0,
                           zero_fill=False)
     return _reduce_pair_grads_ranked(gpair, tile_start, nvis, depth_order,
-                                     num_gaussians, unsort=unsort)
+                                     num_gaussians)
 
 
 def _depth_key(proj) -> torch.Tensor:
@@ -671,262 +635,25 @@ class _FusedRasterize(torch.autograd.Function):
                 None, None, None, None, None, None, None, None)
 
 
-# ---------------------------------------------------------------------------
-# The depth-sliced fused rasterizer.
-# ---------------------------------------------------------------------------
-
-def _slice_caps(max_pairs: int, max_rowruns: int | None, n_slices: int):
-    """A slice's pair and run capacities: its share of the totals, rounded
-    up to a multiple of 8192."""
-    if max_rowruns is None:
-        max_rowruns = max_pairs // 2
-    mp = (-(-max_pairs // n_slices) + 8191) // 8192 * 8192
-    mr = (-(-max_rowruns // n_slices) + 8191) // 8192 * 8192
-    return mp, mr
-
-
-class _SlicedRasterize(torch.autograd.Function):
-    """_FusedRasterize in k depth-rank windows (max_pairs / max_rowruns
-    are the totals, split evenly). The gaussians are depth-sorted and
-    row-trimmed once; the windows' bounds sit at the pair-count quantiles
-    of the sorted order, so the windows hold about the same number of
-    pairs; each window is binned, packed and composited on its own, a
-    later one continuing the transmittance and the done state the earlier
-    ones left (kernel D's t_in and mark_done), so the windows' accums add
-    up to the unsliced image, every pixel ends at the pair where the
-    unsliced render ends it, and a pixel that has ended costs the later
-    windows nothing; a tile whose every pixel has ended drops its count.
-    (The JAX package hands on the transmittance alone and tests it
-    against 1e-4, which a pixel that has ended never falls to: there a
-    pixel ended by one window may take pairs of the next.)
-
-    The bins it returns report num_pairs / num_rowruns as the capacity
-    demand, k times the largest window's true count (at least the true
-    total), so a caller that grows the capacities by them keeps every
-    window from dropping pairs; tile_count is the sum of the windows'
-    counts before any tile was dropped (the scene's true densest tile);
-    the per-window fields are None."""
-
-    @staticmethod
-    def forward(ctx, xys, conics, colors, opacities, depth_key, tile_box,
-                width, height, max_pairs, max_rowruns, n_slices,
-                last_color_is_depth, precision):
-        ntx, nty = _grid(width, height)
-        nc = colors.shape[-1]
-        n = depth_key.shape[0]
-        dev = xys.device
-        mp_s, mr_s = _slice_caps(max_pairs, max_rowruns, n_slices)
-        cols = _depth_sort_cols(xys, conics, tile_box, depth_key,
-                                colors.to(torch.float32), opacities,
-                                last_color_is_depth, precision)
-        trim = _trim_full(cols, TILE, nty)
-        cnt_full = torch.where(torch.isfinite(cols[0]) & (trim[2] > 0),
-                               trim[2], 0)
-        # int64 for the quantiles: s * total passes 2^31 at a few slices
-        # of a few hundred million pairs. The bounds stay on the device.
-        cum = scan.cumsum_flat(cnt_full).to(torch.int64)
-        total = cum[-1] if n > 0 else torch.zeros((), dtype=torch.int64,
-                                                  device=dev)
-        qs = torch.stack([(s * total) // n_slices
-                          for s in range(1, n_slices)])
-        inner = torch.searchsorted(cum, qs, side="left")
-        bounds = [torch.zeros((), dtype=torch.int64, device=dev),
-                  *inner.unbind(0),
-                  torch.full((), n, dtype=torch.int64, device=dev)]
-
-        c_agg = None
-        t_prev = None
-        tile_count_true = None
-        saved, demand_p, demand_r = [], [], []
-        for s in range(n_slices):
-            bins_s, feats_s = _bin_sorted(
-                cols, None, width, height, TILE, mp_s, mr_s,
-                rank_window=(bounds[s], bounds[s + 1]), trim=trim)
-            tile_count = bins_s.tile_count
-            tile_count_true = (tile_count if tile_count_true is None
-                               else tile_count_true + tile_count)
-            if s > 0:
-                # t_prev carries a minus sign on the pixels that are done.
-                t_done = t_prev.amax(dim=1) <= T_EPS
-                tile_count = torch.where(t_done, 0, tile_count)
-            feat_s = pack_feat_cols(feats_s, mp_s)
-            accum_s, t_signed, ncon_s = composite_fwd(
-                feat_s, bins_s.tile_start, tile_count, ntx, nc, t_in=t_prev,
-                mark_done=True)
-            tfin_s = t_signed.abs()
-            c_agg = accum_s if c_agg is None else c_agg + accum_s
-            saved += [feat_s, bins_s.tile_start, tile_count, accum_s, tfin_s,
-                      ncon_s]
-            demand_p.append(bins_s.num_pairs)
-            demand_r.append(bins_s.num_rowruns)
-            t_prev = t_signed
-
-        depth_order = cols[1].to(torch.int32)
-        ctx.save_for_backward(depth_order, *saved)
-        ctx.dims = (ntx, nty, width, height, nc)
-        ctx.colors_dtype = colors.dtype
-        img = _tiles_to_image(c_agg, ntx, nty, width, height)
-        alpha = 1.0 - _tiles_to_image(tfin_s, ntx, nty, width, height)
-        bins = TileBins(
-            pair_valid=None, tile_start=None, tile_count=tile_count_true,
-            num_pairs=n_slices * torch.stack(demand_p).max(),
-            num_rowruns=n_slices * torch.stack(demand_r).max(),
-            depth_order=depth_order, exp_starts=None, exp_counts=None,
-            num_tiles_x=ntx, num_tiles_y=nty)
-        return img, alpha, bins
-
-    @staticmethod
-    def backward(ctx, g_img, g_alpha, _g_bins):
-        depth_order, *saved = ctx.saved_tensors
-        per_slice = [saved[i:i + 6] for i in range(0, len(saved), 6)]
-        ntx, nc = ctx.dims[0], ctx.dims[4]
-        n = depth_order.shape[0]
-        g_c, g_t = _cotangent_tiles(g_img, g_alpha, ctx.dims,
-                                    depth_order.device)
-        # The composite is a chain: window s maps (T_in_s, its stream) to
-        # (accum_s, T_out_s) with T_in_{s+1} = T_out_s, C = sum_s accum_s,
-        # alpha = 1 - T_out_{k-1}. dL/daccum_s = g_C for every window;
-        # dL/dT_out goes backward through each window's linearity in its
-        # T_in (with the termination pattern held, accum_s and T_out_s are
-        # T_in times their values from T_in = 1):
-        #   dL/dT_in_s = (<g_C, accum_s> + g_T_out_s T_out_s) / T_in_s,
-        # passed through unchanged where T_in_s <= T_EPS (the window added
-        # nothing there and T_out = T_in). The ranks are global and the
-        # windows' rank sets disjoint, so the k windows' rank sums (one
-        # launch of kernel F each, over that window's visited pairs) add
-        # exactly, and the un-sort is paid once.
-        rank_sums = None
-        for s in range(len(per_slice) - 1, -1, -1):
-            feat_s, tile_start, tile_count, accum_s, tfin_s, ncon_s = \
-                per_slice[s]
-            t_in_s = per_slice[s - 1][4] if s > 0 else None
-            rs = _bwd_from_tiles(feat_s, tile_start, tile_count, ntx,
-                                 accum_s, tfin_s, ncon_s, g_c, g_t,
-                                 depth_order, n, unsort=False, t_in=t_in_s)
-            rank_sums = rs if rank_sums is None else rank_sums + rs
-            if s > 0:
-                gdota = torch.sum(g_c * accum_s, dim=-1)
-                g_t = torch.where(
-                    t_in_s > T_EPS,
-                    (gdota + g_t * tfin_s) / t_in_s.clamp(min=T_EPS), g_t)
-        seg = _unsort_rank_sums(rank_sums, depth_order)
-        return (*_input_grads(seg, nc, ctx.colors_dtype),
-                None, None, None, None, None, None, None, None, None)
-
-
 def rasterize_tiles_fused(proj, colors: torch.Tensor,
                           opacities: torch.Tensor, width: int, height: int,
                           tile_size: int, background: torch.Tensor,
                           max_pairs: int, max_rowruns: int | None = None,
                           last_color_is_depth: bool = False,
-                          precision: str = "f32", depth_slices: int = 1):
+                          precision: str = "f32"):
     """Bin (ops.tiles.bin_and_pack) + pack (kernel C) + composite
     (kernel D), differentiable in proj.xys, proj.conics, colors and
     opacities through kernels E and F; returns (img (H, W, C), alpha
-    (H, W), bins). depth_slices > 1 composites that many depth-rank
-    windows one after another (_SlicedRasterize): the same image, each
-    sort over a share of the pairs. precision="bf16" rounds the feature
-    columns to bf16 before the pairs are enumerated (ops.tiles.
-    _depth_sort_cols). The background blend stays outside the autograd
-    node."""
+    (H, W), bins). precision="bf16" rounds the feature columns to bf16
+    before the pairs are enumerated (ops.tiles._depth_sort_cols). The
+    background blend stays outside the autograd node."""
     _check_tile_size(tile_size)
-    if depth_slices < 1:
-        raise ValueError(f"depth_slices must be >= 1, got {depth_slices}")
-    if depth_slices > 1:
-        img, alpha, bins = _SlicedRasterize.apply(
-            proj.xys, proj.conics, colors, opacities, _depth_key(proj),
-            proj.tile_box, width, height, max_pairs, max_rowruns,
-            depth_slices, last_color_is_depth, precision)
-    else:
-        img, alpha, bins = _FusedRasterize.apply(
-            proj.xys, proj.conics, colors, opacities, _depth_key(proj),
-            proj.tile_box, width, height, max_pairs, max_rowruns,
-            last_color_is_depth, precision)
+    img, alpha, bins = _FusedRasterize.apply(
+        proj.xys, proj.conics, colors, opacities, _depth_key(proj),
+        proj.tile_box, width, height, max_pairs, max_rowruns,
+        last_color_is_depth, precision)
     img = img + (1.0 - alpha[..., None]) * background[None, None, :]
     return img, alpha, bins
-
-
-# ---------------------------------------------------------------------------
-# The unfused rasterizer: bins shared by the caller.
-# ---------------------------------------------------------------------------
-
-def _build_feat(xys, conics, colors, opacities, bins: TileBins):
-    """Splat attributes gathered into sorted pair order and packed as the
-    (max_pairs // 128 + 1, 16, 128) stream: row r, lane j = sorted pair
-    r * 128 + j, the last row zeros. A per-gaussian (N + 1, 16) table is
-    packed first so that the per-pair gather reads one 64-byte row; its
-    row N is all zero, and invalid pairs gather it (alpha 0). Feature
-    rows 6 + nc .. 15 are zero: this stream carries no depth rank."""
-    nc = colors.shape[-1]
-    max_pairs = bins.gauss_idx.shape[0]
-    n = xys.shape[0]
-    if max_pairs % K:
-        raise ValueError(f"max_pairs must be a multiple of {K}, got "
-                         f"{max_pairs}")
-    f32 = torch.float32
-    table = torch.cat([
-        xys.to(f32), conics.to(f32), opacities.to(f32)[:, None],
-        colors.to(f32),
-        torch.zeros((n, NFEAT - 6 - nc), dtype=f32, device=xys.device)],
-        dim=-1)
-    table = torch.cat([table, torch.zeros((1, NFEAT), dtype=f32,
-                                          device=xys.device)])
-    idx = torch.where(bins.pair_valid, bins.gauss_idx, n).to(torch.int64)
-    rows = table.index_select(0, idx)                        # (P, NFEAT)
-    feat = rows.reshape(max_pairs // K, K, NFEAT).transpose(1, 2)
-    return torch.cat([feat, torch.zeros((1, NFEAT, K), dtype=f32,
-                                        device=xys.device)]).contiguous()
-
-
-class _UnfusedRasterize(torch.autograd.Function):
-    """Compositing over bins that are a constant of the node: the stream
-    is gathered per pair (_build_feat), kernel D composites it, and the
-    backward is kernel E on that stream (its row 10 zero) and the
-    expansion-order reduce through kernel G (_reduce_pair_grads)."""
-
-    @staticmethod
-    def forward(ctx, xys, conics, colors, opacities, bins, width, height):
-        ntx, nty = bins.num_tiles_x, bins.num_tiles_y
-        nc = colors.shape[-1]
-        feat = _build_feat(xys, conics, colors, opacities, bins)
-        accum, tfin, ncon = composite_fwd(feat, bins.tile_start,
-                                          bins.tile_count, ntx, nc)
-        ctx.save_for_backward(feat, accum, tfin, ncon)
-        ctx.bins = bins
-        ctx.dims = (ntx, nty, width, height, nc)
-        ctx.colors_dtype = colors.dtype
-        img = _tiles_to_image(accum, ntx, nty, width, height)
-        alpha = 1.0 - _tiles_to_image(tfin, ntx, nty, width, height)
-        return img, alpha
-
-    @staticmethod
-    def backward(ctx, g_img, g_alpha):
-        feat, accum, tfin, ncon = ctx.saved_tensors
-        bins = ctx.bins
-        ntx, nc = ctx.dims[0], ctx.dims[4]
-        g_accum, g_t = _cotangent_tiles(g_img, g_alpha, ctx.dims,
-                                        feat.device)
-        gpair = composite_bwd(feat, bins.tile_start, bins.tile_count, ntx,
-                              nc, g_accum, g_t, tfin, ncon, accum)
-        seg = _reduce_pair_grads(gpair, bins, nc)
-        return (*_input_grads(seg, nc, ctx.colors_dtype), None, None, None)
-
-
-def rasterize_tiles_pallas(xys, conics, colors, opacities, bins: TileBins,
-                           width: int, height: int, tile_size: int,
-                           background: torch.Tensor):
-    """The kernel compositor over shared bins (ops.tiles.bin_gaussians),
-    with no per-tile cap; same contract as
-    ops.composite_chunked.rasterize_tiles_chunked: returns (img (H, W, C),
-    alpha (H, W)). It keeps the name of the JAX function it ports."""
-    _check_tile_size(tile_size)
-    if bins.gauss_idx is None or bins.exp_slot is None:
-        raise ValueError("these bins carry no gauss_idx / exp_slot: they "
-                         "must come from ops.tiles.bin_gaussians")
-    img, alpha = _UnfusedRasterize.apply(xys, conics, colors, opacities,
-                                         bins, width, height)
-    img = img + (1.0 - alpha[..., None]) * background[None, None, :]
-    return img, alpha
 
 
 # ---------------------------------------------------------------------------

@@ -6,15 +6,12 @@ street_gaussians_ns_tpu/ops/render.py).
 and depth as one 4-channel colour, the sky composited as
 rgb*alpha + sky*(1-alpha), and the alpha-normalised depth with far fill.
 
-`rasterize` takes the routes of the JAX package's: the fused kernel path
-(impl="fused", or its JAX name "pallas", with no bins passed), whole or
-in `depth_slices` depth-rank windows; the kernel compositor over shared
-bins (impl="fused"/"pallas" with `bins`); and the two portable
-compositors in plain PyTorch (impl="chunked", "scan") over
-`ops.tiles.bin_gaussians`' bins, which render at most `max_per_tile`
-pairs of a tile. `precision="bf16"` rounds the fused routes' feature
-columns to bf16 before binning (ops.tiles._depth_sort_cols), the JAX
-package's production TPU mode; the other routes ignore it, as there.
+`rasterize` runs the JAX package's fused kernel route (impl="pallas"
+without shared bins): bin, pack and composite as one autograd node. The
+JAX package's other routes (depth slices, shared bins, the portable
+compositors) are references that tests hold this one against.
+`precision="bf16"` rounds the feature columns to bf16 before binning
+(ops.tiles._depth_sort_cols), the JAX package's production TPU mode.
 """
 from __future__ import annotations
 
@@ -27,12 +24,8 @@ import torch
 from ..core.cameras import Camera, viewmat_from_c2w
 from ..core.projection import Projected, project
 from ..utils.profiling import count, span
-from .composite import rasterize_tiles_fused, rasterize_tiles_pallas
-from .composite_chunked import rasterize_tiles_chunked
-from .composite_scan import rasterize_tiles_scan
-from .tiles import PRECISIONS, TileBins, bin_gaussians
-
-IMPLS = ("fused", "pallas", "chunked", "scan")
+from .composite import rasterize_tiles_fused
+from .tiles import PRECISIONS, TileBins
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,33 +36,13 @@ class RenderConfig:
     max_pairs: int = 2 ** 18           # sorted (gaussian, tile) capacity
     max_rowruns: Optional[int] = None  # (gaussian, tile-row) run capacity;
     #                                    default max_pairs // 2
-    max_per_tile: int = 1024           # a tile's pair budget in the
-    #                                    portable compositors
-    chunk: int = 32                    # splats per chunk of impl="chunked"
-    impl: str = "fused"                # "fused" (= "pallas") | "chunked" |
-    #                                    "scan"
     depth_far_fill: float = 10.0
-    precision: str = "f32"             # "f32" | "bf16" (fused routes)
-    depth_slices: int = 1              # > 1: the fused path composites that
-    #                                    many depth-rank windows one after
-    #                                    another; max_pairs / max_rowruns
-    #                                    stay the totals
+    precision: str = "f32"             # "f32" | "bf16"
 
     def __post_init__(self):
-        if self.impl not in IMPLS:
-            raise ValueError(f"impl={self.impl!r}: expected one of {IMPLS}")
         if self.precision not in PRECISIONS:
             raise ValueError(f"precision={self.precision!r}: expected one "
                              f"of {PRECISIONS}")
-        if self.depth_slices < 1:
-            raise ValueError(f"depth_slices must be >= 1, got "
-                             f"{self.depth_slices}")
-        if self.max_per_tile < 1 or self.chunk < 1:
-            raise ValueError("max_per_tile and chunk must be >= 1")
-
-    @property
-    def kernel_impl(self) -> bool:
-        return self.impl in ("fused", "pallas")
 
     @property
     def rowrun_capacity(self) -> int:
@@ -88,45 +61,19 @@ class RenderOutputs:
 
 def rasterize(proj: Projected, colors: torch.Tensor, opacities: torch.Tensor,
               camera: Camera, background: torch.Tensor, config: RenderConfig,
-              bins: Optional[TileBins] = None,
               last_color_is_depth: bool = False):
-    """Bin + composite. Returns (img (H, W, C), alpha (H, W), bins).
-
-    With a kernel impl and no `bins`, the fused rasterizer bins, packs and
-    composites in one node (depth-sliced when config.depth_slices > 1).
-    Otherwise the scene is binned by ops.tiles.bin_gaussians (unless the
-    caller shares `bins`) and composited by the kernel compositor over
-    shared bins or by a portable one.
+    """Bin + pack + composite in one node (ops.composite.
+    rasterize_tiles_fused). Returns (img (H, W, C), alpha (H, W), bins).
 
     Warns (RuntimeWarning) when the scene needs more pairs or runs than
-    the configured capacities (for a sliced render: than k times its
-    fullest window needs), since the overflow pairs are dropped from this
-    render, and when a portable compositor's `max_per_tile` is below the
-    densest tile, since it drops the pairs past it. Reading the counts
-    waits for the device."""
-    width, height = camera.width, camera.height
-    if config.kernel_impl and bins is None:
-        img, alpha, bins = rasterize_tiles_fused(
-            proj, colors, opacities, width, height, config.tile_size,
-            background, config.max_pairs, config.max_rowruns,
-            last_color_is_depth=last_color_is_depth,
-            precision=config.precision, depth_slices=config.depth_slices)
-    else:
-        if bins is None:
-            bins = bin_gaussians(proj, width, height, config.tile_size,
-                                 config.max_pairs, config.max_rowruns,
-                                 opacities=opacities.detach())
-        args = (proj.xys, proj.conics, colors, opacities, bins, width,
-                height, config.tile_size, background)
-        if config.impl == "scan":
-            img, alpha = rasterize_tiles_scan(*args, config.max_per_tile)
-        elif config.impl == "chunked":
-            img, alpha = rasterize_tiles_chunked(*args, config.max_per_tile,
-                                                 config.chunk)
-        else:
-            img, alpha = rasterize_tiles_pallas(*args)
+    the configured capacities, since the overflow pairs are dropped from
+    this render. Reading the counts waits for the device."""
+    img, alpha, bins = rasterize_tiles_fused(
+        proj, colors, opacities, camera.width, camera.height,
+        config.tile_size, background, config.max_pairs, config.max_rowruns,
+        last_color_is_depth=last_color_is_depth, precision=config.precision)
     with span("render.read_counts", sync=True):
-        num_pairs, num_rowruns, densest = (int(v) for v in torch.stack(
+        num_pairs, num_rowruns, _ = (int(v) for v in torch.stack(
             [bins.num_pairs, bins.num_rowruns,
              bins.max_tile_count.to(torch.int64)]).tolist())
     count("render.pairs", num_pairs)
@@ -136,12 +83,6 @@ def rasterize(proj: Projected, colors: torch.Tensor, opacities: torch.Tensor,
             f"render capacity overflow: {num_pairs} pairs for max_pairs="
             f"{config.max_pairs}, {num_rowruns} row runs for max_rowruns="
             f"{config.rowrun_capacity}; the overflow pairs are dropped",
-            RuntimeWarning, stacklevel=3)
-    if not config.kernel_impl and densest > config.max_per_tile:
-        warnings.warn(
-            f"render truncation: the densest tile holds {densest} pairs, "
-            f"impl={config.impl!r} renders max_per_tile="
-            f"{config.max_per_tile} of them and drops the rest",
             RuntimeWarning, stacklevel=3)
     return img, alpha, bins
 

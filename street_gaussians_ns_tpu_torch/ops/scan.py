@@ -18,9 +18,10 @@ stream run one after another. int32 add, int32 max and float32 max are
 exact and the same from launch to launch; the float32 add combines its
 predecessors' totals in one fixed order, so two launches are bit-equal
 there too, at a cost in descriptor reads that grows with the square of
-the tile count (no caller scans float32). The plain versions are
-`torch.cumsum` / `torch.cummax`; the wrapper runs them only for CPU
-tensors.
+the tile count (no caller scans float32). The max mode (`cummax_flat`)
+is the JAX package's owner scatter of its shared-bins binning, which no
+route of the port calls. The plain versions are `torch.cumsum` /
+`torch.cummax`; the wrapper runs them only for CPU tensors.
 
 Kernel H, `cumsum_rows`/`cummax_rows`, scans a row-major (M, C) array
 along axis 0 and replaces `scan_pallas.py:_scan_kernel`, whose one carry

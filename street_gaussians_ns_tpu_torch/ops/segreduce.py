@@ -14,9 +14,10 @@ run in one fixed order (coalesced loads, no search per rank). It is bound
 by memory bandwidth (the rows once, the sums once) and uses no atomics,
 so its sums do not change from run to run.
 
-The unfused rasterizer's backward brings its gradient rows back to
+The JAX package's shared-bins route brings its gradient rows back to
 expansion order, where every gaussian's pairs are one contiguous run
-whose bounds the bins carry; `segment_rowsum` sums the runs. It replaces
+whose bounds the bins carry, and sums the runs; `segment_rowsum` is that
+sum, which no route of the port calls. It replaces
 `segreduce_pallas.py:_segsum_kernel` (a one-hot of the bounds contracted
 on the MXU, bf16 inputs). The CUDA kernel (`csrc/segsum.cu`) is kernel
 F's design without its search: a block takes 128 consecutive segments,

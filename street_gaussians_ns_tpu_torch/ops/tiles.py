@@ -1,7 +1,7 @@
 """Tile binning (counterpart of street_gaussians_ns_tpu/ops/tiles.py:
-`TileBins`, `count_pairs`, the fused `bin_and_pack` = `_depth_sort_cols`
-+ `_trim_full` + `_bin_sorted`, and the bins-shared `bin_gaussians` with
-`_owner_by_scatter`).
+`TileBins`, `count_pairs` and the fused `bin_and_pack` = `_depth_sort_cols`
++ `_trim_full` + `_bin_sorted`; the binning of the JAX package's other
+routes is a reference of the tests).
 
 Fused pipeline (the JAX package's, step for step, so pair enumeration and
 order match it bit for bit):
@@ -27,19 +27,11 @@ order match it bit for bit):
      bounds by one searchsorted.
 Integer quantities ride the expansions as float32 values, exact below
 2^24, as in the JAX package.
-
-`bin_gaussians` enumerates the same pairs without threading features: the
-slot -> owner maps come from a unique-index scatter and a cumulative max
-(kernel A's max mode), the box rows are not trimmed, and the bins carry
-`gauss_idx` and `exp_slot` for the compositors that gather features per
-pair (ops.composite.rasterize_tiles_pallas, ops.composite_chunked,
-ops.composite_scan).
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional
 
 import numpy as np
 import torch
@@ -58,49 +50,36 @@ _TRIM_ELEMS = 1 << 23
 
 @dataclasses.dataclass(frozen=True)
 class TileBins:
-    """Sorted (gaussian, tile) pairs + per-tile ranges.
+    """Sorted (gaussian, tile) pairs + per-tile ranges."""
 
-    A field is None where the path that made the bins has no valid value
-    for it: the fused path threads features instead of `gauss_idx` and
-    `exp_slot`, and the depth-sliced path has one pair list per slice, so
-    its public bins carry only the aggregate `tile_count`, the demand
-    counts and `depth_order`."""
-
-    pair_valid: Optional[torch.Tensor]  # (max_pairs,) bool
-    tile_start: Optional[torch.Tensor]  # (num_tiles,) int32 first sorted pair
+    pair_valid: torch.Tensor   # (max_pairs,) bool
+    tile_start: torch.Tensor   # (num_tiles,) int32 first sorted pair
     tile_count: torch.Tensor   # (num_tiles,) int32 pairs per tile
     num_pairs: torch.Tensor    # () int64 true pair count (may exceed
     #                            max_pairs)
     num_rowruns: torch.Tensor  # () int64 true run count (may exceed
     #                            max_rowruns)
     depth_order: torch.Tensor  # (N,) int32 depth rank -> gaussian index
-    exp_starts: Optional[torch.Tensor]  # (N,) int32 exclusive cumsum of
-    #                                     exp_counts
-    exp_counts: Optional[torch.Tensor]  # (N,) int32 pairs per depth rank
+    exp_starts: torch.Tensor   # (N,) int32 exclusive cumsum of exp_counts
+    exp_counts: torch.Tensor   # (N,) int32 pairs per depth rank
     num_tiles_x: int
     num_tiles_y: int
-    gauss_idx: Optional[torch.Tensor] = None  # (max_pairs,) int32 gaussian
-    #                                           of each sorted pair
-    exp_slot: Optional[torch.Tensor] = None   # (max_pairs,) int32 pre-sort
-    #                                           slot; max_pairs if invalid
 
     @property
     def max_tile_count(self) -> torch.Tensor:
-        """() int32: the densest tile's pair count within capacity. The
-        portable compositors render at most `max_per_tile` pairs of a tile
-        and drop the rest, so their callers hold this against it."""
+        """() int32: the densest tile's pair count within capacity."""
         return torch.max(self.tile_count)
 
 
 _TENSOR_FIELDS = ("pair_valid", "tile_start", "tile_count", "num_pairs",
-                  "num_rowruns", "depth_order", "exp_starts", "exp_counts",
-                  "gauss_idx", "exp_slot")
+                  "num_rowruns", "depth_order", "exp_starts", "exp_counts")
 
 
 def bins_from_numpy(arrays: dict, device="cuda") -> TileBins:
-    """TileBins from a mapping of field name -> numpy array (every field
-    of the JAX package's TileBins, the two tile-grid sizes included), on
-    the card unless the caller asks for another device."""
+    """TileBins from a mapping of field name -> numpy array (the fields of
+    the JAX package's TileBins that the port's carries, the two tile-grid
+    sizes included), on the card unless the caller asks for another
+    device."""
     fields = {}
     for name in _TENSOR_FIELDS:
         a = np.asarray(arrays[name])
@@ -231,40 +210,31 @@ def _depth_sort_cols(xys, conics, tile_box, depth_key, colors, opacities,
 
 def _trim_full(cols, tile_size: int, nty: int):
     """Row trim over all the depth-sorted gaussians (see
-    _row_trim_counts); windowed binning passes it to _bin_sorted(trim=)
-    so k windows do not redo the (N, tile rows) broadcast."""
+    _row_trim_counts); a windowed binning that has it already passes it
+    to _bin_sorted(trim=)."""
     _, _, fs, box_s = cols
     return _row_trim_counts(fs[:, 2:5], fs[:, 0:2], box_s, tile_size, nty,
                             q=coverage_q(fs[:, 5]))
 
 
 def _bin_sorted(cols, depth_slice, width: int, height: int, tile_size: int,
-                max_pairs: int, max_rowruns: int,
-                with_gauss_idx: bool = False, rank_window=None, trim=None,
+                max_pairs: int, max_rowruns: int, trim=None,
                 local_window=None):
     """Row trim -> two ragged expansions -> pair sort -> tile ranges of
     the depth-sorted columns `cols` (from _depth_sort_cols), everything
     pair-shaped sized by max_rowruns / max_pairs. Returns (TileBins,
-    feats): the sorted-pair float32 columns [x, y, ca, cb, cc, op, c0..c3]
-    and, unless with_gauss_idx, the pair's depth rank as an 11th (each
-    (max_pairs,); invalid pairs hold zeros and rank N).
+    feats): the 11 sorted-pair float32 columns [x, y, ca, cb, cc, op,
+    c0..c3, depth rank] (each (max_pairs,); invalid pairs hold zeros and
+    rank N).
 
-    A depth-rank window restricts the binning, in one of two ways:
-      * depth_slice=(start, size): the `size` ranks from `start` (an int
-        or a 0-d device tensor, clamped so the window stays inside the
-        array) are cut out of every column; the ranks the pairs carry stay
-        global, so a window's gradients land in the full-N rank arrays;
-      * rank_window=(lo, hi): 0-d device tensors over the full columns,
-        applied as a mask on the counts (the windows' sizes depend on the
-        data). Ranks outside keep zero counts.
-    local_window=(lo, hi), with depth_slice: only local rows [lo, hi) of
-    the cut-out window are live. `trim` passes a precomputed _trim_full
-    result (full N; windowed here with the columns).
-
-    with_gauss_idx: the pairs carry the gaussian's original index instead
-    of its depth rank, and the bins get `gauss_idx` and `exp_slot`."""
-    if depth_slice is not None and rank_window is not None:
-        raise ValueError("depth_slice and rank_window exclude each other")
+    depth_slice=(start, size) restricts the binning to a depth-rank
+    window: the `size` ranks from `start` (an int or a 0-d device tensor,
+    clamped so the window stays inside the array) are cut out of every
+    column; the ranks the pairs carry stay global, so a window's
+    gradients land in the full-N rank arrays. local_window=(lo, hi), with
+    depth_slice: only local rows [lo, hi) of the cut-out window are live.
+    `trim` passes a precomputed _trim_full result (full N; windowed here
+    with the columns)."""
     dk_s, order, fs, box_s = cols
     dev = dk_s.device
     ntx = (width + tile_size - 1) // tile_size
@@ -282,11 +252,11 @@ def _bin_sorted(cols, depth_slice, width: int, height: int, tile_size: int,
         def dsl(a):
             return a.index_select(0, window)
 
-        dk_s, fs, box_s, idx_s = map(dsl, (dk_s, fs, box_s, order))
+        dk_s, fs, box_s = map(dsl, (dk_s, fs, box_s))
         if trim is not None:
             trim = tuple(map(dsl, trim))
     else:
-        rank0, nloc, idx_s = 0, n, order
+        rank0, nloc = 0, n
     x0_s, x1_s, y0_s = box_s[:, 0], box_s[:, 1], box_s[:, 2]
     op_s = fs[:, 5]
 
@@ -294,9 +264,6 @@ def _bin_sorted(cols, depth_slice, width: int, height: int, tile_size: int,
         fs[:, 2:5], fs[:, 0:2], box_s, tile_size, nty, q=coverage_q(op_s)))
     with span("tiles.bin_rest"):
         nz = torch.isfinite(dk_s) & (count_g > 0)
-        if rank_window is not None:
-            ridx = torch.arange(n, dtype=i32, device=dev)
-            nz = nz & (ridx >= rank_window[0]) & (ridx < rank_window[1])
         if local_window is not None:
             lidx = torch.arange(nloc, dtype=i32, device=dev)
             nz = nz & (lidx >= local_window[0]) & (lidx < local_window[1])
@@ -305,10 +272,8 @@ def _bin_sorted(cols, depth_slice, width: int, height: int, tile_size: int,
         y0t = torch.where(nz, y0_s + first, 0)
         y1t = torch.where(nz, y0_s + last + 1, 0)
         hrows = torch.where(nz, y1t - y0t, 0)
-        # What a pair carries to say whose it is: the original index when
-        # gauss_idx is asked for, else the (global) depth rank.
-        ident = (idx_s if with_gauss_idx
-                 else rank0 + torch.arange(nloc, device=dev)).to(f32)
+        # What a pair carries to say whose it is: its (global) depth rank.
+        ident = (rank0 + torch.arange(nloc, device=dev)).to(f32)
 
         # Level 1: gaussians -> (gaussian, tile-row) runs.
         cum_r = scan.cumsum_flat(hrows)
@@ -350,31 +315,16 @@ def _bin_sorted(cols, depth_slice, width: int, height: int, tile_size: int,
         count_g = torch.where(starts_r < max_rowruns, count_g, 0)
         exp_starts = scan.cumsum_flat(count_g) - count_g
 
-        def feat_rows(perm):
-            # x, y, ca..op, f0..f3 in pair order
-            return torch.cat([p[0:2], p[6:14]]).index_select(1, perm)
-
-        if with_gauss_idx:
-            # (tile, slot) order: a stable sort by tile keeps the slots, which
-            # ascend, in order.
-            tile_sorted, perm = torch.sort(tile_id, stable=True)
-            pair_valid = tile_sorted < num_tiles
-            feats = list(feat_rows(perm).unbind(0))
-            g = torch.where(valid, p[2].to(i32), n)
-            extra = dict(gauss_idx=g.index_select(0, perm),
-                         exp_slot=torch.where(pair_valid, perm.to(i32),
-                                              max_pairs))
-        else:
-            # (tile, depth rank) order as one int64 key; dead slots tie at
-            # (num_tiles, n) and carry all-zero features.
-            rank_col = torch.where(valid, p[2], float(n))
-            key = tile_id.to(torch.int64) * (n + 1) + rank_col.to(torch.int64)
-            key_s, perm = torch.sort(key, stable=True)
-            tile_sorted = key_s // (n + 1)
-            pair_valid = tile_sorted < num_tiles
-            pf = feat_rows(perm)                                # (10, MP)
-            feats = list(pf.unbind(0)) + [rank_col.index_select(0, perm)]
-            extra = {}
+        # (tile, depth rank) order as one int64 key; dead slots tie at
+        # (num_tiles, n) and carry all-zero features.
+        rank_col = torch.where(valid, p[2], float(n))
+        key = tile_id.to(torch.int64) * (n + 1) + rank_col.to(torch.int64)
+        key_s, perm = torch.sort(key, stable=True)
+        tile_sorted = key_s // (n + 1)
+        pair_valid = tile_sorted < num_tiles
+        # x, y, ca..op, f0..f3 in pair order
+        pf = torch.cat([p[0:2], p[6:14]]).index_select(1, perm)  # (10, MP)
+        feats = list(pf.unbind(0)) + [rank_col.index_select(0, perm)]
 
         bounds = torch.searchsorted(
             tile_sorted,
@@ -393,7 +343,6 @@ def _bin_sorted(cols, depth_slice, width: int, height: int, tile_size: int,
             exp_counts=count_g,
             num_tiles_x=ntx,
             num_tiles_y=nty,
-            **extra,
         )
         return bins, feats
 
@@ -411,23 +360,20 @@ def bin_and_pack(
     max_pairs: int,
     max_rowruns: int | None = None,
     last_color_is_depth: bool = False,
-    with_gauss_idx: bool = False,
-    depth_slice=None,
     precision: str = "f32",
 ):
     """Fused binning: returns (TileBins, feats), feats being the 11
     sorted-pair float32 columns [x, y, ca, cb, cc, op, c0..c3, depth rank]
     (each (max_pairs,); invalid pairs hold zeros and rank N) that the
     compositor's stream packs. The per-pair depth rank is what the
-    training slice's gradient reduce keys on. with_gauss_idx and
-    depth_slice=(start, size) as in _bin_sorted, precision as in
+    training slice's gradient reduce keys on. precision as in
     _depth_sort_cols."""
     if max_rowruns is None:
         max_rowruns = max_pairs // 2
     cols = _depth_sort_cols(xys, conics, tile_box, depth_key, colors,
                             opacities, last_color_is_depth, precision)
-    return _bin_sorted(cols, depth_slice, width, height, tile_size,
-                       max_pairs, max_rowruns, with_gauss_idx)
+    return _bin_sorted(cols, None, width, height, tile_size, max_pairs,
+                       max_rowruns)
 
 
 def count_pairs(proj: Projected, width: int, height: int, tile_size: int,
@@ -449,124 +395,3 @@ def count_pairs(proj: Projected, width: int, height: int, tile_size: int,
     rowruns = torch.where(visible, box[:, 3] - box[:, 2], 0)
     return (torch.where(nz, cnt, 0).sum(dtype=torch.int64),
             rowruns.sum(dtype=torch.int64))
-
-
-def _owner_by_scatter(starts: torch.Tensor, capacity: int) -> torch.Tensor:
-    """slot -> index of the owning run, (capacity,) int32: for runs with
-    exclusive-cumsum `starts` (callers pass a sentinel >= capacity for
-    zero-length runs), owner[s] = the largest run index whose start <= s,
-    -1 before the first run. Every live run's start is marked with its
-    index (the starts are distinct; sentinels fall into a spare slot that
-    is cut off) and a cumulative max (kernel A, max mode) fills the run."""
-    n = starts.shape[0]
-    dev = starts.device
-    mark = torch.full((capacity + 1,), -1, dtype=torch.int32, device=dev)
-    mark.scatter_(0, starts.clamp(0, capacity).to(torch.int64),
-                  torch.arange(n, dtype=torch.int32, device=dev))
-    return scan.cummax_flat(mark[:capacity].contiguous())
-
-
-@torch.no_grad()
-def bin_gaussians(proj: Projected, width: int, height: int, tile_size: int,
-                  max_pairs: int, max_rowruns: int | None = None,
-                  opacities: torch.Tensor | None = None) -> TileBins:
-    """Bins shared by the compositors that gather features per pair: each
-    (gaussian, tile-row) run enumerates the tile columns its coverage
-    ellipse covers in that row (opacity-aware when `opacities` is given:
-    pass the values the compositor receives, and build `proj` with them so
-    the tile box matches). Two-level ragged expansion, both levels an
-    owner scatter + flat cummax + row gather. The box rows are not
-    trimmed, so `num_rowruns` counts every row of every visible box (more
-    than the fused binning's). The bins are topology: nothing here is
-    differentiated."""
-    dev = proj.depths.device
-    ntx = (width + tile_size - 1) // tile_size
-    nty = (height + tile_size - 1) // tile_size
-    num_tiles = ntx * nty
-    if max_rowruns is None:
-        max_rowruns = max_pairs // 2
-    n = proj.depths.shape[0]
-    i32, f32 = torch.int32, torch.float32
-    zero = torch.zeros((), dtype=i32, device=dev)
-
-    visible = proj.num_tiles_hit > 0
-    depth_key = torch.where(visible, proj.depths,
-                            torch.full_like(proj.depths, float("inf")))
-    order = torch.sort(depth_key, stable=True).indices
-    op_col = (opacities.to(f32) if opacities is not None
-              else torch.ones((n,), dtype=f32, device=dev))
-    # One (N, 11) row gather brings every per-gaussian quantity into depth
-    # order (the ints are exact in float32).
-    tab = torch.cat([
-        proj.xys, proj.conics, proj.tile_box.to(f32), op_col[:, None],
-        torch.arange(n, dtype=f32, device=dev)[:, None]], dim=-1)
-    tab_s = tab.index_select(0, order)
-    box_s = tab_s[:, 5:9].to(i32)
-    hrows = torch.where(visible.index_select(0, order),
-                        box_s[:, 3] - box_s[:, 2], 0)
-
-    # Level 1: gaussians -> (gaussian, tile-row) runs.
-    cum_r = scan.cumsum_flat(hrows)
-    starts_r = cum_r - hrows
-    total_r = cum_r[-1] if n > 0 else zero
-    owner1 = _owner_by_scatter(
-        torch.where(hrows > 0, starts_r, max_rowruns), max_rowruns
-    ).clamp(0, max(n - 1, 0)).to(torch.int64)
-    rr = torch.arange(max_rowruns, dtype=i32, device=dev)
-    rtab = torch.cat([tab_s, starts_r.to(f32)[:, None]],
-                     dim=-1).index_select(0, owner1)     # (MR, 12)
-    rbox = rtab[:, 5:9].to(i32)
-    ty = rbox[:, 2] + (rr - rtab[:, 11].to(i32))
-    rvalid = rr < torch.clamp(total_r, max=max_rowruns)
-    rq = coverage_q(rtab[:, 9]) if opacities is not None else 9.0
-    x0r, x1r = row_tile_range(rtab[:, 2:5], rtab[:, 0:2], rbox, ty,
-                              tile_size, rq)
-    wr = torch.where(rvalid, x1r - x0r, 0)
-
-    # Level 2: runs -> pairs.
-    cum2 = scan.cumsum_flat(wr)
-    starts2 = cum2 - wr
-    total = cum2[-1]
-    owner2 = _owner_by_scatter(
-        torch.where(wr > 0, starts2, max_pairs), max_pairs
-    ).clamp(0, max_rowruns - 1).to(torch.int64)
-    rtab_i = torch.stack([rtab[:, 10].to(i32), ty * ntx + x0r, starts2],
-                         dim=-1)
-    ptab = rtab_i.index_select(0, owner2)                # (MP, 3)
-    slot = torch.arange(max_pairs, dtype=i32, device=dev)
-    valid = slot < total
-    tile_id = torch.where(valid, ptab[:, 1] + (slot - ptab[:, 2]),
-                          num_tiles)
-
-    # A rank's runs are contiguous, so its pair count is a difference of
-    # the level-2 cumsum; the starts are an exclusive cumsum of the counts
-    # so that empty ranks stay contiguous.
-    in_cap = (hrows > 0) & (starts_r < max_rowruns)
-    last_r = (starts_r + hrows - 1).clamp(0, max_rowruns - 1).to(torch.int64)
-    first_r = starts_r.clamp(0, max_rowruns - 1).to(torch.int64)
-    count_g = torch.where(in_cap, cum2[last_r] - starts2[first_r], 0)
-    exp_starts = scan.cumsum_flat(count_g) - count_g
-
-    # (tile, slot) order: a stable sort by tile keeps the ascending slots
-    # in order, which is depth order within each tile.
-    tile_sorted, perm = torch.sort(tile_id, stable=True)
-    pair_valid = tile_sorted < num_tiles
-    bounds = torch.searchsorted(
-        tile_sorted, torch.arange(num_tiles + 1, dtype=i32, device=dev),
-        side="left").to(i32)
-    return TileBins(
-        pair_valid=pair_valid,
-        tile_start=bounds[:-1],
-        tile_count=bounds[1:] - bounds[:-1],
-        # Exact while the runs fit; a lower bound when they overflow,
-        # which num_rowruns (always exact) detects.
-        num_pairs=total.to(torch.int64),
-        num_rowruns=total_r.to(torch.int64),
-        depth_order=order.to(i32),
-        exp_starts=exp_starts,
-        exp_counts=count_g,
-        num_tiles_x=ntx,
-        num_tiles_y=nty,
-        gauss_idx=ptab[:, 0].index_select(0, perm),
-        exp_slot=torch.where(pair_valid, perm.to(i32), max_pairs),
-    )

@@ -12,17 +12,15 @@ device:
     projects its shard and computes its SH colours, the compact screen
     attributes are all-gathered over the row, and the objects (small,
     replicated) are projected by every rank;
-  * fused route (impl "fused"/"pallas"): each column bins and composites
-    its pair-balanced window of the global depth order into a
-    full-frame (accum, T) layer (ops.composite.composite_tiles_fused with
-    balance_gather), and the layers merge in depth order by
-    (C, T) |> (C', T') = (C + T C', T T') (_combine_layers), in bfloat16
-    on the wire when the render is bf16 and there is more than one
-    column; with more than one column the sky and the SSIM are computed
-    in bands of rows, one band a column (models.splatfacto.sky_color
-    row0/rows, ops.ssim.ssim_band_mean);
-  * portable route (impl "chunked"): the bins are replicated and each
-    column composites its strip of tiles, the strips all-gathered.
+  * each column bins and composites its pair-balanced window of the
+    global depth order into a full-frame (accum, T) layer
+    (ops.composite.composite_tiles_fused with balance_gather), and the
+    layers merge in depth order by (C, T) |> (C', T') = (C + T C', T T')
+    (_combine_layers), in bfloat16 on the wire when the render is bf16
+    and there is more than one column; with more than one column the sky
+    and the SSIM are computed in bands of rows, one band a column
+    (models.splatfacto.sky_color row0/rows, ops.ssim.ssim_band_mean).
+    The compositor takes 16x16 tiles only: another tile size raises.
 
 Like the JAX merge, each column composites its window from T = 1, so a
 pixel that a nearer window ended still takes pairs of a farther one (the
@@ -58,12 +56,11 @@ from ..models.scene_graph import (ObjectTracks, SceneGraphConfig,
                                   interpolate_boxes, object2world,
                                   scene_loss_dict)
 from ..models.splatfacto import sh_colors, sky_color
-from ..ops.composite import composite_tiles_fused
-from ..ops.composite_chunked import composite_tiles, tiles_to_image
+from ..ops.composite import (_check_tile_size, _tiles_to_image,
+                              composite_tiles_fused)
 from ..ops.packing import round_bf16
 from ..ops.render import RenderConfig
 from ..ops.ssim import ssim_band_mean
-from ..ops.tiles import bin_gaussians
 from .collectives import (all_gather_tiled, all_reduce, allreduce_form,
                           gather_tiled, group_size, pmax, pmean, psum,
                           reduce_scatter_tiled)
@@ -179,11 +176,10 @@ def sharded_scene_loss(mesh: Mesh, gauss: Dict, env, bbox: Dict,
     mg, dg = mesh.model_group, mesh.data_group
     width, height = camera.width, camera.height
     ts = render_config.tile_size
+    _check_tile_size(ts)
     ntx = -(-width // ts)
     nty = -(-height // ts)
     num_tiles = ntx * nty
-    tiles_pad = -(-num_tiles // model_size) * model_size
-    tl = tiles_pad // model_size
     dev = bg_active.device
 
     bg = {k: gauss[k]["bg"] for k in GAUSSIAN_GROUPS}
@@ -242,79 +238,45 @@ def sharded_scene_loss(mesh: Mesh, gauss: Dict, env, bbox: Dict,
     seg_obj = torch.arange(n_total, device=dev) >= cap_bg
     colors4 = torch.cat([rgbs, pr.depths[:, None]], dim=-1)
 
-    use_kernel = render_config.kernel_impl and ts == 16
-    if use_kernel:
-        n_pad = -(-n_total // model_size) * model_size
-        slice_size = n_pad // model_size
-        # Pad rows hit no tile: depth key +inf, no pairs.
-        pr_pad = Projected(**{k: _pad_to(getattr(pr, k), n_pad)
-                              for k in _FLOAT_FIELDS + _INT_FIELDS})
-        colors4_pad = _pad_to(colors4, n_pad)
-        opac_pad = _pad_to(opac, n_pad)
-        seg_obj_pad = _pad_to(seg_obj, n_pad)
-        zero = torch.zeros_like(opac_pad)
+    n_pad = -(-n_total // model_size) * model_size
+    slice_size = n_pad // model_size
+    # Pad rows hit no tile: depth key +inf, no pairs.
+    pr_pad = Projected(**{k: _pad_to(getattr(pr, k), n_pad)
+                          for k in _FLOAT_FIELDS + _INT_FIELDS})
+    colors4_pad = _pad_to(colors4, n_pad)
+    opac_pad = _pad_to(opac, n_pad)
+    seg_obj_pad = _pad_to(seg_obj, n_pad)
+    zero = torch.zeros_like(opac_pad)
 
-        def layer(opac_in, colors_in):
-            return composite_tiles_fused(
-                pr_pad, colors_in, opac_in, 0, num_tiles, width, height,
-                render_config.max_pairs, render_config.max_rowruns,
-                last_color_is_depth=True, precision=render_config.precision,
-                slice0=mesh.col * slice_size, slice_size=slice_size,
-                balance_gather=(functools.partial(gather_tiled, group=mg)
-                                if model_size > 1 else None))
+    def layer(opac_in, colors_in):
+        return composite_tiles_fused(
+            pr_pad, colors_in, opac_in, 0, num_tiles, width, height,
+            render_config.max_pairs, render_config.max_rowruns,
+            last_color_is_depth=True, precision=render_config.precision,
+            slice0=mesh.col * slice_size, slice_size=slice_size,
+            balance_gather=(functools.partial(gather_tiled, group=mg)
+                            if model_size > 1 else None))
 
-        accum_l, alpha_l, bins_main = layer(opac_pad, colors4_pad)
-        # bf16 on the wire only when there is something to send.
-        accum_t, alpha_t = _combine_layers(
-            accum_l, alpha_l, mg,
-            bf16=render_config.precision == "bf16" and model_size > 1)
-        if subset_accs:
-            _, a_obj_l, _ = layer(torch.where(seg_obj_pad, opac_pad, zero),
-                                  colors4_pad)
-            _, a_bg_l, _ = layer(torch.where(seg_obj_pad, zero, opac_pad),
-                                 colors4_pad)
-            alpha_obj = _combine_alpha(a_obj_l, mg)
-            alpha_bg = _combine_alpha(a_bg_l, mg)
+    accum_l, alpha_l, bins_main = layer(opac_pad, colors4_pad)
+    # bf16 on the wire only when there is something to send.
+    accum_t, alpha_t = _combine_layers(
+        accum_l, alpha_l, mg,
+        bf16=render_config.precision == "bf16" and model_size > 1)
+    if subset_accs:
+        _, a_obj_l, _ = layer(torch.where(seg_obj_pad, opac_pad, zero),
+                              colors4_pad)
+        _, a_bg_l, _ = layer(torch.where(seg_obj_pad, zero, opac_pad),
+                             colors4_pad)
+        alpha_obj = _combine_alpha(a_obj_l, mg)
+        alpha_bg = _combine_alpha(a_bg_l, mg)
     else:
-        # Portable route: replicated bins, a strip of tiles per column.
-        bins = bin_gaussians(pr, width, height, ts, render_config.max_pairs,
-                             render_config.max_rowruns,
-                             opacities=opac.detach())
-        bins_main = bins
-        end = bins.tile_start[-1] + bins.tile_count[-1]
-        bins_pad = dataclasses.replace(
-            bins,
-            tile_start=torch.cat([bins.tile_start, end.expand(
-                tiles_pad - num_tiles).to(torch.int32)]),
-            tile_count=_pad_to(bins.tile_count, tiles_pad))
-        my_tiles = mesh.col * tl + torch.arange(tl, dtype=torch.int32,
-                                                device=dev)
-
-        def strip(opac_in, colors_in):
-            return composite_tiles(
-                pr.xys, pr.conics, colors_in, opac_in, bins_pad, my_tiles,
-                ts, render_config.max_per_tile, render_config.chunk)
-
-        def gather_tiles(x):
-            return all_gather_tiled(x, mg)[:num_tiles]
-
-        accum_s, alpha_s = strip(opac, colors4)
-        accum_t, alpha_t = gather_tiles(accum_s), gather_tiles(alpha_s)
-        if subset_accs:
-            ones1 = torch.ones((n_total, 1), dtype=torch.float32, device=dev)
-            zero = torch.zeros_like(opac)
-            _, alpha_obj_s = strip(torch.where(seg_obj, opac, zero), ones1)
-            _, alpha_bg_s = strip(torch.where(seg_obj, zero, opac), ones1)
-            alpha_obj = gather_tiles(alpha_obj_s)
-            alpha_bg = gather_tiles(alpha_bg_s)
-    if not subset_accs:
         alpha_obj = alpha_bg = torch.zeros_like(alpha_t)
 
-    img4 = tiles_to_image(accum_t, ntx, nty, ts, width, height)
-    alpha = tiles_to_image(alpha_t, ntx, nty, ts, width, height)[..., None]
+    img4 = _tiles_to_image(accum_t, ntx, nty, width, height)
+    alpha = _tiles_to_image(alpha_t, ntx, nty, width, height)[..., None]
     rgb = torch.clamp(img4[..., :3], max=1.0)
     if env is not None:
-        if use_kernel and model_size > 1:
+        if model_size > 1:
             # The sky in bands of pixel rows, one a column, gathered.
             band = -(-height // model_size)
             sky_band = sky_color(env, camera, jitter, row0=mesh.col * band,
@@ -328,15 +290,15 @@ def sharded_scene_loss(mesh: Mesh, gauss: Dict, env, bbox: Dict,
                         torch.full_like(alpha, render_config.depth_far_fill))
     outputs = {
         "rgb": rgb, "accumulation": alpha, "depth": depth,
-        "object_acc": tiles_to_image(alpha_obj, ntx, nty, ts, width,
-                                     height)[..., None],
-        "background_acc": tiles_to_image(alpha_bg, ntx, nty, ts, width,
-                                         height)[..., None],
+        "object_acc": _tiles_to_image(alpha_obj, ntx, nty, width,
+                                      height)[..., None],
+        "background_acc": _tiles_to_image(alpha_bg, ntx, nty, width,
+                                          height)[..., None],
     }
     # The SSIM in bands of map rows, one a column: the value is summed over
     # the row, the gradient flows through the local band.
     ssim_fn = None
-    if use_kernel and model_size > 1:
+    if model_size > 1:
         sband = -(-(height - 10) // model_size)
 
         def ssim_fn(a, b):

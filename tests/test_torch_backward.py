@@ -12,12 +12,18 @@ Tolerances:
   with respect to the stream (an oracle that shares no formula with it):
   atol 1e-6 at cotangents of size 1/(H W C), rtol 1e-4. The replay forms
   the suffix sum by subtraction, autograd by a reverse accumulation.
-- fused image and gradients vs the JAX package with impl="chunked"
-  (autodiff of the portable compositor, its per-tile budget asserted to
-  truncate nothing) and, once in the default run, vs impl="pallas" with
-  interpret=True (the real bodies of the TPU kernels E and F): image and
-  loss atol 2e-5 / 1e-6, gradients atol 1e-6 on a mean-type loss, the
-  tolerance of tests/test_fused_binning.py."""
+- fused image and gradients vs the JAX package's routes: impl="chunked"
+  and "scan" (autodiff of the portable compositors, their per-tile budget
+  asserted to truncate nothing) and, once in the default run, impl="pallas"
+  with interpret=True (the real bodies of the TPU kernels E and F): image
+  and loss atol 2e-5 / 1e-6, gradients atol 1e-6 on a mean-type loss, the
+  tolerance of tests/test_fused_binning.py. Against the JAX shared-bins
+  route (`rasterize_tiles_pallas`, interpret=True) the gradients are held
+  at 1e-4 of the largest |g|, and against its depth_slices=3 route
+  (interpret=True), whose windows add in another order, at atol 5e-5 +
+  rtol 2e-4 with the loss at 1e-5 and the image at atol 3e-5 + rtol 5e-5:
+  the tolerances the port's own shared-bins and sliced routes were held
+  to."""
 import dataclasses
 
 import jax
@@ -29,8 +35,9 @@ import torch
 from street_gaussians_ns_tpu.ops import segreduce_pallas as jseg
 from street_gaussians_ns_tpu.ops.composite_chunked import (
     rasterize_tiles_chunked)
+from street_gaussians_ns_tpu.ops.composite_jnp import rasterize_tiles_jnp
 from street_gaussians_ns_tpu.ops.composite_pallas import (
-    rasterize_tiles_pallas_fused)
+    rasterize_tiles_pallas, rasterize_tiles_pallas_fused)
 from street_gaussians_ns_tpu.ops.tiles import bin_gaussians
 from street_gaussians_ns_tpu_torch.core.projection import Projected
 from street_gaussians_ns_tpu_torch.ops import composite as tcomp
@@ -223,15 +230,21 @@ def _fused_loss_and_grads(seed, n, opaque, jax_impl):
 
     def jloss(args):
         xys, conics, cols, op = args
-        if jax_impl == "pallas":
+        bg = jnp.asarray(BG)
+        if jax_impl in ("pallas", "sliced"):
             pr = dataclasses.replace(jp, xys=xys, conics=conics)
             img, alpha, _ = rasterize_tiles_pallas_fused(
-                pr, cols, op, 48, 32, 16, jnp.asarray(BG), MAX_PAIRS,
-                interpret=True)
+                pr, cols, op, 48, 32, 16, bg, MAX_PAIRS, interpret=True,
+                depth_slices=3 if jax_impl == "sliced" else 1)
+        elif jax_impl == "shared_bins":
+            img, alpha = rasterize_tiles_pallas(
+                xys, conics, cols, op, jbins, 48, 32, 16, bg, interpret=True)
+        elif jax_impl == "scan":
+            img, alpha = rasterize_tiles_jnp(
+                xys, conics, cols, op, jbins, 48, 32, 16, bg, 1024)
         else:
             img, alpha = rasterize_tiles_chunked(
-                xys, conics, cols, op, jbins, 48, 32, 16, jnp.asarray(BG),
-                1024, 32)
+                xys, conics, cols, op, jbins, 48, 32, 16, bg, 1024, 32)
         return (jnp.mean(jnp.abs(img - target))
                 + 0.3 * jnp.mean(alpha ** 2)), img
 
@@ -253,27 +266,39 @@ def _fused_loss_and_grads(seed, n, opaque, jax_impl):
     return (float(jl), np.asarray(jimg), jg), (float(tl.detach()), img.detach(), tg)
 
 
-def _assert_fused_close(j, t):
+def _assert_fused_close(j, t, jax_impl):
     (jl, jimg, jg), (tl, timg, tg) = j, t
-    assert tl == pytest.approx(jl, abs=1e-6)
-    np.testing.assert_allclose(timg.numpy(), jimg, atol=2e-5)
+    sliced = jax_impl == "sliced"
+    assert tl == pytest.approx(jl, abs=1e-5 if sliced else 1e-6)
+    np.testing.assert_allclose(timg.numpy(), jimg, atol=3e-5 if sliced
+                               else 2e-5, rtol=5e-5 if sliced else 0)
     for name, a, b in zip(["xys", "conics", "colors", "opac"], tg, jg):
-        assert float(np.abs(np.asarray(b)).max()) > 1e-5, name
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6,
-                                   err_msg=name)
+        b = np.asarray(b)
+        top = float(np.abs(b).max())
+        assert top > 1e-5, name
+        tol = {"shared_bins": dict(atol=1e-4 * top, rtol=0),
+               "sliced": dict(atol=5e-5, rtol=2e-4)}.get(
+                   jax_impl, dict(atol=1e-6))
+        np.testing.assert_allclose(a.numpy(), b, err_msg=name, **tol)
 
 
+@pytest.mark.parametrize("jax_impl", ["chunked", "scan"])
 @pytest.mark.parametrize("seed,n,opaque", [(0, 60, False), (2, 200, True),
                                            (0, 200, False), (2, 60, True)])
-def test_fused_image_and_grads_match_jax_chunked(seed, n, opaque):
-    _assert_fused_close(*_fused_loss_and_grads(seed, n, opaque, "chunked"))
+def test_fused_image_and_grads_match_jax_chunked(seed, n, opaque, jax_impl):
+    _assert_fused_close(*_fused_loss_and_grads(seed, n, opaque, jax_impl),
+                        jax_impl)
 
 
-@pytest.mark.parametrize("seed,n,opaque", [
-    (0, 60, False),
-    pytest.param(2, 200, True, marks=pytest.mark.slow)])
-def test_fused_image_and_grads_match_jax_pallas_interpret(seed, n, opaque):
-    _assert_fused_close(*_fused_loss_and_grads(seed, n, opaque, "pallas"))
+@pytest.mark.parametrize("seed,n,opaque,jax_impl", [
+    (0, 60, False, "pallas"),
+    pytest.param(2, 200, True, "pallas", marks=pytest.mark.slow),
+    (0, 60, False, "shared_bins"),
+    (0, 60, False, "sliced")])
+def test_fused_image_and_grads_match_jax_pallas_interpret(seed, n, opaque,
+                                                          jax_impl):
+    _assert_fused_close(*_fused_loss_and_grads(seed, n, opaque, jax_impl),
+                        jax_impl)
 
 
 def test_fused_backward_with_unused_heads_and_no_pairs():

@@ -4,7 +4,12 @@ the JAX package's on the same projected inputs, on the CPU.
 Pair enumeration and order are integers and must match bit for bit: every
 int field of TileBins, and the 11 sorted-pair feature columns (pure data
 movement of the same float32 values) exactly. The JAX side runs its CPU
-fallbacks (jnp.cumsum, the searchsorted expansion)."""
+fallbacks (jnp.cumsum, the searchsorted expansion). Against the JAX
+package's shared-bins binning (`bin_gaussians`) the per-tile counts and
+the pair total are exact and the row runs no more (the fused binning
+trims the box rows that its coverage ellipse misses)."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -106,6 +111,60 @@ def test_overflow_reports_true_totals():
     assert int(tb.num_rowruns) == true_runs
     assert 0 < int(tb.tile_count.sum()) <= max_pairs
     _assert_same(jb, jf, tb, tf)
+
+
+@pytest.mark.parametrize("seed,n,w,h,n_hidden,with_opac", [
+    (0, 150, 48, 32, 0, True),
+    (1, 150, 48, 32, 30, False),
+    (2, 200, 50, 37, 0, False),
+    (3, 200, 50, 37, 40, True)])
+def test_fused_binning_matches_jax_shared_bins(seed, n, w, h, n_hidden,
+                                               with_opac):
+    p, dk, colors, opac = _inputs(seed, n, w, h, n_hidden, False)
+    if not with_opac:
+        opac = jnp.ones_like(opac)
+    jb = jtiles.bin_gaussians(p, w, h, 16, 8192, opacities=opac)
+    tb, _ = ttiles.bin_and_pack(
+        T(p.xys), T(p.conics), T(p.tile_box), T(dk), T(colors), T(opac),
+        w, h, 16, 8192)
+    assert 0 < int(tb.num_pairs) <= 8192
+    assert int(tb.num_pairs) == int(jb.num_pairs)
+    np.testing.assert_array_equal(tb.tile_count.numpy(),
+                                  np.asarray(jb.tile_count))
+    assert int(tb.num_rowruns) <= int(jb.num_rowruns)
+
+
+def test_fused_binning_overflow_matches_jax_shared_bins():
+    """Both capacities overflow: the fused binning still reports the true
+    pair total (the shared-bins one's with room) and no more row runs than
+    the shared-bins binning's exact count."""
+    p, dk, colors, opac = _inputs(4, 300, 48, 32, 0, False)
+    full = jtiles.bin_gaussians(p, 48, 32, 16, 16384, opacities=opac)
+    jb = jtiles.bin_gaussians(p, 48, 32, 16, 256, opacities=opac)
+    tb, _ = ttiles.bin_and_pack(
+        T(p.xys), T(p.conics), T(p.tile_box), T(dk), T(colors), T(opac),
+        48, 32, 16, 256)
+    assert int(full.num_pairs) > 256 and int(jb.num_rowruns) > 128
+    assert int(tb.num_pairs) == int(full.num_pairs)
+    assert int(tb.num_rowruns) <= int(jb.num_rowruns)
+    assert int(tb.tile_count.sum()) <= 256
+
+
+def test_bins_from_numpy_round_trip():
+    p, _, _, opac = _inputs(0, 150, 48, 32, 0, False)
+    jb = jtiles.bin_gaussians(p, 48, 32, 16, 8192, opacities=opac)
+    tb = ttiles.bins_from_numpy(
+        {f.name: np.asarray(getattr(jb, f.name))
+         for f in dataclasses.fields(jb)}, device="cpu")
+    for name in INT_FIELDS:
+        np.testing.assert_array_equal(getattr(tb, name).numpy(),
+                                      np.asarray(getattr(jb, name)),
+                                      err_msg=name)
+    assert (tb.num_tiles_x, tb.num_tiles_y) == (jb.num_tiles_x,
+                                                jb.num_tiles_y)
+    assert int(tb.max_tile_count) == int(jb.max_tile_count)
+    assert tb.num_pairs.dtype == torch.int64
+    assert tb.tile_start.dtype == torch.int32
 
 
 def test_count_pairs_matches_jax():

@@ -5,10 +5,15 @@ clip at tests/test_integration.py's small configs.
 
 The JAX side is one module fixture: a JAX run directory (4 training
 steps) evaluated, rendered and exported by the JAX CLIs; the port's CLIs
-then read the same run directory with --device cpu. Tolerances: PSNR
+then read the same run directory with --device cpu. The run's config.json
+names the JAX chunked route, whose per-tile budget (1,024) the vehicle's
+tiles pass; the port renders through its fused route, which drops no
+pair, so the JAX CLIs evaluate and render with a budget that truncates
+nothing. Tolerances: PSNR
 within 1e-3 dB, SSIM within 1e-5, LPIPS and the chamfer distances at
 rtol 1e-4; rendered PNGs within 1 in uint8 (depth: within one entry of
 the colormap); exported .ply files bit for bit."""
+import functools
 import io
 import json
 import os
@@ -25,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from street_gaussians_ns_tpu.engine import trainer as jtrainer
 from street_gaussians_ns_tpu.engine.trainer import Trainer as JTrainer
 from street_gaussians_ns_tpu.ops import chamfer as jchamfer
 from street_gaussians_ns_tpu.ops import lpips as jlpips
@@ -67,11 +73,14 @@ def jax_run(tmp_path_factory):
     trainer.steps_per_save = 4
     JTrainer(data, model, trainer, dm).train()
     lidar = str(clip / "aggregate_lidar/dynamic_objects/veh1.ply")
-    jeval.main(["--load-dir", str(run), "--compute-chamfer",
-                "--aggregate-lidar", lidar])
-    jrender.main(["--load-dir", str(run), "--output-path",
-                  str(run / "jax_renders"), "--rendered-output-names",
-                  *HEADS])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jtrainer, "RenderConfig", functools.partial(
+            jtrainer.RenderConfig, max_per_tile=16384))
+        jeval.main(["--load-dir", str(run), "--compute-chamfer",
+                    "--aggregate-lidar", lidar])
+        jrender.main(["--load-dir", str(run), "--output-path",
+                      str(run / "jax_renders"), "--rendered-output-names",
+                      *HEADS])
     jexport.main(["--load-dir", str(run), "--output-dir",
                   str(run / "jax_exports")])
     return dict(clip=clip, run=run, lidar=lidar,

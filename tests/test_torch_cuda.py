@@ -785,11 +785,10 @@ def test_composite_kernels_tile0_strip_is_bit_equal(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("route", ["sliced", "unfused", "strips"])
-def test_secondary_routes_on_the_card_match_the_cpu(cuda, route):
+def test_secondary_routes_on_the_card_match_the_cpu(cuda):
+    """The strip route of the sharded trainer, on the card against the
+    CPU."""
     import dataclasses
-
-    from street_gaussians_ns_tpu_torch.ops import tiles
 
     rng = np.random.default_rng(5)
     n, w, h = 2000, 150, 90
@@ -815,26 +814,13 @@ def test_secondary_routes_on_the_card_match_the_cpu(cuda, route):
         leaves = [t.to(dev).requires_grad_(True)
                   for t in (p.xys, p.conics, colors, op)]
         pd = dataclasses.replace(pd, xys=leaves[0], conics=leaves[1])
-        bg = torch.zeros(4, device=dev)
-        if route == "sliced":
-            img, alpha, _ = composite.rasterize_tiles_fused(
-                pd, leaves[2], leaves[3], w, h, 16, bg, 1 << 15,
-                depth_slices=3)
-        elif route == "unfused":
-            bins = tiles.bin_gaussians(pd, w, h, 16, 1 << 15,
-                                       opacities=leaves[3].detach())
-            img, alpha = composite.rasterize_tiles_pallas(
-                *leaves, bins, w, h, 16, bg)
-        else:
-            parts = [composite.composite_tiles_fused(
-                pd, leaves[2], leaves[3], t0, 20, w, h, 1 << 15)
-                for t0 in range(0, ntx * nty, 20)]
-            img = composite._tiles_to_image(
-                torch.cat([a for a, _, _ in parts])[:ntx * nty], ntx, nty,
-                w, h)
-            alpha = composite._tiles_to_image(
-                torch.cat([a for _, a, _ in parts])[:ntx * nty], ntx, nty,
-                w, h)
+        parts = [composite.composite_tiles_fused(
+            pd, leaves[2], leaves[3], t0, 20, w, h, 1 << 15)
+            for t0 in range(0, ntx * nty, 20)]
+        img = composite._tiles_to_image(
+            torch.cat([a for a, _, _ in parts])[:ntx * nty], ntx, nty, w, h)
+        alpha = composite._tiles_to_image(
+            torch.cat([a for _, a, _ in parts])[:ntx * nty], ntx, nty, w, h)
         loss = (img - target.to(dev)).abs().mean() + 0.3 * (alpha ** 2).mean()
         res[str(dev)] = (img.detach().cpu(), [
             g.cpu() for g in torch.autograd.grad(loss, leaves)])

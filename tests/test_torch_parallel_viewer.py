@@ -85,7 +85,7 @@ def _configs(clip, out, steps):
         trainer, viewer_port=0, max_num_iterations=steps,
         steps_per_save=steps, steps_per_eval_image=10 ** 6,
         background_capacity=64, object_capacity=1024, presize_pairs=False,
-        max_pairs=2 ** 19, render_impl="pallas")
+        max_pairs=2 ** 19)
     return data, model, trainer, dm
 
 

@@ -354,8 +354,6 @@ def _bins_arrays():
     _, bins = _scene(2, n=200, w=48, h=32)
     out = {name: getattr(bins, name) for name in tiles._TENSOR_FIELDS}
     out["pair_valid"] = torch.ones(4, dtype=torch.bool)
-    for name in ("gauss_idx", "exp_slot"):
-        out[name] = torch.zeros(4, dtype=torch.int32)
     out = {k: v.numpy() for k, v in out.items()}
     out.update(num_tiles_x=bins.num_tiles_x, num_tiles_y=bins.num_tiles_y)
     return out

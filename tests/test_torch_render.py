@@ -6,8 +6,11 @@ Tolerances: rgb and accumulation at atol 2e-5 (the oracle tolerance of
 tests/test_pallas_composite.py and tests/test_golden.py); depth is
 accum / alpha, which amplifies rounding where alpha is small, so it is
 held at rtol 1e-4 where alpha > 1e-3 (elsewhere both give the far fill).
-The JAX side renders with impl="chunked", whose per-tile budget is
-asserted to truncate nothing."""
+The JAX side renders with impl="chunked" or "scan", whose per-tile budget
+is asserted to truncate nothing. The fused rasterizer is also held
+against the port's per-pixel oracle (ops.rasterize_ref) at the oracle
+tolerance of tests/test_rasterize.py, atol 1e-5."""
+import dataclasses
 from pathlib import Path
 
 import jax
@@ -22,6 +25,7 @@ from street_gaussians_ns_tpu_torch.core.cameras import viewmat_from_c2w
 from street_gaussians_ns_tpu_torch.core.projection import project
 from street_gaussians_ns_tpu_torch.ops import render as trender
 from street_gaussians_ns_tpu_torch.ops.composite import rasterize_tiles_fused
+from street_gaussians_ns_tpu_torch.ops.rasterize_ref import rasterize_reference
 
 from test_rasterize import full_pipeline, make_scene
 
@@ -84,16 +88,19 @@ def _render_both(seed, n, w, h, with_sky, with_active, jax_impl="chunked"):
                           sky_rgb=None if sky is None else T(sky),
                           training=False,
                           active=None if active is None else T(active))
-    if jax_impl == "chunked":
+    if jax_impl != "pallas":
         assert int(jout.bins.max_tile_count) <= MAX_PER_TILE
     return jout, tout
 
 
+@pytest.mark.parametrize("jax_impl", ["chunked", "scan"])
 @pytest.mark.parametrize("seed,n,w,h,with_sky,with_active", [
     (0, 300, 64, 48, False, False),
     (1, 400, 50, 37, True, True)])
-def test_render_matches_jax_chunked(seed, n, w, h, with_sky, with_active):
-    jout, tout = _render_both(seed, n, w, h, with_sky, with_active)
+def test_render_matches_jax_chunked(seed, n, w, h, with_sky, with_active,
+                                    jax_impl):
+    jout, tout = _render_both(seed, n, w, h, with_sky, with_active,
+                              jax_impl=jax_impl)
     heads = ("rgb", "accumulation", "depth")
     assert_heads_close({k: getattr(tout, k) for k in heads},
                        {k: getattr(jout, k) for k in heads},
@@ -175,62 +182,123 @@ def test_capacity_overflow_warns():
 
 
 def test_unported_options_raise():
-    """A precision or an impl the package does not know is refused; the
-    options ported since (depth slices, the portable compositors, bf16:
-    tests/test_torch_bf16.py) build and render."""
+    """RenderConfig has five fields; a precision the package does not
+    know, an option of the JAX package's other routes, and a tile size
+    the compositor is not built for are refused."""
+    assert [f.name for f in dataclasses.fields(trender.RenderConfig)] == [
+        "tile_size", "max_pairs", "max_rowruns", "depth_far_fill",
+        "precision"]
     with pytest.raises(ValueError, match="precision"):
         trender.RenderConfig(precision="fp8")
-    with pytest.raises(ValueError, match="impl"):
-        trender.RenderConfig(impl="tiles")
-    with pytest.raises(ValueError):
-        trender.RenderConfig(depth_slices=0)
+    for kw in (dict(impl="chunked"), dict(depth_slices=2),
+               dict(max_per_tile=512), dict(chunk=16)):
+        with pytest.raises(TypeError):
+            trender.RenderConfig(**kw)
     means, scales, quats, colors, opac, _ = make_scene(300, 0, w=64, h=48)
     _, tcam = _cameras(64, 48)
     args = [T(a) for a in (means, scales, quats, opac, colors)]
-    want = trender.render(*args, tcam, trender.RenderConfig(max_pairs=8192),
-                          training=False)
-    for kw in (dict(depth_slices=2), dict(impl="chunked"), dict(impl="scan"),
-               dict(impl="pallas")):
-        out = trender.render(*args, tcam,
-                             trender.RenderConfig(max_pairs=8192, **kw),
-                             training=False)
-        np.testing.assert_allclose(out.rgb.numpy(), want.rgb.numpy(),
-                                   atol=3e-5, err_msg=str(kw))
-        np.testing.assert_allclose(out.accumulation.numpy(),
-                                   want.accumulation.numpy(), atol=3e-5,
-                                   err_msg=str(kw))
-        assert int(out.bins.max_tile_count) == int(want.bins.max_tile_count)
+    with pytest.raises(ValueError, match="16x16"):
+        trender.render(*args, tcam, trender.RenderConfig(tile_size=8))
 
 
-def test_rasterize_routes_by_impl_and_bins():
-    """rasterize with shared bins goes through the compositor the impl
-    names; the kernel impl with bins is the unfused route, whose bins come
-    back as they were passed."""
-    from street_gaussians_ns_tpu_torch.ops.tiles import bin_gaussians
+# ---------------------------------------------------------------------------
+# The fused rasterizer against the per-pixel oracle.
+# ---------------------------------------------------------------------------
 
-    means, scales, quats, colors, opac, _ = make_scene(300, 0, w=64, h=48)
-    _, tcam = _cameras(64, 48)
-    proj = project(T(means), T(scales), T(quats), viewmat_from_c2w(tcam.c2w),
-                   tcam.fx, tcam.fy, tcam.cx, tcam.cy, 64, 48,
-                   opacities=T(opac))
-    bins = bin_gaussians(proj, 64, 48, 16, 8192, opacities=T(opac))
-    bg = torch.tensor([0.1, 0.2, 0.3])
-    fused = trender.rasterize(proj, T(colors), T(opac), tcam, bg,
-                              trender.RenderConfig(max_pairs=8192))
-    assert fused[2].gauss_idx is None
-    for impl in ("fused", "chunked", "scan"):
-        img, alpha, out_bins = trender.rasterize(
-            proj, T(colors), T(opac), tcam, bg,
-            trender.RenderConfig(max_pairs=8192, impl=impl), bins=bins)
-        assert out_bins is bins
-        np.testing.assert_allclose(img.numpy(), fused[0].numpy(), atol=2e-5)
-        np.testing.assert_allclose(alpha.numpy(), fused[1].numpy(),
-                                   atol=2e-5)
-    with pytest.warns(RuntimeWarning, match="truncation"):
-        trender.rasterize(proj, T(colors), T(opac), tcam, bg,
-                          trender.RenderConfig(max_pairs=8192, impl="scan",
-                                               max_per_tile=8))
-    with pytest.warns(RuntimeWarning, match="capacity overflow"):
-        trender.rasterize(proj, T(colors), T(opac), tcam, bg,
-                          trender.RenderConfig(max_pairs=512,
-                                               depth_slices=2))
+ORACLE_CASES = {
+    "seed0": dict(seed=0),
+    "seed1": dict(seed=1),
+    "seed2": dict(seed=2),
+    "seed3": dict(seed=3),
+    "opaque": dict(seed=4, opaque=True),
+    "opaque_dense": dict(seed=5, n=500, opaque=True),
+    "inactive_tail": dict(seed=6, inactive=60),
+    "inactive_tail_opaque": dict(seed=7, inactive=60, opaque=True),
+    "size_50x37": dict(seed=8, w=50, h=37),
+    "size_33x17": dict(seed=9, w=33, h=17),
+    "size_81x47": dict(seed=10, w=81, h=47),
+    "one_gaussian": dict(seed=11, n=1, opaque=True),
+    "none_visible": dict(seed=12, offscreen=True),
+    "all_behind_the_camera": dict(seed=13, behind=200),
+    "half_behind_the_camera": dict(seed=14, behind=100),
+    "3_channels_last_is_depth": dict(seed=15, nc=3, depth=True),
+    "4_channels_last_is_depth": dict(seed=16, nc=4, depth=True),
+    "1_channel": dict(seed=17, nc=1),
+    "background": dict(seed=18, background=True),
+    "saturating_stack": dict(seed=19, stack=True),
+    "saturating_stack_depth_background": dict(seed=20, stack=True, nc=4,
+                                              depth=True, background=True),
+    "box_without_opacity": dict(seed=21, aware=False),
+}
+
+
+def _oracle_scene(seed, n=200, w=64, h=48, opaque=False, inactive=0,
+                  offscreen=False, behind=0, nc=4, depth=False,
+                  background=False, stack=False, aware=True):
+    """A seeded scene projected by the port: (proj, colors, opacities,
+    background); the last colour is the view depth when `depth`."""
+    rng = np.random.default_rng(seed)
+    if stack:
+        # Opaque splats piled in front of the image centre: most pixels
+        # there saturate long before the last one.
+        means = np.concatenate([0.05 * rng.standard_normal((n, 2)),
+                                -rng.random((n, 1)) - 3.0], 1)
+        scales = np.exp(rng.standard_normal((n, 3)) * 0.2 - 1.0)
+        opac = np.full((n,), 0.95)
+    else:
+        means = np.concatenate([rng.standard_normal((n, 2)),
+                                -rng.random((n, 1)) * 8.0 - 2.0], 1)
+        scales = np.exp(rng.standard_normal((n, 3)) * 0.5 - 2.0)
+        opac = (np.full((n,), 0.95) if opaque
+                else rng.random(n) * 0.9 + 0.05)
+    if offscreen:
+        means[:, 0] += 50.0
+    means[:behind, 2] = 5.0
+    q = rng.standard_normal((n, 4))
+    quats = q / np.linalg.norm(q, axis=1, keepdims=True)
+    colors = rng.random((n, nc))
+    means, scales, quats, colors, opac = (
+        torch.tensor(a, dtype=torch.float32)
+        for a in (means, scales, quats, colors, opac))
+    if inactive:
+        opac[-inactive:] = 0.0
+    _, tcam = _cameras(w, h)
+    proj = project(means, scales, quats, viewmat_from_c2w(tcam.c2w),
+                   tcam.fx, tcam.fy, tcam.cx, tcam.cy, w, h,
+                   opacities=opac if aware else None)
+    if inactive:
+        live = torch.arange(n) < n - inactive
+        proj = dataclasses.replace(
+            proj, radii=torch.where(live, proj.radii, 0),
+            num_tiles_hit=torch.where(live, proj.num_tiles_hit, 0))
+    if depth:
+        colors[:, -1] = proj.depths
+    bg = (torch.tensor(rng.random(nc), dtype=torch.float32) if background
+          else torch.zeros(nc))
+    return proj, colors, opac, bg
+
+
+@pytest.mark.parametrize("case", list(ORACLE_CASES))
+def test_fused_rasterizer_matches_oracle(case):
+    kw = ORACLE_CASES[case]
+    w, h = kw.get("w", 64), kw.get("h", 48)
+    proj, colors, opac, bg = _oracle_scene(**kw)
+    img, alpha, bins = rasterize_tiles_fused(
+        proj, colors, opac, w, h, 16, bg, 1 << 16,
+        last_color_is_depth=kw.get("depth", False))
+    assert int(bins.num_pairs) <= 1 << 16
+    want_img, want_alpha = rasterize_reference(
+        proj.xys, proj.depths, proj.radii, proj.conics, colors, opac,
+        proj.tile_box, w, h, background=bg)
+    assert tuple(img.shape) == (h, w, colors.shape[-1])
+    np.testing.assert_allclose(img.numpy(), want_img.numpy(), atol=1e-5,
+                               rtol=0)
+    np.testing.assert_allclose(alpha.numpy(), want_alpha.numpy(),
+                               atol=1e-5, rtol=0)
+    drawn = float(want_alpha.max())
+    if case in ("none_visible", "all_behind_the_camera"):
+        assert drawn == 0.0 and int(bins.num_pairs) == 0
+    else:
+        assert drawn > 0.1
+    if kw.get("stack"):
+        assert float(want_alpha.max()) > 0.999

@@ -325,7 +325,7 @@ class PortRecorder:
 def port_trainer(jax_run, out):
     data, model, trainer, dm = tsetup.load_run_config(jax_run)
     tt = ttrainer.Trainer(data, model, dataclasses.replace(
-        trainer, output_dir=out, render_impl="pallas"), dm, device="cpu")
+        trainer, output_dir=out), dm, device="cpu")
     tt.render_config = dataclasses.replace(tt.render_config,
                                            max_rowruns=MAX_ROWRUNS)
     return tt
@@ -575,7 +575,7 @@ def test_inactive_zero_rows_never_poison_state():
                        np.eye(3, 4, dtype=np.float32), W, H, time=1.0,
                        device="cpu")
     batch = {"image": torch.full((H, W, 3), 0.4)}
-    rcfg = RenderConfig(max_pairs=16384, max_per_tile=128, chunk=16)
+    rcfg = RenderConfig(max_pairs=16384)
     # The gradients themselves, before the step masks inactive rows: the
     # zero quaternions' normalization must not make them NaN.
     grads = tsts.scene_loss_and_grads(state, tracks, cam, batch, cfg,

@@ -32,6 +32,8 @@ from street_gaussians_ns_tpu_torch.engine import scene_train_step as tsts
 from street_gaussians_ns_tpu_torch.engine import setup as tsetup
 from street_gaussians_ns_tpu_torch.engine import trainer as ttrainer
 from street_gaussians_ns_tpu_torch.engine.train_step import GAUSSIAN_GROUPS
+from street_gaussians_ns_tpu_torch.models.scene_graph import (
+    forward_scene as tforward_scene)
 
 from test_data import write_clip
 from test_integration import small_configs
@@ -94,8 +96,7 @@ def port_configs(jax_side, output_dir, **trainer_kw):
 def port_trainer(jax_side, tmp_path_factory):
     """A port Trainer on the fused route whose state is the JAX trainer's
     first state."""
-    cfgs = port_configs(jax_side, tmp_path_factory.mktemp("port_run"),
-                        render_impl="pallas")
+    cfgs = port_configs(jax_side, tmp_path_factory.mktemp("port_run"))
     tt = ttrainer.Trainer(*cfgs, device="cpu")
     tt.state = tckpt.train_state_from_numpy(
         store_arrays(jax_side["state0"]), tt.config, device="cpu")
@@ -103,14 +104,20 @@ def port_trainer(jax_side, tmp_path_factory):
 
 
 def test_run_config_crosses_both_ways(jax_side, tmp_path):
+    """Every field but the JAX package's render route crosses both ways:
+    the port has one route, so it reads no such field and writes none,
+    and the JAX package reads its default back."""
     want = json.loads(jax_side["config_json"])
+    assert want["trainer"].pop("render_impl") == "chunked"
     cfgs = tsetup.load_run_config(jax_side["run"])
     got = {k: tsetup._to_jsonable(c)
            for k, c in zip(("data", "model", "trainer", "dm"), cfgs)}
     assert got == want
     tsetup.save_run_config(tmp_path, *cfgs)
     back = jsetup.load_run_config(tmp_path)
-    for j_cfg, j_back in zip(jax_side["cfgs"], back):
+    j_cfgs = list(jax_side["cfgs"])
+    j_cfgs[2] = dataclasses.replace(j_cfgs[2], render_impl="pallas")
+    for j_cfg, j_back in zip(j_cfgs, back):
         assert j_back == j_cfg
     assert json.loads((tmp_path / "config.json").read_text()) == want
 
@@ -241,14 +248,14 @@ def test_resume_continues_bit_for_bit(jax_side, tmp_path):
     """12 steps, checkpoints at 6 and 12; a run resumed from step 6
     reaches step 12 with the uninterrupted run's state, bit for bit."""
     a_dir, b_dir = tmp_path / "a", tmp_path / "b"
-    a = ttrainer.Trainer(*port_configs(jax_side, a_dir, render_impl="pallas"),
+    a = ttrainer.Trainer(*port_configs(jax_side, a_dir),
                          device="cpu")
     a.train()
     ckpts = sorted(p.name for p in (a_dir / "checkpoints").glob("*.npz"))
     assert ckpts == ["step-000000006.ckpt.npz", "step-000000012.ckpt.npz"]
     (b_dir / "checkpoints").mkdir(parents=True)
     shutil.copy(a_dir / "checkpoints" / ckpts[0], b_dir / "checkpoints")
-    b = ttrainer.Trainer(*port_configs(jax_side, b_dir, render_impl="pallas"),
+    b = ttrainer.Trainer(*port_configs(jax_side, b_dir),
                          device="cpu")
     assert b.start_step == 6
     b.train()
@@ -258,7 +265,7 @@ def test_resume_continues_bit_for_bit(jax_side, tmp_path):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     assert torch.equal(b.state.generator.get_state(),
                        a.state.generator.get_state())
-    c = ttrainer.Trainer(*port_configs(jax_side, a_dir, render_impl="pallas"),
+    c = ttrainer.Trainer(*port_configs(jax_side, a_dir),
                          device="cpu")
     assert c.start_step == 12 and c.state.step == 12
     rows = [json.loads(r) for r in (a_dir / "metrics.jsonl").read_text()
@@ -293,13 +300,29 @@ def test_resume_continues_bit_for_bit(jax_side, tmp_path):
 
 
 def test_port_eval_setup_restores_a_jax_run(jax_side):
+    """A JAX run whose config.json names the chunked route restores, and
+    renders through the port's one route: a frame of the restored state
+    is drawn, finite and in [0, 1]."""
+    assert json.loads(jax_side["config_json"])["trainer"][
+        "render_impl"] == "chunked"
     tt = tsetup.eval_setup(jax_side["run"], device="cpu")
     got = tckpt.state_to_numpy(tt.state)
     want = store_arrays(jax_side["state1"])
     assert set(got) == set(want) - {"rng"}
     for k, v in got.items():
         np.testing.assert_array_equal(v, want[k], err_msg=k)
-    assert tt.state.step == 1 and tt.render_config.impl == "chunked"
+    assert tt.state.step == 1
+    camera = tt.dm.train_camera(0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)
+        heads = tforward_scene(tt.state.store, tt.tracks, camera,
+                               tt.state.step, tt.config, tt.render_config,
+                               training=False)[0]
+    rgb, acc = heads["rgb"], heads["accumulation"]
+    assert tuple(rgb.shape) == (camera.height, camera.width, 3)
+    assert bool(torch.isfinite(rgb).all())
+    assert 0.0 <= float(rgb.min()) and float(rgb.max()) <= 1.0
+    assert float(acc.max()) > 0.1
 
 
 def test_bf16_trainer_step_matches_jax(jax_side, tmp_path, monkeypatch):
@@ -318,7 +341,6 @@ def test_bf16_trainer_step_matches_jax(jax_side, tmp_path, monkeypatch):
     jm = jt._run_step(0)
     j1 = jt.state
     tt = ttrainer.Trainer(*port_configs(jax_side, tmp_path / "port",
-                                        render_impl="pallas",
                                         render_precision="bf16"),
                           device="cpu")
     assert tt.render_config.precision == "bf16"
@@ -370,8 +392,8 @@ def test_trainer_viewer_matches_jax(jax_side, tmp_path):
     vehicle puts ~2,000 pairs in a tile of these small frames)."""
     jt = jax_side["trainer"]
     jt.state = jax_side["state1"]
-    tt = ttrainer.Trainer(*port_configs(jax_side, tmp_path, viewer_port=0,
-                                        render_impl="pallas"), device="cpu")
+    tt = ttrainer.Trainer(*port_configs(jax_side, tmp_path, viewer_port=0),
+                          device="cpu")
     jserver = jtrainer.attach_viewer(jt, 0)
     saved = jt.render_config
     jt.render_config = dataclasses.replace(saved, max_per_tile=16384)
@@ -415,7 +437,7 @@ def test_trainer_camera_opt_matches_jax(jax_side, tmp_path, mode):
     jt = jtrainer.Trainer(data, model, dataclasses.replace(
         trainer, output_dir=tmp_path / "jax", **short), dm)
     pdata, pmodel, ptrainer, pdm = port_configs(
-        jax_side, tmp_path / "port", render_impl="pallas", **short)
+        jax_side, tmp_path / "port", **short)
     pmodel = dataclasses.replace(pmodel, camera_opt_mode=mode)
     tt = ttrainer.Trainer(pdata, pmodel, ptrainer, pdm, device="cpu")
     assert tt.state.camera_opt.shape == jt.state.camera_opt.shape \

@@ -161,7 +161,7 @@ def live(tmp_path_factory):
     trainer = dataclasses.replace(
         trainer, viewer_port=0, max_num_iterations=3, steps_per_save=3,
         steps_per_eval_image=100, object_capacity=1024, presize_pairs=False,
-        max_pairs=2 ** 19, render_impl="pallas")
+        max_pairs=2 ** 19)
     cfgs = (data, model, trainer, dm)
     tt = ttrainer.Trainer(*cfgs, device="cpu")
     served = []
