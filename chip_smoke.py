@@ -224,7 +224,13 @@ Phases, each printing one JSON line:
                 the clamp), one device launch a call each way, forward
                 and backward also behind a busy card, beside the plain
                 path and the einsum alone, its bounds the bytes each way
-                reads and writes (217 a slot at degree 3). A line of its
+                reads and writes (217 a slot at degree 3); K (Adam) on the
+                train step's own 16 leaves and on scene_graph_waymo3's
+                leaf set, p', m', v' equal to the plain version's bit for
+                bit, one device launch a call, also behind a busy card,
+                beside the plain version and torch.optim.Adam(fused=True)
+                over the same leaves, its bound 28 bytes a float and a
+                mask byte a row. A line of its
                 own before the `kernels` line
                 quotes the times rows A, E, D, F, G and H had before their
                 redesign; every number in the `kernels` line itself is
@@ -290,6 +296,7 @@ from street_gaussians_ns_tpu_torch.models.scene_graph import (  # noqa: E402
 from street_gaussians_ns_tpu_torch.models.splatfacto import (  # noqa: E402
     SplatfactoConfig, sh_colors, sky_color)
 from street_gaussians_ns_tpu_torch.ops import _cuda  # noqa: E402
+from street_gaussians_ns_tpu_torch.ops import adam as adam_kernel  # noqa: E402
 from street_gaussians_ns_tpu_torch.ops import (  # noqa: E402
     composite, expand, scan, segreduce, tiles)
 from street_gaussians_ns_tpu_torch.ops import sh_colors as sh_kernel  # noqa: E402
@@ -986,7 +993,7 @@ def phase_train(seed: int, tracks, cfg, rcfg, cam, size: Size = FLAGSHIP,
                 "pack_feat_cols": renders, "composite_fwd": renders,
                 "composite_bwd": backwards, "rank_rowsum": backwards,
                 "row_trim": renders, "sh_colors": 2 * len(plan),
-                "sh_colors[bwd]": len(plan)}
+                "sh_colors[bwd]": len(plan), "adam": len(plan)}
     for name, n in expected.items():
         if dev == "cuda" and launches.get(name, 0) != n:
             raise AssertionError(f"train: {name} launched {launches[name]} "
@@ -1045,8 +1052,8 @@ def phase_train(seed: int, tracks, cfg, rcfg, cam, size: Size = FLAGSHIP,
 
 def capture_train(state, tracks, cfg, rcfg, cam, batch):
     """Inputs of kernels E and F in one full-width backward (one step's
-    full render), of kernel I in its binning and of kernel J, with the
-    step's results."""
+    full render), of kernel I in its binning, of kernel J and of kernel K
+    (the step's Adam groups), with the step's results."""
     jitter = draw_pixel_jitter(cam, state.generator)
     recs = [Recorder(composite, "composite_bwd"),
             Recorder(composite, "rank_rowsum"),
@@ -1057,12 +1064,17 @@ def capture_train(state, tracks, cfg, rcfg, cam, batch):
     try:
         res = sts.scene_loss_and_grads(state, tracks, cam, batch, cfg, rcfg,
                                        subset_accs=False, jitter=jitter)
+        g = res[4]
+        with Recorder(optimizers, "_step_kernel") as adam_rec:
+            sts.scene_adam(state.store, state.opt, g["gauss"], g["env_map"],
+                           g["bbox"], state.step)
     finally:
         for r in recs:
             r.__exit__()
     calls = {r.name: r.calls for r in recs}
     calls["row_trim[train]"] = calls.pop("_row_trim_counts")
     calls["sh_colors[train]"] = calls.pop("sh_colors_cuda")
+    calls["adam[train]"] = adam_rec.calls
     return calls, jitter, res
 
 
@@ -1085,16 +1097,8 @@ def phase_train_stages(state, tracks, cfg, rcfg, cam, batch, calls, jitter,
     store = state.store
 
     def adam():
-        for name in sts.GAUSSIAN_GROUPS:
-            c = optimizers.DEFAULT_GROUPS[name]
-            optimizers.adam_update(
-                grads["gauss"][name], state.opt[name],
-                sts._gaussian_group_params(store, name),
-                optimizers.schedule(c, state.step), c)
-        c = optimizers.DEFAULT_GROUPS["sky_sphere"]
-        optimizers.adam_update(grads["env_map"], state.opt["sky_sphere"],
-                               store.env_map,
-                               optimizers.schedule(c, state.step), c)
+        sts.scene_adam(store, state.opt, grads["gauss"], grads["env_map"],
+                       grads["bbox"], state.step)
 
     def fwd():
         with torch.no_grad():
@@ -1861,7 +1865,7 @@ def phase_splatfacto(seed: int, size: Size = FLAGSHIP, dev="cuda"):
         check_launches("splatfacto_path train", train_launches, {
             "flat_scan": 9, "expand_ragged": 6, "pack_feat_cols": 3,
             "composite_fwd": 3, "composite_bwd": 3, "rank_rowsum": 3,
-            "row_trim": 3, "sh_colors": 6, "sh_colors[bwd]": 3})
+            "row_trim": 3, "sh_colors": 6, "sh_colors[bwd]": 3, "adam": 3})
     moved = {}
     for k in sts.GAUSSIAN_GROUPS:
         new = getattr(state.store.params, k)
@@ -4468,6 +4472,137 @@ def _sh_row(calls, launches: dict, train_launches: dict, reps: int):
                 shapes=shapes)
 
 
+def _waymo3_adam(seed: int) -> list:
+    """Kernel K's stepping groups at scene_graph_waymo3's leaf shapes
+    (benchmark/configs/scene_graph_waymo3.json: 2^22 background slots, one
+    in 4 inactive, 12 vehicles x 2^15 slots with Fourier dim 5, SH degree
+    3, the 6 x 1024 x 1024 sky, bbox deltas over 86 frames), at step 3601
+    with random moments: [(AdamGroup, gradients)] as the step hands them to
+    optimizers._step_kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    n_bg, n_obj, cap = 2 ** 22, 12, 2 ** 15
+    rows = {"means": (3,), "scales": (3,), "quats": (4,),
+            "features_dc": (1, 3), "features_rest": (15, 3),
+            "opacities": (1,)}
+    bg_act = torch.rand(n_bg, generator=gen, device="cuda") > 0.25
+    obj_act = torch.rand((n_obj, cap), generator=gen, device="cuda") > 0.05
+    step = 3601
+    out = []
+
+    def group(name, params, active=None):
+        cfg = optimizers.DEFAULT_GROUPS[name]
+        state = optimizers.AdamState(
+            mu=optimizers.tree_map(lambda p: rand(*p.shape, scale=1e-3),
+                                   params),
+            nu=optimizers.tree_map(lambda p: rand(*p.shape,
+                                                  scale=1e-3) ** 2, params),
+            count=step - 1)
+        grads = optimizers.tree_map(lambda p: rand(*p.shape, scale=0.1),
+                                    params)
+        out.append((optimizers.AdamGroup(grads, state, params,
+                                         optimizers.schedule(cfg, step), cfg,
+                                         active), grads))
+
+    for name, tail in rows.items():
+        obj_tail = (5, 3) if name == "features_dc" else tail
+        group(name, {"bg": rand(n_bg, *tail), "obj": rand(n_obj, cap,
+                                                          *obj_tail)},
+              {"bg": bg_act, "obj": obj_act})
+    group("sky_sphere", rand(6, 1024, 1024, 3))
+    group("bbox_opt", {"delta_center": rand(86, n_obj, 3),
+                       "delta_yaw": rand(86, n_obj),
+                       "delta_rot": rand(86, n_obj, 3)})
+    return out
+
+
+def _adam_row(calls, train_launches: dict, reps: int, seed: int):
+    """Kernel K on the train step's own Adam groups (the flagship's 16
+    leaves) and on scene_graph_waymo3's leaf set: p', m', v' equal to the
+    plain version's (optimizers._step_plain) on the card bit for bit, one
+    device launch a call, its time (also behind a busy card), the plain
+    version's, torch.optim.Adam(fused=True)'s over the same leaves with the
+    masked gradients (the yardstick; the port never calls it), and the
+    bytes bound: 28 a float and one mask byte a row."""
+    def same(a, b):
+        return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+    def leaves(tree):
+        return optimizers._leaves(tree)
+
+    sets = [("train_step", list(args[0]))
+            for args, _ in calls["adam[train]"]]
+    sets.append(("scene_graph_waymo3", _waymo3_adam(seed)))
+    shapes, per_call, tot = [], [], dict(ms=0.0, queued_ms=0.0,
+                                         plain_ms=0.0, library_ms=0.0,
+                                         bytes=0.0)
+    for label, stepping in sets:
+        got = optimizers._step_kernel(stepping)
+        want = optimizers._step_plain(stepping)
+        for (gp, gs), (wp, ws), (group, _) in zip(got, want, stepping):
+            pairs = list(zip(leaves(gp), leaves(wp))) + list(zip(
+                leaves(gs.mu), leaves(ws.mu))) + list(zip(leaves(gs.nu),
+                                                          leaves(ws.nu)))
+            if not all(same(a, b) for a, b in pairs):
+                raise AssertionError(f"adam ({label}): a leaf of "
+                                     f"{group.config} differs from the "
+                                     f"plain version")
+        del got, want
+        run = lambda: optimizers._step_kernel(stepping)  # noqa: E731
+        per_call.append(_cuda.captured_launches(adam_kernel.ADAM_KERNEL,
+                                                run))
+        floats = mask_bytes = 0
+        params, groups = [], []
+        for group, grads in stepping:
+            acts = (leaves(group.active) if group.active is not None
+                    else [None] * len(leaves(group.params)))
+            ps = []
+            for p, g, a in zip(leaves(group.params), leaves(grads), acts):
+                floats += p.numel()
+                mask_bytes += a.numel() if a is not None else 0
+                q = p.clone()
+                q.grad = optimizers.mask_rows(g, a).contiguous()
+                ps.append(q)
+            cfg = group.config
+            groups.append(dict(params=ps, lr=group.lr,
+                               betas=(cfg.b1, cfg.b2), eps=cfg.eps))
+            params += ps
+        fused = torch.optim.Adam(groups, fused=True)
+        one = dict(ms=time_ms(run, reps), queued_ms=time_ms_queued(run, reps),
+                   plain_ms=time_ms(lambda: optimizers._step_plain(stepping),
+                                    reps),
+                   library_ms=time_ms(fused.step, reps),
+                   bytes=28 * floats + mask_bytes)
+        del fused, params, groups
+        for k, v in one.items():
+            tot[k] += v
+        b, _ = bound(one["bytes"])
+        shapes.append(dict(path=label, leaves=sum(
+            len(leaves(g.params)) for g, _ in stepping), floats=floats,
+            mask_bytes=mask_bytes, bound_ms=b, **one))
+    if not calls["adam[train]"] or any(n != 1 for n in per_call):
+        raise AssertionError(f"adam: {len(calls['adam[train]'])} train "
+                             f"calls made {per_call} device launches, "
+                             f"expected calls, 1 launch each")
+    b, by = bound(tot["bytes"])
+    return dict(name="adam", route="cuda",
+                source=_rel(_cuda.CSRC / adam_kernel.ADAM_KERNEL.source),
+                replaces=adam_kernel.ADAM_KERNEL.replaces,
+                launches=0, launches_on_train_path=train_launches["adam"],
+                max_abs_err=0.0,
+                tolerance="p', m', v' bit-equal to the plain version on "
+                          "the card",
+                ms=tot["ms"], ms_behind_a_busy_card=tot["queued_ms"],
+                plain_ms=tot["plain_ms"], bound_ms=b, bound_by=by,
+                library_ms=tot["library_ms"],
+                library="torch.optim.Adam(fused=True), masked gradients "
+                        "made outside",
+                device_launches_per_call=per_call, shapes=shapes)
+
+
 def _rel(path) -> str:
     return str(Path(path).resolve().relative_to(REPO))
 
@@ -4813,6 +4948,7 @@ def phase_kernels(calls, launches, train_launches, scan_launches,
     rows.append(_trim_row(calls, launches["row_trim"],
                           train_launches["row_trim"], reps))
     rows.append(_sh_row(calls, launches, train_launches, reps))
+    rows.append(_adam_row(calls, train_launches, reps, seed=0))
     return rows
 
 

@@ -33,8 +33,8 @@ from ..models.scene_graph import (ObjectTracks, SceneGraphConfig,
 from ..ops.render import RenderConfig
 from ..ops.ssim import psnr
 from ..utils.profiling import span
-from .optimizers import (DEFAULT_GROUPS, AdamState, adam_update, init_adam,
-                         schedule, tree_map)
+from .optimizers import (DEFAULT_GROUPS, AdamGroup, AdamState, adam_step,
+                         init_adam, mask_rows, schedule, tree_map)
 from .train_step import GAUSSIAN_GROUPS
 
 BBOX_PARAMS = ("delta_center", "delta_yaw", "delta_rot")
@@ -77,14 +77,48 @@ def mask_inactive_grads(g_gauss: Dict, store: SceneGraphStore) -> Dict:
     """Zero the gradient rows of inactive store slots before Adam: they
     hold all-zero parameters, contribute nothing to a render, and a
     degenerate-input gradient must not reach the parameters through
-    Adam."""
-    def mask(g, act):
-        a = act.reshape(act.shape + (1,) * (g.dim() - act.dim()))
-        return torch.where(a, g, torch.zeros_like(g))
-
-    return {name: {"bg": mask(g["bg"], store.background.active),
-                   "obj": mask(g["obj"], store.objects.active)}
+    Adam. (The step itself hands Adam the `active` masks instead:
+    `scene_adam`.)"""
+    return {name: {"bg": mask_rows(g["bg"], store.background.active),
+                   "obj": mask_rows(g["obj"], store.objects.active)}
             for name, g in g_gauss.items()}
+
+
+def scene_adam(store: SceneGraphStore, opt: Dict[str, AdamState], g_gauss,
+               g_env, g_bbox, step: int, camera=(None, None)):
+    """The Adam step of a scene-graph state, every group in one pass
+    (`adam_step`): the six gaussian groups over the background and the
+    objects, their inactive rows masked (`mask_inactive_grads`' rule); the
+    sky and the bbox deltas where `opt` holds them; the camera-pose deltas
+    where `opt` holds them and `camera` = (their gradient, the deltas) has
+    a gradient. Returns (new store, new opt, new camera deltas)."""
+    active = {"bg": store.background.active, "obj": store.objects.active}
+
+    def group(name, grads, params, act=None):
+        cfg = DEFAULT_GROUPS[name]
+        return AdamGroup(grads, opt[name], params, schedule(cfg, step), cfg,
+                         act)
+
+    groups = {name: group(name, g_gauss[name],
+                          _gaussian_group_params(store, name), active)
+              for name in GAUSSIAN_GROUPS}
+    if store.env_map is not None and "sky_sphere" in opt:
+        groups["sky_sphere"] = group("sky_sphere", g_env, store.env_map)
+    if "bbox_opt" in opt:
+        groups["bbox_opt"] = group("bbox_opt", g_bbox, _bbox_params(store))
+    if camera[0] is not None and "camera_opt" in opt:
+        groups["camera_opt"] = group("camera_opt", *camera)
+    stepped = adam_step(groups)
+
+    def new(name, old):
+        return stepped[name][0] if name in stepped else old
+
+    new_store = _with_params(
+        store, {name: stepped[name][0] for name in GAUSSIAN_GROUPS},
+        new("sky_sphere", store.env_map),
+        new("bbox_opt", _bbox_params(store)))
+    new_opt = {**opt, **{name: s for name, (_, s) in stepped.items()}}
+    return new_store, new_opt, new("camera_opt", camera[1])
 
 
 def init_scene_train_state(store: SceneGraphStore,
@@ -200,34 +234,9 @@ def scene_train_step(state: SceneTrainState, tracks: ObjectTracks,
     step = state.step
 
     with torch.no_grad(), span("step.adam"):
-        g_gauss = mask_inactive_grads(grads["gauss"], store)
-        new_opt = dict(state.opt)
-        new_gauss = {}
-        for name in GAUSSIAN_GROUPS:
-            cfg = DEFAULT_GROUPS[name]
-            new_gauss[name], new_opt[name] = adam_update(
-                g_gauss[name], state.opt[name],
-                _gaussian_group_params(store, name), schedule(cfg, step),
-                cfg)
-        new_env = store.env_map
-        if store.env_map is not None:
-            cfg = DEFAULT_GROUPS["sky_sphere"]
-            new_env, new_opt["sky_sphere"] = adam_update(
-                grads["env_map"], state.opt["sky_sphere"], store.env_map,
-                schedule(cfg, step), cfg)
-        new_bbox = _bbox_params(store)
-        if "bbox_opt" in state.opt:
-            cfg = DEFAULT_GROUPS["bbox_opt"]
-            new_bbox, new_opt["bbox_opt"] = adam_update(
-                grads["bbox"], state.opt["bbox_opt"], new_bbox,
-                schedule(cfg, step), cfg)
-        new_cam_opt = state.camera_opt
-        if grads["camera_opt"] is not None and "camera_opt" in state.opt:
-            cfg = DEFAULT_GROUPS["camera_opt"]
-            new_cam_opt, new_opt["camera_opt"] = adam_update(
-                grads["camera_opt"], state.opt["camera_opt"],
-                state.camera_opt, schedule(cfg, step), cfg)
-        new_store = _with_params(store, new_gauss, new_env, new_bbox)
+        new_store, new_opt, new_cam_opt = scene_adam(
+            store, state.opt, grads["gauss"], grads["env_map"],
+            grads["bbox"], step, (grads["camera_opt"], state.camera_opt))
 
     with torch.no_grad(), span("step.stats"):
         # Densification statistics per submodel, by slicing the flat

@@ -27,8 +27,8 @@ from ..models.splatfacto import SplatfactoConfig, forward, loss_dict
 from ..ops.render import RenderConfig
 from ..ops.ssim import psnr
 from ..utils.profiling import span
-from .optimizers import (DEFAULT_GROUPS, AdamState, adam_update, init_adam,
-                         schedule, tree_map)
+from .optimizers import (DEFAULT_GROUPS, AdamGroup, AdamState, adam_step,
+                         init_adam, schedule, tree_map)
 
 GAUSSIAN_GROUPS = ("means", "scales", "quats", "features_dc",
                    "features_rest", "opacities")
@@ -110,21 +110,24 @@ def train_step(state: TrainState, camera: Camera, batch: dict,
         state, camera, batch, config, render_config, jitter=jitter)
     step = state.step
     with torch.no_grad(), span("step.adam"):
-        new_params = {}
-        new_opt = dict(state.opt)
+        groups = {}
         for name in GAUSSIAN_GROUPS:
             cfg = DEFAULT_GROUPS[name]
-            new_params[name], new_opt[name] = adam_update(
+            groups[name] = AdamGroup(
                 grads["params"][name], state.opt[name],
                 getattr(state.store.params, name), schedule(cfg, step), cfg)
-        new_env = state.env_map
         if state.env_map is not None:
             cfg = DEFAULT_GROUPS["sky_sphere"]
-            new_env, new_opt["sky_sphere"] = adam_update(
+            groups["sky_sphere"] = AdamGroup(
                 grads["env_map"], state.opt["sky_sphere"], state.env_map,
                 schedule(cfg, step), cfg)
+        stepped = adam_step(groups)
+        new_opt = {**state.opt, **{n: s for n, (_, s) in stepped.items()}}
+        new_env = stepped["sky_sphere"][0] if "sky_sphere" in stepped \
+            else state.env_map
         store = dataclasses.replace(state.store, params=dataclasses.replace(
-            state.store.params, **new_params))
+            state.store.params,
+            **{name: stepped[name][0] for name in GAUSSIAN_GROUPS}))
     with torch.no_grad(), span("step.stats"):
         max_hw = max(camera.height, camera.width)
         store = refinement.update_stats(store, grads["xys"],

@@ -45,10 +45,10 @@ import torch.distributed as dist
 
 from ..core.cameras import Camera, draw_pixel_jitter, viewmat_from_c2w
 from ..core.projection import Projected, project
-from ..engine.optimizers import DEFAULT_GROUPS, adam_update, schedule, tree_map
+from ..engine.optimizers import tree_map
 from ..engine.scene_train_step import (BBOX_PARAMS, SceneTrainState,
                                        _bbox_params, _gaussian_group_params,
-                                       _with_params, mask_inactive_grads)
+                                       scene_adam)
 from ..engine.train_step import GAUSSIAN_GROUPS
 from ..models import refinement
 from ..models.fourier import fourier_dc
@@ -424,27 +424,8 @@ def _apply_grads(state, config, g_gauss, g_env, g_bbox, g_off_bg, g_off_obj,
     step = state.step
     n_obj = store.num_objects
     dg, mg = mesh.data_group, mesh.model_group
-    g_gauss = mask_inactive_grads(g_gauss, store)
-    new_opt = dict(state.opt)
-    new_gauss = {}
-    for name in GAUSSIAN_GROUPS:
-        cfg = DEFAULT_GROUPS[name]
-        new_gauss[name], new_opt[name] = adam_update(
-            g_gauss[name], state.opt[name],
-            _gaussian_group_params(store, name), schedule(cfg, step), cfg)
-    new_env = store.env_map
-    if store.env_map is not None and "sky_sphere" in state.opt:
-        cfg = DEFAULT_GROUPS["sky_sphere"]
-        new_env, new_opt["sky_sphere"] = adam_update(
-            g_env, state.opt["sky_sphere"], store.env_map,
-            schedule(cfg, step), cfg)
-    new_bbox = _bbox_params(store)
-    if "bbox_opt" in state.opt:
-        cfg = DEFAULT_GROUPS["bbox_opt"]
-        new_bbox, new_opt["bbox_opt"] = adam_update(
-            g_bbox, state.opt["bbox_opt"], new_bbox, schedule(cfg, step),
-            cfg)
-    new_store = _with_params(store, new_gauss, new_env, new_bbox)
+    new_store, new_opt, _ = scene_adam(store, state.opt, g_gauss, g_env,
+                                       g_bbox, step)
     bg_radii = all_reduce(aux["bg_radii"], dg, op=dist.ReduceOp.MAX)
     bg_store = refinement.update_stats(new_store.background, g_off_bg,
                                        bg_radii, max_hw, step,

@@ -33,7 +33,9 @@ its gradients equal autograd's through the k-order formulation bit for
 bit, and through the plain version wherever the two sums are on the same
 side of the clamp at 0 (each gradient is one product), NaN where they are
 NaN and the sign of a zero not compared; one device launch a call each
-way."""
+way. Adam (kernel K) equals the plain version (the row mask, then
+engine/optimizers._adam_plain) run on the card bit for bit, in one device
+launch over every leaf of every group."""
 import numpy as np
 import pytest
 import torch
@@ -44,8 +46,10 @@ from street_gaussians_ns_tpu_torch.core.projection import (_floor_int,
                                                           project)
 from street_gaussians_ns_tpu_torch.core.sh import eval_sh
 from street_gaussians_ns_tpu_torch.models import splatfacto
-from street_gaussians_ns_tpu_torch.ops import (_cuda, composite, expand, scan,
-                                               segreduce, sh_colors, tiles)
+from street_gaussians_ns_tpu_torch.engine import optimizers as opt
+from street_gaussians_ns_tpu_torch.ops import (_cuda, adam, composite, expand,
+                                               scan, segreduce, sh_colors,
+                                               tiles)
 from street_gaussians_ns_tpu_torch.ops.tiles import bin_and_pack
 from test_torch_redesign_df import F_CASES, _case, ranksum_model
 from test_torch_redesign_gh import (G_CASES, g_case, h_rows, rowscan_model,
@@ -870,7 +874,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 def test_library_is_keyed_by_the_sources():
 
     paths = {k.library_path() for k in _cuda.KERNELS}
-    assert len(paths) == len(_cuda.KERNELS) == 10
+    assert len(paths) == len(_cuda.KERNELS) == 11
     for k in _cuda.KERNELS:
         p = k.library_path()
         assert p.parent == _cuda.BUILD_DIR and p.suffix == ".so"
@@ -1197,3 +1201,248 @@ def test_sh_colors_wrapper_raises_on_bad_input(bad, error):
             sh_colors.sh_fwd(a["means"], a["dc"], a["rest"], a["center"], 3,
                              True)
     assert sh_colors.SH_KERNEL.launches == before
+
+
+# ---------------------------------------------------------------------------
+# Kernel K: Adam over every leaf of every group in one launch.
+# ---------------------------------------------------------------------------
+
+def _bits(a, b) -> bool:
+    """The same float32 bits (zeros' signs and NaNs included)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def _k_leaf(dev, gen, shape, mask_dims, offset, poison):
+    """(p, g, m, v, active) of one leaf on `dev`: each tensor a view
+    `offset` floats into a buffer of its own (so 16-byte aligned or not),
+    one row in 16 and a random quarter inactive where the leaf has a mask
+    over its first `mask_dims` axes, NaN, inf and -inf gradients in some
+    inactive rows when `poison`."""
+    n = int(np.prod(shape))
+
+    def view(scale, positive=False):
+        buf = torch.randn(n + offset, generator=gen, device=dev) * scale
+        buf = buf.abs() if positive else buf
+        return buf[offset:].view(shape)
+
+    p, g, m = view(1.0), view(0.1), view(1e-3)
+    v = view(1e-3, True) ** 2 if offset == 0 else view(1e-6, True)
+    active = None
+    if mask_dims:
+        active = torch.rand(shape[:mask_dims], generator=gen,
+                            device=dev) > 0.25
+        active.view(-1)[15::16] = False
+        if poison:
+            rows = (~active).nonzero()
+            for i, r in enumerate(rows[:30]):
+                g[tuple(r)] = (float("nan"), float("inf"),
+                               -float("inf"))[i % 3]
+    return p, g, m, v, active
+
+
+def _k_groups(dev, spec, count, offset=0, poison=True, seed=0):
+    """[(AdamGroup, grads)] from spec = [(group, {key: (shape, mask
+    dims)})] at Adam step count + 1."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for name, leaves in spec:
+        cfg = opt.DEFAULT_GROUPS[name]
+        built = {k: _k_leaf(dev, gen, shape, md, offset, poison)
+                 for k, (shape, md) in leaves.items()}
+        pick = lambda i: {k: b[i] for k, b in built.items()}  # noqa: E731
+        masked = any(b[4] is not None for b in built.values())
+        state = opt.AdamState(mu=pick(2), nu=pick(3), count=count)
+        grads = pick(1)
+        out.append((opt.AdamGroup(grads, state, pick(0),
+                                  opt.schedule(cfg, 3600 + count), cfg,
+                                  pick(4) if masked else None), grads))
+    return out
+
+
+def _flagship_spec():
+    """The 16 leaves of a scene_graph_1m state: 2^20 background slots,
+    4 vehicles x 2^15 with Fourier dim 5, SH degree 3, the 1024 sky, bbox
+    deltas over 10 frames."""
+    n, o, cap = 2 ** 20, 4, 2 ** 15
+    tails = {"means": (3,), "scales": (3,), "quats": (4,),
+             "features_dc": (1, 3), "features_rest": (15, 3),
+             "opacities": (1,)}
+    spec = [(name, {"bg": ((n,) + t, 1),
+                    "obj": ((o, cap) + ((5, 3) if name == "features_dc"
+                                        else t), 2)})
+            for name, t in tails.items()]
+    spec.append(("sky_sphere", {"env": ((6, 1024, 1024, 3), 0)}))
+    spec.append(("bbox_opt", {"delta_center": ((10, o, 3), 0),
+                              "delta_yaw": ((10, o), 0),
+                              "delta_rot": ((10, o, 3), 0)}))
+    return spec
+
+
+def _views_spec():
+    """Leaves of 1, 3, 5, 3601 and 70,001 floats, rows of 1, 3 and 45
+    floats under a mask, whose numel is no multiple of 4 (a vector leaf's
+    tail)."""
+    return [("means", {"a": ((1,), 0), "b": ((3,), 1), "c": ((5,), 0),
+                       "d": ((3601,), 1)}),
+            ("features_rest", {"e": ((1556, 15, 3), 1),
+                               "f": ((70_001,), 0)}),
+            ("scales", {"g": ((1201, 3), 1)})]
+
+
+def _many_spec(n_leaves=32):
+    """n_leaves leaves of 1 to 700 rows of 1, 3, 4 or 45 floats, every
+    other one masked, over seven groups."""
+    rng = np.random.default_rng(7)
+    names = ("means", "scales", "quats", "features_dc", "features_rest",
+             "opacities", "sky_sphere")
+    return [(names[i % len(names)],
+             {f"l{i}": ((int(rng.integers(1, 700)),
+                         int(rng.choice([1, 3, 4, 45]))), i % 2)})
+            for i in range(n_leaves)]
+
+
+def _k_case(stepping):
+    """Kernel K against the plain version on the card, bit for bit, one
+    device launch by the counter and by capture."""
+    before = adam.ADAM_KERNEL.launches
+    got = opt._step_kernel(stepping)
+    assert adam.ADAM_KERNEL.launches == before + 1
+    want = opt._step_plain(stepping)
+    for (gp, gs), (wp, ws), (group, _) in zip(got, want, stepping):
+        assert gs.count == ws.count == group.state.count + 1
+        for tree_g, tree_w in ((gp, wp), (gs.mu, ws.mu), (gs.nu, ws.nu)):
+            for a, b in zip(opt._leaves(tree_g), opt._leaves(tree_w)):
+                assert _bits(a, b)
+                assert bool(torch.isfinite(a).all())
+    assert _cuda.captured_launches(
+        adam.ADAM_KERNEL, lambda: opt._step_kernel(stepping)) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count", [0, 3600])
+def test_adam_kernel_matches_plain_on_the_flagship_leaves(cuda, count):
+    """All 16 leaves of a scene_graph_1m state in one launch at Adam steps
+    1 and 3601, inactive rows holding NaN and inf gradients: p', m', v'
+    equal the plain version's (the row mask, then _adam_plain) on the card
+    bit for bit."""
+    stepping = _k_groups(cuda, _flagship_spec(), count)
+    assert sum(len(g.state.mu) for g, _ in stepping) == 16
+    _k_case(stepping)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 2])
+def test_adam_kernel_on_views_and_tails(cuda, offset):
+    """Leaves whose tensors start 0, 4 or 8 bytes into their buffers (the
+    16-byte and the one-float path), numel no multiple of 4, rows of 1, 3
+    and 45 floats under a mask: the same bits as the plain version."""
+    stepping = _k_groups(cuda, _views_spec(), 41, offset=offset, seed=offset)
+    p = stepping[0][0].params["d"]
+    assert (p.data_ptr() % 16 == 0) == (offset == 0)
+    _k_case(stepping)
+
+
+@pytest.mark.cuda
+def test_adam_kernel_takes_a_table_of_32_leaves(cuda):
+    """The largest table, 32 leaves of seven groups, half of them masked,
+    in one launch."""
+    stepping = _k_groups(cuda, _many_spec(32), 3600, seed=3)
+    _k_case(stepping)
+
+
+@pytest.mark.cuda
+def test_adam_kernel_once_a_train_step(cuda):
+    """The main path: a scene-graph train step launches K once and steps
+    16 leaves (counter step.adam_leaves), a Splatfacto step once and 7;
+    the step's own gradients reach K without a copy (the whole Adam call
+    enqueues one device launch)."""
+    import dataclasses
+
+    import test_torch_tracing as tt
+    from street_gaussians_ns_tpu_torch.engine import scene_train_step as sts
+    from street_gaussians_ns_tpu_torch.utils import profiling
+    scene, splat, batch = tt._scene("cuda"), tt._splat("cuda"), tt._batch(
+        "cuda")
+    profiling.reset()
+    profiling.enable(True)
+    try:
+        for step, leaves in ((lambda: tt._scene_step(scene, batch), 16),
+                             (lambda: tt._splat_step(splat, batch), 7)):
+            profiling.reset()
+            before = adam.ADAM_KERNEL.launches
+            step()
+            assert adam.ADAM_KERNEL.launches == before + 1
+            snap = profiling.snapshot()["step.adam_leaves"]
+            assert snap == {"count": 1, "total": leaves,
+                            "parent": "step.adam"}
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    store, tracks, cfg, rcfg, cams = scene
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = dataclasses.replace(sts.init_scene_train_state(store, gen),
+                                step=3600)
+    *_, g = sts.scene_loss_and_grads(state, tracks, cams[0], batch, cfg,
+                                     rcfg, subset_accs=False)
+    assert _cuda.captured_launches(adam.ADAM_KERNEL, lambda: sts.scene_adam(
+        state.store, state.opt, g["gauss"], g["env_map"], g["bbox"],
+        state.step)) == 1
+
+
+@pytest.mark.cuda
+def test_adam_helper_on_the_card_raises_rather_than_falls_back(cuda):
+    """On CUDA tensors the helper launches K or raises: 33 leaves, a
+    non-contiguous or a float64 leaf are refused with no launch."""
+    import dataclasses
+
+    before = adam.ADAM_KERNEL.launches
+    with pytest.raises(ValueError, match="1 to 32 leaves"):
+        opt._step_kernel(_k_groups(cuda, _many_spec(33), 1))
+    stepping = _k_groups(cuda, _views_spec(), 1)
+    group, grads = stepping[0]
+    bad = dict(group.params, b=torch.zeros((3, 2), device=cuda)[:, 0])
+    with pytest.raises(ValueError, match="contiguous"):
+        opt._step_kernel([(dataclasses.replace(group, params=bad), grads)])
+    bad = dict(group.params, c=group.params["c"].double())
+    with pytest.raises(TypeError, match="float64"):
+        opt._step_kernel([(dataclasses.replace(group, params=bad), grads)])
+    assert adam.ADAM_KERNEL.launches == before
+
+
+@pytest.mark.parametrize("bad,error,match", [
+    ("33 leaves", ValueError, "1 to 32 leaves"),
+    ("no leaves", ValueError, "1 to 32 leaves"),
+    ("g not contiguous", ValueError, "contiguous"),
+    ("m float64", TypeError, "float64"),
+    ("v another shape", ValueError, "shape"),
+    ("active uint8", TypeError, "bool"),
+    ("active rows", ValueError, "shape"),
+    ("hyper of 7", ValueError, "8 numbers"),
+    ("cpu tensors", ValueError, "CUDA tensors"),
+])
+def test_adam_wrapper_raises_on_bad_input(bad, error, match):
+    """Kernel K's wrapper checks the table before any pointer reaches C
+    (no launch, no build: these run on the CPU)."""
+    z = lambda *s: torch.zeros(s)  # noqa: E731
+    h = (1e-3, 0.9, 0.1, 0.999, 1e-3, 1e-15, 10.0, 1000.0)
+    leaf = [z(6, 3), z(6, 3), z(6, 3), z(6, 3),
+            torch.ones(6, dtype=torch.bool), h]
+    leaves = [leaf]
+    fix = {
+        "33 leaves": lambda: [leaf] * 33,
+        "no leaves": lambda: [],
+        "g not contiguous": lambda: [leaf[:1] + [z(3, 6).T] + leaf[2:]],
+        "m float64": lambda: [leaf[:2] + [z(6, 3).double()] + leaf[3:]],
+        "v another shape": lambda: [leaf[:3] + [z(6, 4)] + leaf[4:]],
+        "active uint8": lambda: [leaf[:4] + [torch.ones(
+            6, dtype=torch.uint8), h]],
+        "active rows": lambda: [leaf[:4] + [torch.ones(
+            5, dtype=torch.bool), h]],
+        "hyper of 7": lambda: [leaf[:5] + [h[:7]]],
+        "cpu tensors": lambda: leaves,
+    }
+    before = adam.ADAM_KERNEL.launches
+    with pytest.raises(error, match=match):
+        adam.adam_leaves(fix[bad]())
+    assert adam.ADAM_KERNEL.launches == before

@@ -58,12 +58,13 @@ RENDER = {"render.project": None, R: None, "tiles.depth_sort": R,
           "tiles.row_trim": R, "tiles.bin_rest": R, "composite.pack": R,
           "composite.fwd": R, "render.read_counts": R, "render.pairs": R}
 STEP = {"step.forward": None, "step.backward": None, "step.adam": None,
-        "step.stats": None, "scene.sh": "step.forward",
+        "step.adam_leaves": "step.adam", "step.stats": None,
+        "scene.sh": "step.forward",
         "scene.sky": "step.forward", "composite.bwd": "step.backward",
         "composite.visited": "composite.bwd",
         **{k: v or "step.forward" for k, v in RENDER.items()}}
 COMPOSE = {"scene.compose": "step.forward", "scene.pose": "scene.compose"}
-COUNTERS = {"render.pairs"}
+COUNTERS = {"render.pairs", "step.adam_leaves"}
 SYNCS = {"render.read_counts", "composite.visited", "trainer.target_copy",
          "trainer.capacity_check", "trainer.log_scalars", "refine.nonzero"}
 
@@ -210,8 +211,12 @@ def test_scene_step_and_splatfacto_step_spans(cpu_run):
     batch = _batch("cpu")
     snap, _ = _profiled(lambda: _scene_step(cpu_run["scene"], batch))
     _parents_and_counts(snap, {**STEP, **COMPOSE}, {})
+    # One pass over every leaf: 6 groups x (background, objects), the
+    # sky, 3 bbox deltas; Splatfacto's 6 groups and the sky.
+    assert snap["step.adam_leaves"]["total"] == 16
     snap, _ = _profiled(lambda: _splat_step(cpu_run["splat"], batch))
     _parents_and_counts(snap, STEP, {})
+    assert snap["step.adam_leaves"]["total"] == 7
     assert sum(r.get("syncs", 0) for r in snap.values()) == 2
 
 
