@@ -19,6 +19,12 @@ so either package reads the other's:
   Adam group's accumulator ("opt/camera_opt/acc", "opt/camera_opt/calls");
 - `latest_checkpoint` finds the newest in a directory.
 
+The single-cloud state (engine.train_step.TrainState, the PVG model's)
+saves its cloud as the background ("store/background/params/...", a
+temporal cloud's tau, s_beta and velocity among them), its sky as
+"store/env_map" and each Adam group under "opt/<group>/{mu,nu,count}";
+`restore_checkpoint` reads it back into a target of that type.
+
 The JAX package's arrays also cross on their own: `store_from_numpy` /
 `tracks_from_numpy` build a SceneGraphStore / ObjectTracks from a JAX
 store's or tracks' arrays, `train_state_from_numpy` /
@@ -37,10 +43,12 @@ import numpy as np
 import torch
 
 from ..models.gaussians import GaussianParams, GaussianStore
+from ..models.pvg import TEMPORAL_GROUPS
 from ..models.scene_graph import ObjectTracks, SceneGraphConfig, SceneGraphStore
 from .optimizers import AdamState
 from .scene_train_step import (BBOX_PARAMS, SceneTrainState,
                                init_scene_train_state)
+from .train_step import TrainState
 
 _PARAMS = ("means", "scales", "quats", "features_dc", "features_rest",
            "opacities")
@@ -58,7 +66,8 @@ def _gaussian_store(arrays, prefix: str, device) -> GaussianStore:
     f32 = torch.float32
     params = GaussianParams(**{
         name: _tensor(arrays, f"{prefix}/params/{name}", device, f32)
-        for name in _PARAMS})
+        for name in _PARAMS + TEMPORAL_GROUPS
+        if name in _PARAMS or f"{prefix}/params/{name}" in arrays})
     active = _tensor(arrays, f"{prefix}/active", device, torch.bool)
     stats = {name: (_tensor(arrays, f"{prefix}/{name}", device, f32)
                     if f"{prefix}/{name}" in arrays
@@ -193,11 +202,11 @@ def load_train_checkpoint(path: Path,
     return train_state_from_numpy(arrays, config, device, seed)
 
 
-def _state_leaves(state: SceneTrainState
-                  ) -> Iterator[Tuple[str, torch.Tensor]]:
-    """(checkpoint key, tensor) of every array of a state, in the JAX
-    package's tree paths; the Adam counts, the accumulation calls and the
-    step come as 0-d int32 tensors."""
+def _state_leaves(state) -> Iterator[Tuple[str, torch.Tensor]]:
+    """(checkpoint key, tensor) of every array of a state (a
+    SceneTrainState, or a TrainState whose cloud is saved as the
+    background), in the JAX package's tree paths; the Adam counts, the
+    accumulation calls and the step come as 0-d int32 tensors."""
     def walk(path: str, tree):
         if isinstance(tree, dict):
             for k, v in tree.items():
@@ -206,14 +215,17 @@ def _state_leaves(state: SceneTrainState
             yield path, tree
 
     store = state.store
-    for prefix, part in (("background", store.background),
-                         ("objects", store.objects)):
+    single = isinstance(state, TrainState)
+    parts = ((("background", store),) if single else
+             (("background", store.background), ("objects", store.objects)))
+    for prefix, part in parts:
         yield from walk(f"store/{prefix}/params", part.params.as_dict())
         yield f"store/{prefix}/active", part.active
         for name in _STATS:
             yield f"store/{prefix}/{name}", getattr(part, name)
-    yield from walk("store/env_map", store.env_map)
-    for name in BBOX_PARAMS:
+    yield from walk("store/env_map",
+                    state.env_map if single else store.env_map)
+    for name in () if single else BBOX_PARAMS:
         yield f"store/{name}", getattr(store, name)
     for name, s in state.opt.items():
         yield from walk(f"opt/{name}/mu", s.mu)
@@ -224,7 +236,7 @@ def _state_leaves(state: SceneTrainState
             yield f"opt/{name}/calls", torch.tensor(s.calls,
                                                     dtype=torch.int32)
     yield "step", torch.tensor(state.step, dtype=torch.int32)
-    if state.camera_opt is not None:
+    if getattr(state, "camera_opt", None) is not None:
         yield "camera_opt", state.camera_opt
 
 
@@ -266,12 +278,11 @@ def save_checkpoint(ckpt_dir: Path, step: int, state: SceneTrainState,
     return out
 
 
-def restore_checkpoint(path: Path, target: SceneTrainState
-                       ) -> SceneTrainState:
+def restore_checkpoint(path: Path, target):
     """Read a checkpoint of either package into the structure of
-    `target`: every leaf of the target must be there with its shape. The
-    generator continues from the saved state where the port wrote one,
-    else from the target's."""
+    `target` (a SceneTrainState, or a TrainState): every leaf of the
+    target must be there with its shape. The generator continues from the
+    saved state where the port wrote one, else from the target's."""
     with np.load(path, allow_pickle=False) as data:
         arrays = {}
         for key, leaf in _state_leaves(target):
@@ -284,12 +295,31 @@ def restore_checkpoint(path: Path, target: SceneTrainState
             arrays[key] = arr
         saved_gen = (data[GENERATOR_KEY] if GENERATOR_KEY in data.files
                      else None)
-    device = target.store.background.active.device
+    single = isinstance(target, TrainState)
+    device = (target.store if single else target.store.background
+              ).active.device
     generator = torch.Generator(device=device)
     generator.set_state(torch.from_numpy(saved_gen) if saved_gen is not None
                         else target.generator.get_state())
+    if single:
+        return _single_train_state(arrays, target, generator, device)
     return _train_state(arrays, _store(_sub(arrays, "store/"), device),
                         generator)
+
+
+def _single_train_state(arrays, target: TrainState,
+                        generator: torch.Generator, device) -> TrainState:
+    """A TrainState of target's groups from a checkpoint's arrays."""
+    f32 = torch.float32
+    opt = {name: AdamState(
+        mu=_tensor(arrays, f"opt/{name}/mu", device, f32),
+        nu=_tensor(arrays, f"opt/{name}/nu", device, f32),
+        count=int(arrays[f"opt/{name}/count"])) for name in target.opt}
+    return TrainState(
+        store=_gaussian_store(_sub(arrays, "store/"), "background", device),
+        env_map=(_tensor(arrays, "store/env_map", device, f32)
+                 if target.env_map is not None else None),
+        opt=opt, step=int(arrays["step"]), generator=generator)
 
 
 def checkpoint_extra(path: Path, prefix: str) -> Dict[str, np.ndarray]:

@@ -278,3 +278,13 @@ DEFAULT_GROUPS: Dict[str, AdamConfig] = {
     "scales": AdamConfig(lr=5e-3),
     "quats": AdamConfig(lr=1e-3),
 }
+
+# The three temporal groups of PVG (models.pvg). PVG's official learning
+# rates are not in the repository; these are assumed: the life peak
+# (seconds) decays by 100x as the means' rate does, the log lifespan and
+# the velocity (m/s) are constant.
+PVG_GROUPS: Dict[str, AdamConfig] = {
+    "tau": AdamConfig(lr=8e-4, lr_final=8e-6, max_steps=70000),
+    "s_beta": AdamConfig(lr=2e-3),
+    "velocity": AdamConfig(lr=1e-3),
+}

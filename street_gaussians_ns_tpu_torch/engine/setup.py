@@ -4,9 +4,10 @@ street_gaussians_ns_tpu/engine/setup.py).
 config.json in the run directory holds the data, model, trainer and
 datamanager configs in the JAX package's schema (the device is not part
 of it), and each package reads only the fields of its own dataclasses, so
-either package loads the other's run directory. `eval_setup(run_dir)`
-rebuilds the trainer from it and restores the latest (or a given)
-checkpoint.
+either package loads the other's run directory. A run of the PVG model
+(models.pvg) adds a "pvg" section, which only the port reads
+(`load_pvg_config`). `eval_setup(run_dir)` rebuilds the trainer from it
+and restores the latest (or a given) checkpoint.
 """
 from __future__ import annotations
 
@@ -52,17 +53,20 @@ def _from_jsonable(cls, data):
 
 
 def save_run_config(run_dir: Path, data_config, scene_config, trainer_config,
-                    dm_config) -> Path:
+                    dm_config, pvg=None) -> Path:
     run_dir = Path(run_dir)
     run_dir.mkdir(parents=True, exist_ok=True)
     out = run_dir / "config.json"
+    cfg = {
+        "data": _to_jsonable(data_config),
+        "model": _to_jsonable(scene_config),
+        "trainer": _to_jsonable(trainer_config),
+        "dm": _to_jsonable(dm_config),
+    }
+    if pvg is not None:
+        cfg["pvg"] = _to_jsonable(pvg)
     with open(out, "w") as f:
-        json.dump({
-            "data": _to_jsonable(data_config),
-            "model": _to_jsonable(scene_config),
-            "trainer": _to_jsonable(trainer_config),
-            "dm": _to_jsonable(dm_config),
-        }, f, indent=2)
+        json.dump(cfg, f, indent=2)
     return out
 
 
@@ -78,6 +82,15 @@ def load_run_config(run_dir: Path):
             _from_jsonable(SceneGraphConfig, cfg["model"]),
             _from_jsonable(TrainerConfig, cfg["trainer"]),
             _from_jsonable(DataManagerConfig, cfg["dm"]))
+
+
+def load_pvg_config(run_dir: Path):
+    """The run's models.pvg.PVGConfig, None for a scene-graph run."""
+    from ..models.pvg import PVGConfig
+
+    with open(Path(run_dir) / "config.json") as f:
+        cfg = json.load(f)
+    return _from_jsonable(PVGConfig, cfg["pvg"]) if "pvg" in cfg else None
 
 
 def eval_setup(run_dir: Path, checkpoint: Optional[Path] = None,
@@ -96,7 +109,7 @@ def eval_setup(run_dir: Path, checkpoint: Optional[Path] = None,
                                          output_dir=Path(run_dir),
                                          viewer_port=None)
     trainer = Trainer(data_config, scene_config, trainer_config, dm_config,
-                      device=device)
+                      device=device, pvg=load_pvg_config(run_dir))
     ckpt = checkpoint or latest_checkpoint(Path(run_dir) / "checkpoints")
     if ckpt is not None:
         trainer.state = restore_checkpoint(ckpt, trainer.state)

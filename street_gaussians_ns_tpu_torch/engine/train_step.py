@@ -8,6 +8,11 @@ per-group Adam updates -> densification statistics. `refine_step`: one
 refinement pass, called every refine_every steps by a host loop after
 `train_step` has advanced the step.
 
+The same pipeline trains the Periodic Vibration Gaussian model
+(models.pvg): a temporal store's three more leaves are three more Adam
+groups (10 leaves a step with the sky), and with `pvg` given the forward
+is models.pvg.forward at the camera's time.
+
 Both are functional, as engine.scene_train_step's: they return a new
 `TrainState` and leave the one they were given untouched (only its
 `torch.Generator` advances when a step draws from it). The scene-graph
@@ -21,17 +26,31 @@ from typing import Dict, Optional
 import torch
 
 from ..core.cameras import Camera, draw_pixel_jitter
+from ..models import pvg as pvg_model
 from ..models import refinement
 from ..models.gaussians import GaussianStore
+from ..models.pvg import PVGConfig
 from ..models.splatfacto import SplatfactoConfig, forward, loss_dict
 from ..ops.render import RenderConfig
 from ..ops.ssim import psnr
 from ..utils.profiling import span
-from .optimizers import (DEFAULT_GROUPS, AdamGroup, AdamState, adam_step,
-                         init_adam, schedule, tree_map)
+from .optimizers import (DEFAULT_GROUPS, PVG_GROUPS, AdamGroup, AdamState,
+                         adam_step, init_adam, schedule, tree_map)
 
 GAUSSIAN_GROUPS = ("means", "scales", "quats", "features_dc",
                    "features_rest", "opacities")
+
+
+def store_groups(store: GaussianStore) -> tuple:
+    """The Adam groups of a store's leaves: GAUSSIAN_GROUPS, and a
+    temporal store's tau, s_beta and velocity after them."""
+    return tuple(store.params.as_dict())
+
+
+def group_config(name: str):
+    """A group's AdamConfig: the reference's registry, then PVG's."""
+    return DEFAULT_GROUPS[name] if name in DEFAULT_GROUPS else \
+        PVG_GROUPS[name]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,7 +66,7 @@ class TrainState:
 def init_train_state(store: GaussianStore, env_map: Optional[torch.Tensor],
                      generator: torch.Generator) -> TrainState:
     opt = {name: init_adam(getattr(store.params, name))
-           for name in GAUSSIAN_GROUPS}
+           for name in store_groups(store)}
     if env_map is not None:
         opt["sky_sphere"] = init_adam(env_map)
     return TrainState(store=store, env_map=env_map, opt=opt, step=0,
@@ -56,31 +75,43 @@ def init_train_state(store: GaussianStore, env_map: Optional[torch.Tensor],
 
 def loss_and_grads(state: TrainState, camera: Camera, batch: dict,
                    config: SplatfactoConfig, render_config: RenderConfig,
-                   jitter: Optional[torch.Tensor] = None):
+                   jitter: Optional[torch.Tensor] = None,
+                   pvg: Optional[PVGConfig] = None):
     """The forward and backward of one step. Returns (total loss, losses,
     outputs, RenderOutputs, grads) with grads = {"params": {group: g},
     "env_map": g or None, "xys": (CAP, 2) the screen-space positional
-    gradients}; a parameter the loss does not reach gets zeros."""
+    gradients}; a parameter the loss does not reach gets zeros. `pvg`
+    (a temporal store's model, and only then) renders with
+    models.pvg.forward at the camera's time."""
     store = state.store
+    if (pvg is not None) != store.params.temporal:
+        raise ValueError("a temporal store trains with a PVGConfig, and "
+                         "only a temporal store does")
+    names = store_groups(store)
 
     def leaf(x):
         return x.detach().requires_grad_(True)
 
     with span("step.forward"):
         params = dataclasses.replace(store.params, **{
-            name: leaf(getattr(store.params, name))
-            for name in GAUSSIAN_GROUPS})
+            name: leaf(getattr(store.params, name)) for name in names})
         env = leaf(state.env_map) if state.env_map is not None else None
         xys_zero = torch.zeros((store.capacity, 2), dtype=torch.float32,
                                device=store.active.device, requires_grad=True)
-        outputs, rout = forward(
-            params, store.active, camera, state.step, config, render_config,
-            env_map=env, jitter=jitter, training=True, time=batch.get("time"),
-            xys_offset=xys_zero)
+        if pvg is not None:
+            outputs, rout = pvg_model.forward(
+                params, store.active, camera, state.step, config, pvg,
+                render_config, env_map=env, jitter=jitter, training=True,
+                xys_offset=xys_zero)
+        else:
+            outputs, rout = forward(
+                params, store.active, camera, state.step, config,
+                render_config, env_map=env, jitter=jitter, training=True,
+                time=batch.get("time"), xys_offset=xys_zero)
         losses = loss_dict(outputs, batch, config)
         total = sum(losses.values())
 
-        leaves = [getattr(params, n) for n in GAUSSIAN_GROUPS] + [xys_zero]
+        leaves = [getattr(params, n) for n in names] + [xys_zero]
         if env is not None:
             leaves.append(env)
     with span("step.backward"):
@@ -88,7 +119,7 @@ def loss_and_grads(state: TrainState, camera: Camera, batch: dict,
         got = [torch.zeros_like(p) if g is None else g
                for p, g in zip(leaves, raw)]
     it = iter(got)
-    grads = {"params": {n: next(it) for n in GAUSSIAN_GROUPS},
+    grads = {"params": {n: next(it) for n in names},
              "xys": next(it),
              "env_map": next(it) if env is not None else None}
     detach = lambda t: t.detach()  # noqa: E731
@@ -98,21 +129,23 @@ def loss_and_grads(state: TrainState, camera: Camera, batch: dict,
 
 def train_step(state: TrainState, camera: Camera, batch: dict,
                config: SplatfactoConfig, render_config: RenderConfig,
-               jitter: Optional[torch.Tensor] = None):
+               jitter: Optional[torch.Tensor] = None,
+               pvg: Optional[PVGConfig] = None):
     """One optimization step. Returns (new_state, metrics).
 
     batch: {"image" (H, W, 3), optional "mask", "semantic", "time"}.
     `jitter` ((2, H, W)) is the sky rays' jitter; when None it is drawn
-    from the state's generator."""
+    from the state's generator. `pvg`: see loss_and_grads."""
     if jitter is None and state.env_map is not None:
         jitter = draw_pixel_jitter(camera, state.generator)
     total, losses, outputs, rout, grads = loss_and_grads(
-        state, camera, batch, config, render_config, jitter=jitter)
+        state, camera, batch, config, render_config, jitter=jitter, pvg=pvg)
     step = state.step
+    names = store_groups(state.store)
     with torch.no_grad(), span("step.adam"):
         groups = {}
-        for name in GAUSSIAN_GROUPS:
-            cfg = DEFAULT_GROUPS[name]
+        for name in names:
+            cfg = group_config(name)
             groups[name] = AdamGroup(
                 grads["params"][name], state.opt[name],
                 getattr(state.store.params, name), schedule(cfg, step), cfg)
@@ -126,8 +159,7 @@ def train_step(state: TrainState, camera: Camera, batch: dict,
         new_env = stepped["sky_sphere"][0] if "sky_sphere" in stepped \
             else state.env_map
         store = dataclasses.replace(state.store, params=dataclasses.replace(
-            state.store.params,
-            **{name: stepped[name][0] for name in GAUSSIAN_GROUPS}))
+            state.store.params, **{name: stepped[name][0] for name in names}))
     with torch.no_grad(), span("step.stats"):
         max_hw = max(camera.height, camera.width)
         store = refinement.update_stats(store, grads["xys"],
@@ -148,19 +180,22 @@ def train_step(state: TrainState, camera: Camera, batch: dict,
 
 def refine_step(state: TrainState, config: SplatfactoConfig,
                 num_train_data: int, max_hw: int,
-                noise: Optional[torch.Tensor] = None):
+                noise: Optional[torch.Tensor] = None,
+                densify_scale: Optional[torch.Tensor] = None):
     """One refinement pass (cull / densify / reset) at step
     `state.step - 1`, the step train_step has just finished. Returns
     (new_state, info). `noise`: the split noise
     (models.refinement.draw_split_noise), drawn from the state's
-    generator when None."""
+    generator when None. `densify_scale`: see models.refinement.refine
+    (PVG's models.pvg.densify_scale)."""
     if noise is None:
         noise = refinement.draw_split_noise(
             config, state.store.capacity, state.generator,
             state.store.active.device)
-    gauss_opt = {name: state.opt[name] for name in GAUSSIAN_GROUPS}
+    gauss_opt = {name: state.opt[name] for name in store_groups(state.store)}
     store, surgery, info = refinement.refine(
-        state.store, state.step - 1, config, num_train_data, max_hw, noise)
+        state.store, state.step - 1, config, num_train_data, max_hw, noise,
+        densify_scale=densify_scale)
     new_opt = dict(state.opt)
     new_opt.update(refinement.apply_moment_surgery(gauss_opt, surgery))
     return dataclasses.replace(state, store=store, opt=new_opt), info

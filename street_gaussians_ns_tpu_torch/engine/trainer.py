@@ -21,6 +21,17 @@ jitter and the split noise of training, so its numbers differ from the JAX
 package's by design (parity tests hand the JAX draws to `build_stores` and
 to the step).
 
+With `pvg` (a models.pvg.PVGConfig) the trainer trains the Periodic
+Vibration Gaussian model instead (models.pvg): one temporal cloud built
+as the zero-object scene graph's background (its tau uniform over the
+train split's times), the sky of `config.base`, no boxes
+(the clip's annotations are not read); its state is the single-cloud
+`engine.train_step.TrainState` and its step `engine.train_step.
+train_step` (10 Adam leaves), refined with `config.background` and the
+position-aware gamma of the train cameras' extent. Everything around the
+step is the scene graph's: the datamanager, the sampler, the refine
+cadence, the pair presize and capacity checks, checkpoints and eval.
+
 With `camera_opt_mode != "off"` each train camera has a (6,) pose delta
 (models.camera_opt), trained with gradient accumulation over 100 steps.
 With `viewer_port` set, the live viewer (utils.viewer) serves its render
@@ -45,15 +56,19 @@ from ..core.cameras import Camera, viewmat_from_c2w
 from ..core.projection import project
 from ..data.datamanager import DataManagerConfig, FullImageDatamanager
 from ..data.dataparser import DataParserConfig, ParsedScene, parse_scene
+from ..models import pvg as pvg_model
 from ..models.camera_opt import CameraOptConfig, init_camera_opt
 from ..models.gaussians import GaussianStore, draw_init_noise, init_gaussians
+from ..models.pvg import PVGConfig
 from ..models.scene_graph import (SceneGraphConfig, compose, empty_tracks,
                                   forward_scene, init_scene_graph_store)
+from ..models.splatfacto import init_env_map
 from ..ops.render import RenderConfig
 from ..ops.ssim import psnr, ssim
 from ..ops.tiles import count_pairs
 from ..utils.profiling import span
 from ..utils.writer import MetricsWriter
+from . import train_step as single_step
 from .checkpoints import (checkpoint_extra, latest_checkpoint,
                           restore_checkpoint, save_checkpoint)
 from .scene_train_step import (init_scene_train_state, scene_refine_step,
@@ -134,16 +149,16 @@ def _init_count(n_points: Optional[int], capacity: int,
 
 def draw_store_noise(scene: ParsedScene, config: SceneGraphConfig,
                      trainer: TrainerConfig, generator: torch.Generator,
-                     device="cuda") -> dict:
+                     device="cuda", temporal: bool = False) -> dict:
     """The uniform draws of build_stores from `generator`: {"bg": ...,
     "obj": [one per tracked object]}, each models.gaussians.
-    draw_init_noise's dict."""
+    draw_init_noise's dict (a temporal background's with "tau")."""
     bgc = config.background
     n_bg = _init_count(
         None if bgc.random_init or scene.points_xyz is None
         else len(scene.points_xyz),
         trainer.background_capacity, bgc.num_random)
-    bg = draw_init_noise(n_bg, generator, device)
+    bg = draw_init_noise(n_bg, generator, device, temporal=temporal)
     db = scene.annotations
     obj = []
     if db is not None:
@@ -155,10 +170,13 @@ def draw_store_noise(scene: ParsedScene, config: SceneGraphConfig,
 
 
 def build_stores(scene: ParsedScene, config: SceneGraphConfig,
-                 trainer: TrainerConfig, noise: dict, device="cuda"):
+                 trainer: TrainerConfig, noise: dict, device="cuda",
+                 temporal: Optional[tuple] = None):
     """Background store from the SfM/LiDAR seeds, stacked object stores
     from each track's aggregated LiDAR (scene_graph populate_modules
-    :49-96), and the tracks. `noise`: see draw_store_noise."""
+    :49-96), and the tracks. `noise`: see draw_store_noise. `temporal`:
+    (t0, t1, lifespan) of a temporal background (models.gaussians.
+    init_gaussians)."""
     bgc = config.background
     bg = init_gaussians(
         trainer.background_capacity,
@@ -167,7 +185,7 @@ def build_stores(scene: ParsedScene, config: SceneGraphConfig,
         sh_degree=config.base.sh_degree,
         fourier_dim=bgc.fourier_features_dim,
         num_random=bgc.num_random, random_scale=bgc.random_scale,
-        noise=noise["bg"], device=device)
+        noise=noise["bg"], temporal=temporal, device=device)
 
     db = scene.annotations
     if db is None or db.num_objects == 0:
@@ -234,8 +252,14 @@ class Trainer:
         trainer_config: TrainerConfig = TrainerConfig(),
         dm_config: DataManagerConfig = DataManagerConfig(),
         device="cuda",
+        pvg: Optional[PVGConfig] = None,
     ):
         self.device = resolve_device(device)
+        # The PVG model's config, None for the scene graph.
+        self.pvg = pvg
+        if pvg is not None and scene_config.camera_opt_mode != "off":
+            raise ValueError("the camera optimizer trains with the scene "
+                             "graph only")
         precision = trainer_config.render_precision
         if precision == "auto":
             precision = "f32"
@@ -249,7 +273,7 @@ class Trainer:
                                     else out / self.log_dir_name)
         if self.primary:
             save_run_config(out, data_config, scene_config, trainer_config,
-                            dm_config)
+                            dm_config, pvg=pvg)
 
         self.writer.log(f"parsing scene {data_config.data}")
         with self._timed("parse"):
@@ -257,7 +281,7 @@ class Trainer:
         with self._timed("frame_cache"):
             self.dm = FullImageDatamanager(self.scene, dm_config,
                                            device=self.device)
-        n_obj = (0 if self.scene.annotations is None
+        n_obj = (0 if self.scene.annotations is None or self.pvg is not None
                  else self.scene.annotations.num_objects)
         self.writer.log(f"{self.dm.num_train} train / {self.dm.num_eval} "
                         f"eval frames, {n_obj} objects")
@@ -265,23 +289,11 @@ class Trainer:
         with self._timed("build_stores"):
             generator = torch.Generator(device=self.device)
             generator.manual_seed(trainer_config.seed)
-            noise = draw_store_noise(self.scene, scene_config,
-                                     trainer_config, generator, self.device)
-            bg, obj, self.tracks = build_stores(
-                self.scene, scene_config, trainer_config, noise, self.device)
-            store = init_scene_graph_store(bg, obj, self.tracks,
-                                           scene_config, self.device)
-            # The camera optimizer: one (6,) delta per train camera.
-            camera_opt = None
             self._cam_row = {}
-            if scene_config.camera_opt_mode != "off":
-                camera_opt = init_camera_opt(CameraOptConfig(
-                    mode=scene_config.camera_opt_mode,
-                    num_cameras=max(self.dm.num_train, 1)), self.device)
-                self._cam_row = {int(g): i for i, g in
-                                 enumerate(self.scene.train_indices)}
-            self.state = init_scene_train_state(store, generator,
-                                                camera_opt=camera_opt)
+            if self.pvg is not None:
+                self.state, self.tracks = self._build_pvg(generator)
+            else:
+                self.state, self.tracks = self._build_scene_graph(generator)
         self.start_step = 0
 
         self.ckpt_dir = Path(trainer_config.output_dir) / "checkpoints"
@@ -311,6 +323,49 @@ class Trainer:
             self.viewer = attach_viewer(self, trainer_config.viewer_port)
             self.writer.log(f"viewer: http://localhost:{self.viewer.port}/")
 
+    def _build_scene_graph(self, generator: torch.Generator):
+        """The scene graph's train state and tracks: the stores from the
+        clip's seeds and annotations, the camera optimizer's deltas."""
+        cfg, tc = self.config, self.tc
+        noise = draw_store_noise(self.scene, cfg, tc, generator, self.device)
+        bg, obj, tracks = build_stores(self.scene, cfg, tc, noise,
+                                       self.device)
+        store = init_scene_graph_store(bg, obj, tracks, cfg, self.device)
+        # The camera optimizer: one (6,) delta per train camera.
+        camera_opt = None
+        if cfg.camera_opt_mode != "off":
+            camera_opt = init_camera_opt(CameraOptConfig(
+                mode=cfg.camera_opt_mode,
+                num_cameras=max(self.dm.num_train, 1)), self.device)
+            self._cam_row = {int(g): i for i, g in
+                             enumerate(self.scene.train_indices)}
+        return (init_scene_train_state(store, generator,
+                                       camera_opt=camera_opt), tracks)
+
+    def _build_pvg(self, generator: torch.Generator):
+        """PVG's train state: the zero-object scene graph's background made
+        temporal (life peaks uniform over the train split's times, every
+        lifespan that span), the sky; and the train cameras' extent for the
+        position-aware densification."""
+        scene = dataclasses.replace(self.scene, annotations=None, tracks=None)
+        cfg, tc = self.config, self.tc
+        idx = np.asarray(scene.train_indices, np.int64)
+        times = scene.times[idx] if len(idx) else np.zeros(1, np.float32)
+        t0, t1 = float(times.min()), float(times.max())
+        life = max(t1 - t0, 1e-3)
+        noise = draw_store_noise(scene, cfg, tc, generator, self.device,
+                                 temporal=True)
+        bg, _, tracks = build_stores(scene, cfg, tc, noise, self.device,
+                                     temporal=(t0, t1, life))
+        env = (init_env_map(cfg.base, self.device)
+               if cfg.base.use_sky_sphere else None)
+        centre, radius = pvg_model.scene_extent(
+            scene.c2w[idx][:, :3, 3] if len(idx) else np.zeros((1, 3)))
+        # On the device once: a copy from the host at each refine would
+        # wait for the card.
+        self._extent = (torch.as_tensor(centre, device=self.device), radius)
+        return single_step.init_train_state(bg, env, generator), tracks
+
     @contextlib.contextmanager
     def _timed(self, name: str):
         """Host seconds of a construction stage, the device's work
@@ -333,9 +388,7 @@ class Trainer:
         idxs = list(range(0, n, max(n // 4, 1)))
         max_p, max_r = 0, 0
         for i in idxs:
-            p, r = scene_pair_counts(self.state.store, self.tracks,
-                                     self.dm.train_camera(i), self.config,
-                                     self.render_config.tile_size)
+            p, r = self._pair_counts(self.dm.train_camera(i))
             max_p = max(max_p, int(p))
             max_r = max(max_r, int(r))
         if max_p == 0:
@@ -349,6 +402,15 @@ class Trainer:
             f"pre-sized pair capacity: probed {max_p} pairs / {max_r} "
             f"rowruns over {len(idxs)} cameras -> max_pairs={new_cap}, "
             f"max_rowruns={new_rcap}")
+
+    def _pair_counts(self, camera):
+        """Exact (num_pairs, num_rowruns) of the state's view of camera."""
+        tile = self.render_config.tile_size
+        if self.pvg is not None:
+            return pvg_model.pair_counts(self.state.store, camera, self.pvg,
+                                         tile)
+        return scene_pair_counts(self.state.store, self.tracks, camera,
+                                 self.config, tile)
 
     def _step_fn(self, step: int):
         """The step for this step number. The entropy loss (and with it
@@ -409,6 +471,12 @@ class Trainer:
         with span("trainer.draw"):
             camera, batch = self.dm.next_train(step)
         target = self._device_batch(batch)
+        self._last_hw = (camera.height, camera.width)
+        if self.pvg is not None:
+            self.state, metrics = single_step.train_step(
+                self.state, camera, target, self.config.base,
+                self.render_config, pvg=self.pvg)
+            return metrics
         fn = self._step_fn(step)
         kw = {}
         if self.state.camera_opt is not None:
@@ -416,7 +484,6 @@ class Trainer:
                 batch.get("frame_idx", -1), 0)
         self.state, metrics = fn(self.state, self.tracks, camera, target,
                                  **kw)
-        self._last_hw = (camera.height, camera.width)
         return metrics
 
     def _track_max(self, metrics):
@@ -488,6 +555,12 @@ class Trainer:
         return self.state
 
     def _refine(self, max_hw: int):
+        if self.pvg is not None:
+            scale = pvg_model.densify_scale(self.state.store.params.means,
+                                            *self._extent)
+            return single_step.refine_step(
+                self.state, self.config.background, self.dm.num_train,
+                max_hw, densify_scale=scale)
         return scene_refine_step(self.state, self.config, self.dm.num_train,
                                  max_hw)
 
@@ -524,17 +597,33 @@ class Trainer:
             return False
         return self.viewer.service(self._viewer_render)
 
+    @torch.no_grad()
+    def render_view(self, camera, state=None, eval_extras: bool = False):
+        """The eval render of `state` (the whole state when None) at
+        camera, at the trainer's render config: forward_scene(training=
+        False, eval_extras) for the scene graph, models.pvg.forward for
+        PVG (its heads: rgb, accumulation, depth, sky). Returns the
+        outputs dict."""
+        state = self.full_state() if state is None else state
+        if self.pvg is not None:
+            store = state.store
+            return pvg_model.forward(
+                store.params, store.active, camera, state.step,
+                self.config.base, self.pvg, self.render_config,
+                env_map=state.env_map, training=False)[0]
+        return forward_scene(state.store, self.tracks, camera, state.step,
+                             self.config, self.render_config, training=False,
+                             eval_extras=eval_extras)[0]
+
     def viewer_rgb(self, store, step, c2w, t: float, width: int,
                    height: int) -> torch.Tensor:
-        """The float rgb of a viewer frame of `store`: forward_scene(
-        training=False) of viewer_camera at the trainer's render config,
-        clamped to [0, 1], (H, W, 3) on the device."""
-        with torch.no_grad():
-            outputs, _, _ = forward_scene(
-                store, self.tracks,
-                self.viewer_camera(c2w, t, width, height), step,
-                self.config, self.render_config, training=False)
-            return torch.clamp(outputs["rgb"], 0.0, 1.0)
+        """The float rgb of a viewer frame of `store` (the state's other
+        leaves the trainer's): render_view of viewer_camera, clamped to
+        [0, 1], (H, W, 3) on the device."""
+        state = dataclasses.replace(self.state, store=store, step=step)
+        outputs = self.render_view(self.viewer_camera(c2w, t, width, height),
+                                   state)
+        return torch.clamp(outputs["rgb"], 0.0, 1.0)
 
     def _viewer_render(self, c2w: np.ndarray, t: float, width: int,
                        height: int) -> np.ndarray:
@@ -547,9 +636,7 @@ class Trainer:
     def _eval_one(self, camera, batch, state=None):
         state = self.full_state() if state is None else state
         with torch.no_grad():
-            outputs, _, _ = forward_scene(
-                state.store, self.tracks, camera, state.step,
-                self.config, self.render_config, training=False)
+            outputs = self.render_view(camera, state)
             gt = torch.as_tensor(batch["image"]).to(self.device)
             return {k: float(v) for k, v in (
                 ("psnr", psnr(outputs["rgb"], gt)),

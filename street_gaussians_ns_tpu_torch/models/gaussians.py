@@ -5,13 +5,19 @@ Parameters live in preallocated (CAP, ...) tensors with an `active` mask,
 exactly the JAX package's layout, so its checkpoints load unchanged:
 means raw, scales log (exp activation), quats raw wxyz, opacities logit
 (sigmoid), features_dc (CAP, F, 3) Fourier SH-DC coefficients,
-features_rest (CAP, K-1, 3) higher SH bands. `init_gaussians` builds a
-store from seed points or a random cloud.
+features_rest (CAP, K-1, 3) higher SH bands. A temporal store (the
+Periodic Vibration Gaussian model, models.pvg) adds three leaves: tau
+(CAP, 1) each gaussian's life peak, s_beta (CAP, 1) its log lifespan and
+velocity (CAP, 3) its vibration direction; every other store leaves them
+None, so its leaves, checkpoints and the JAX package's stores are as
+they were. `init_gaussians` builds a store from seed points or a random
+cloud.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -31,14 +37,25 @@ class GaussianParams:
     features_dc: torch.Tensor    # (CAP, F, 3)
     features_rest: torch.Tensor  # (CAP, K-1, 3)
     opacities: torch.Tensor      # (CAP, 1) logit
+    # The temporal leaves (models.pvg); None outside a temporal store.
+    tau: Optional[torch.Tensor] = None        # (CAP, 1) life peak
+    s_beta: Optional[torch.Tensor] = None     # (CAP, 1) log lifespan
+    velocity: Optional[torch.Tensor] = None   # (CAP, 3)
 
     @property
     def capacity(self) -> int:
         return self.means.shape[-2]
 
+    @property
+    def temporal(self) -> bool:
+        return self.tau is not None
+
     def as_dict(self):
+        """The leaves, in field order; a temporal store's three more last,
+        the others' left out."""
         return {f.name: getattr(self, f.name)
-                for f in dataclasses.fields(self)}
+                for f in dataclasses.fields(self)
+                if getattr(self, f.name) is not None}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,20 +95,25 @@ def knn_avg_dist(points: np.ndarray, k: int = 3) -> np.ndarray:
 
 
 def draw_init_noise(n: int, generator: torch.Generator,
-                    device="cuda") -> dict:
+                    device="cuda", temporal: bool = False) -> dict:
     """The uniform draws of one `init_gaussians` call for n gaussians:
-    {"means": (n, 3), "quats": (3, n), "dc": (n, 3)} in [0, 1)."""
+    {"means": (n, 3), "quats": (3, n), "dc": (n, 3)} in [0, 1), and for
+    a temporal store "tau": (n,) after them."""
     def u(*shape):
         return torch.rand(shape, dtype=torch.float32, device=device,
                           generator=generator)
 
-    return {"means": u(n, 3), "quats": u(3, n), "dc": u(n, 3)}
+    out = {"means": u(n, 3), "quats": u(3, n), "dc": u(n, 3)}
+    if temporal:
+        out["tau"] = u(n)
+    return out
 
 
 def init_gaussians(capacity: int, seed_points, seed_colors, *,
                    sh_degree: int = 3, fourier_dim: int = 1,
                    num_random: int = 50000, random_scale: float = 10.0,
                    noise: dict | None = None, seed: int = 0,
+                   temporal: tuple | None = None,
                    device="cuda") -> GaussianStore:
     """A store from SfM/LiDAR seeds ((N, 3) points, (N, 3) colours in
     [0, 255]) or, with seed_points None, from a random cloud, zero-padded
@@ -99,7 +121,11 @@ def init_gaussians(capacity: int, seed_points, seed_colors, *,
     random quaternions, logit(0.1) opacities, the seed colours as SH DC in
     Fourier row 0 (a random cloud takes raw uniform DC). `noise`: see
     draw_init_noise (for min(N or num_random, capacity) gaussians); drawn
-    from a generator seeded with `seed` when None."""
+    from a generator seeded with `seed` when None.
+
+    `temporal` = (t0, t1, lifespan) makes a temporal store (models.pvg):
+    life peaks uniform over [t0, t1] (noise["tau"]), every lifespan
+    `lifespan` (s_beta = log lifespan), zero velocities."""
     if seed_points is not None:
         pts = np.asarray(seed_points, np.float32)
         if pts.shape[0] > capacity:
@@ -113,7 +139,8 @@ def init_gaussians(capacity: int, seed_points, seed_colors, *,
         n = min(num_random, capacity)
     if noise is None:
         noise = draw_init_noise(
-            n, torch.Generator(device=device).manual_seed(seed), device)
+            n, torch.Generator(device=device).manual_seed(seed), device,
+            temporal=temporal is not None)
     f32 = dict(dtype=torch.float32, device=device)
 
     dc_rows = None
@@ -139,11 +166,20 @@ def init_gaussians(capacity: int, seed_points, seed_colors, *,
     quats[:n] = quat.shoemake_quats(noise["quats"].to(**f32))
     active = torch.zeros((capacity,), dtype=torch.bool, device=device)
     active[:n] = True
+    time_leaves = {}
+    if temporal is not None:
+        t0, t1, lifespan = (float(x) for x in temporal)
+        tau = torch.zeros((capacity, 1), **f32)
+        tau[:n, 0] = t0 + (t1 - t0) * noise["tau"].to(**f32)
+        time_leaves = dict(
+            tau=tau, velocity=torch.zeros((capacity, 3), **f32),
+            s_beta=torch.full((capacity, 1), math.log(lifespan), **f32))
     params = GaussianParams(
         means=means, scales=scales, quats=quats, features_dc=features_dc,
         features_rest=torch.zeros(
             (capacity, num_sh_bases(sh_degree) - 1, 3), **f32),
-        opacities=torch.full((capacity, 1), math.log(0.1 / 0.9), **f32))
+        opacities=torch.full((capacity, 1), math.log(0.1 / 0.9), **f32),
+        **time_leaves)
     g, v, m = zeros_stats(capacity, device)
     return GaussianStore(params=params, active=active, xys_grad_norm=g,
                          vis_counts=v, max_2dsize=m)

@@ -118,9 +118,14 @@ def draw_split_noise(config: SplatfactoConfig, cap: int,
 
 
 def refine(store: GaussianStore, step: int, config: SplatfactoConfig,
-           num_train_data: int, max_hw: int, noise: torch.Tensor):
+           num_train_data: int, max_hw: int, noise: torch.Tensor,
+           densify_scale: torch.Tensor | None = None):
     """One refinement pass of one store; call every refine_every steps
-    past warmup. `noise`: see draw_split_noise.
+    past warmup. `noise`: see draw_split_noise. `densify_scale` ((CAP,),
+    PVG's position-aware gamma, models.pvg.densify_scale) multiplies each
+    gaussian's average screen gradient in the densify test. Every leaf of
+    the store reaches the children, a temporal store's tau, s_beta and
+    velocity copied from the parent.
 
     Returns (new_store, surgery, info): surgery = {"keep": (CAP,) bool
     mask of the slots whose Adam moments survive, "reset_opacities": bool,
@@ -137,6 +142,8 @@ def refine(store: GaussianStore, step: int, config: SplatfactoConfig,
 
     vis = torch.clamp(store.vis_counts, min=1.0)
     avg_grad = (store.xys_grad_norm / vis) * 0.5 * max_hw
+    if densify_scale is not None:
+        avg_grad = avg_grad * densify_scale
     high_grads = store.active & (avg_grad > config.densify_grad_thresh)
 
     scale_max = torch.exp(p.scales).amax(dim=-1)
@@ -178,14 +185,12 @@ def refine(store: GaussianStore, step: int, config: SplatfactoConfig,
     def rep(x):
         return torch.repeat_interleave(x, nsamps, dim=0)
 
-    split_children = dict(
-        means=pm(split_means), scales=pm(split_scales),
-        quats=rep(psel.quats), features_dc=rep(psel.features_dc),
-        features_rest=rep(psel.features_rest),
-        opacities=rep(psel.opacities))
+    # Split children: new means and scales; every other leaf copied.
+    split_children = dict(means=pm(split_means), scales=pm(split_scales))
     children = GaussianParams(**{
-        k: torch.cat([split_children[k], getattr(psel, k)])
-        for k in p.as_dict()})
+        k: torch.cat([split_children[k] if k in split_children
+                      else rep(v), v])
+        for k, v in psel.as_dict().items()})
     child_valid = torch.cat([rep(splits_sel), dups_sel])
 
     new_params, new_active, placed, placed_children, n_dropped = \

@@ -6,7 +6,8 @@ Usage:
         --load-dir outputs/run [--output-path outputs/run/eval_output.json] \
         [--device cuda|cpu]
 
-Renders every eval image (forward_scene, training=False), averages PSNR,
+Renders every eval image (`Trainer.render_view`: forward_scene with
+training=False, or the PVG model's forward at the image's time), averages PSNR,
 SSIM and LPIPS (a seeded random-feature VGG unless --lpips-weights names
 an .npz), adds num_rays_per_sec / fps, and writes mean and std to
 eval_output.json in the reference's format (eval.py:56-64, :116-128). A
@@ -24,7 +25,6 @@ import numpy as np
 import torch
 
 from ..engine.setup import eval_setup
-from ..models.scene_graph import forward_scene
 from ..ops.ssim import psnr, ssim
 
 
@@ -41,9 +41,7 @@ def evaluate(trainer, lpips_weights=None, compute_lpips=True):
     rows = []
     for camera, batch in trainer.dm.fixed_indices_eval():
         t0 = time.time()
-        outputs, _, _ = forward_scene(
-            trainer.state.store, trainer.tracks, camera, trainer.state.step,
-            trainer.config, trainer.render_config, training=False)
+        outputs = trainer.render_view(camera, trainer.state)
         outputs["rgb"].cpu()
         dt = time.time() - t0
         gt = torch.as_tensor(batch["image"]).to(trainer.device)
@@ -83,7 +81,8 @@ def _chamfer(trainer, lidar_path=None):
     else:
         from ..data.ply_io import read_ply_points
         pts, _ = read_ply_points(Path(path))
-    store = trainer.state.store.background
+    store = trainer.state.store
+    store = getattr(store, "background", store)     # PVG: the one cloud
     act = store.active.cpu().numpy()
     means = store.params.means.detach().cpu().numpy()[act]
     return evaluate_lidar_geometric(

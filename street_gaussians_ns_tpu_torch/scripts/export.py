@@ -56,11 +56,12 @@ def main(argv=None):
                          device=args.device)
     args.output_dir.mkdir(parents=True, exist_ok=True)
     store = trainer.state.store
+    bg = getattr(store, "background", store)     # PVG: the one cloud
     counts = {"background": export_store(
-        args.output_dir / "point_cloud_background.ply",
-        store.background.params, store.background.active, "background")}
+        args.output_dir / "point_cloud_background.ply", bg.params, bg.active,
+        "background")}
     db = trainer.scene.annotations
-    if db is not None:
+    if db is not None and trainer.pvg is None:
         for i, gid in enumerate(db.track_ids):
             params_i = type(store.objects.params)(**{
                 k: v[i] for k, v in store.objects.params.as_dict().items()})

@@ -24,10 +24,8 @@ import re
 from pathlib import Path
 
 import numpy as np
-import torch
 
 from ..engine.setup import eval_setup
-from ..models.scene_graph import forward_scene
 from ..utils.optional import opencv, pillow_image
 
 DEPTH_NEAR, DEPTH_FAR = 0.0, 3.0
@@ -109,11 +107,8 @@ def main(argv=None):
     args.output_path.mkdir(parents=True, exist_ok=True)
 
     for fi, (camera, batch) in enumerate(loader):
-        with torch.no_grad():
-            outputs, _, _ = forward_scene(
-                trainer.state.store, trainer.tracks, camera,
-                trainer.state.step, trainer.config, trainer.render_config,
-                training=False, eval_extras=True)
+        outputs = trainer.render_view(camera, trainer.state,
+                                      eval_extras=True)
         for name in args.rendered_output_names:
             img8 = head_image(name, outputs, batch)
             if args.output_format == "images":

@@ -7,7 +7,9 @@ Usage:
         [--trainer.max-num-iterations 30000] [--device cuda|cpu]
 
 Every config field is a dotted flag (utils.cli): the data parser's at the
-top level, then --trainer.*, --dm.*, --model.*. Any of --mesh-data,
+top level, then --trainer.*, --dm.*, --model.*. `--method pvg` trains
+the Periodic Vibration Gaussian model (models.pvg; its own fields are
+--pvg.*) on one device instead of the scene graph. Any of --mesh-data,
 --mesh-model or --coordinator trains with the multi-device trainer
 (parallel.trainer.ShardedTrainer) instead: one process per rank, each
 started with the same flags and its own --process-id, all pointing at one
@@ -32,6 +34,7 @@ import torch
 from ..data.datamanager import DataManagerConfig
 from ..data.dataparser import DataParserConfig
 from ..engine.trainer import Trainer, TrainerConfig
+from ..models.pvg import PVGConfig
 from ..models.scene_graph import SceneGraphConfig
 from ..utils.cli import add_dataclass_args, dataclass_from_args
 
@@ -41,6 +44,11 @@ def build_parser() -> argparse.ArgumentParser:
     add_dataclass_args(p, TrainerConfig, prefix="trainer.")
     add_dataclass_args(p, DataManagerConfig, prefix="dm.")
     add_dataclass_args(p, SceneGraphConfig, prefix="model.")
+    p.add_argument("--method", choices=("scene_graph", "pvg"),
+                   default="scene_graph",
+                   help="the model to train (default the scene graph; pvg: "
+                        "Periodic Vibration Gaussians, models.pvg)")
+    add_dataclass_args(p, PVGConfig, prefix="pvg.")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default cuda; cpu runs "
                         "the kernels' plain versions)")
@@ -63,6 +71,11 @@ def main(argv=None):
                dataclass_from_args(DataManagerConfig, args, "dm."))
     sharded = (args.mesh_data is not None or args.mesh_model is not None
                or args.coordinator is not None)
+    pvg = (dataclass_from_args(PVGConfig, args, "pvg.")
+           if args.method == "pvg" else None)
+    if sharded and pvg is not None:
+        raise SystemExit("--method pvg trains on one device: the "
+                         "multi-device trainer trains the scene graph")
     if sharded:
         from ..parallel.trainer import ShardedTrainer
 
@@ -71,7 +84,7 @@ def main(argv=None):
             coordinator=args.coordinator, num_processes=args.num_processes,
             process_id=args.process_id, device=args.device)
     else:
-        trainer = Trainer(*configs, device=args.device)
+        trainer = Trainer(*configs, device=args.device, pvg=pvg)
     trainer.train()
     if sharded:
         torch.distributed.destroy_process_group()

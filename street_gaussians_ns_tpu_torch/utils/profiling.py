@@ -18,7 +18,8 @@ the innermost span open on the same thread (autograd's backward runs on a
 thread of its own on the card). `sync=True` marks a place where the host
 blocks on the card; such a span also counts as a host sync and its host
 time as time waited. `count(name, value)` adds a host number the program
-already holds to a counter, under the same switch (off: one check).
+already holds to a counter, under the same switch (off: one check);
+`recording()` reads the switch, for a counter whose value costs work.
 
 `snapshot()` synchronises and returns, by span name, `count`, `host_ms`,
 `device_ms` (the elapsed device time between the span's two stream
@@ -174,6 +175,12 @@ class _Span:
 def enable(on: bool = True) -> None:
     """Record spans without a profiler session (or stop: False)."""
     _REG.on = bool(on)
+
+
+def recording() -> bool:
+    """Whether spans and counters record now: work done only to feed a
+    counter is skipped when this is False."""
+    return bool(_REG.on or _profiler_enabled())
 
 
 def span(name: str, sync: bool = False):

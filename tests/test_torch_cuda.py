@@ -1391,6 +1391,55 @@ def test_adam_kernel_once_a_train_step(cuda):
 
 
 @pytest.mark.cuda
+def test_pvg_step_on_the_card_matches_the_cpu(cuda):
+    """The PVG model's train step (models.pvg: the temporal transform's
+    Function, kernels A-F, I and J, then K over its ten leaves in one
+    launch) on the card against its CPU path from the same tiny cloud,
+    camera time, target and sky jitter: the loss and every leaf's
+    gradient."""
+    import test_torch_pvg as tp
+    from benchmark import pvg3
+    from street_gaussians_ns_tpu_torch.engine import train_step as ts
+    from street_gaussians_ns_tpu_torch.utils import profiling
+    sc = pvg3.make_scene(tp.SEED, tp.CFG, "cpu")
+    g = 2 * 6 + 3                      # camera 3, frame 3 of tp.CFG's 6
+    got = {}
+    for dev in ("cpu", cuda):
+        state = tp._state({k: v.to(dev) for k, v in sc.items()})
+        cam, _ = tp._cameras(g, dev)
+        total, _, _, _, grads = ts.loss_and_grads(
+            state, cam, tp._batch(g, dev), tp.SPLAT, tp.RCFG,
+            jitter=tp._jitter().to(dev), pvg=tp.PVG)
+        got[str(dev)] = (float(total), {
+            k: v.cpu() for k, v in {**grads["params"],
+                                    "env_map": grads["env_map"]}.items()})
+    (lc, gc), (lg, gg) = got["cpu"], got[str(cuda)]
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for k, b in gc.items():
+        top = float(b.abs().max())
+        assert top > 0, k
+        torch.testing.assert_close(gg[k], b, rtol=1e-4, atol=1e-5 * top,
+                                   msg=lambda m: f"{k}: {m}")
+    state = tp._state({k: v.to(cuda) for k, v in sc.items()})
+    cam, _ = tp._cameras(g, cuda)
+    batch = tp._batch(g, cuda)
+    profiling.reset()
+    profiling.enable(True)
+    try:
+        before = adam.ADAM_KERNEL.launches
+        ts.train_step(state, cam, batch, tp.SPLAT, tp.RCFG,
+                      jitter=tp._jitter().to(cuda), pvg=tp.PVG)
+        assert adam.ADAM_KERNEL.launches == before + 1
+        snap = profiling.snapshot()
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    assert snap["step.adam_leaves"]["total"] == 10
+    assert snap["pvg.temporal"]["device_ms"] > 0
+    assert snap["pvg.temporal_bwd"]["device_ms"] > 0
+
+
+@pytest.mark.cuda
 def test_adam_helper_on_the_card_raises_rather_than_falls_back(cuda):
     """On CUDA tensors the helper launches K or raises: 33 leaves, a
     non-contiguous or a float64 leaf are refused with no launch."""
