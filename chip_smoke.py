@@ -299,6 +299,7 @@ from street_gaussians_ns_tpu_torch.ops import _cuda  # noqa: E402
 from street_gaussians_ns_tpu_torch.ops import adam as adam_kernel  # noqa: E402
 from street_gaussians_ns_tpu_torch.ops import (  # noqa: E402
     composite, expand, scan, segreduce, tiles)
+from street_gaussians_ns_tpu_torch.ops import project as project_kernel  # noqa: E402
 from street_gaussians_ns_tpu_torch.ops import sh_colors as sh_kernel  # noqa: E402
 from street_gaussians_ns_tpu_torch.ops.render import (  # noqa: E402
     RenderConfig, render)
@@ -869,7 +870,8 @@ def phase_main(seed: int, size: Size = FLAGSHIP, dev="cuda"):
     peak = torch.cuda.max_memory_allocated() if dev == "cuda" else None
 
     per_frame = {"flat_scan": 9, "expand_ragged": 6, "pack_feat_cols": 3,
-                 "composite_fwd": 3, "row_trim": 3, "sh_colors": 1}
+                 "composite_fwd": 3, "row_trim": 3, "sh_colors": 1,
+                 "project": 3}
     for name, n in per_frame.items():
         if dev == "cuda" and launches[name] != n * len(cams):
             raise AssertionError(f"{name} launched {launches[name]} times "
@@ -993,7 +995,8 @@ def phase_train(seed: int, tracks, cfg, rcfg, cam, size: Size = FLAGSHIP,
                 "pack_feat_cols": renders, "composite_fwd": renders,
                 "composite_bwd": backwards, "rank_rowsum": backwards,
                 "row_trim": renders, "sh_colors": 2 * len(plan),
-                "sh_colors[bwd]": len(plan), "adam": len(plan)}
+                "sh_colors[bwd]": len(plan), "adam": len(plan),
+                "project": renders + backwards, "project[bwd]": backwards}
     for name, n in expected.items():
         if dev == "cuda" and launches.get(name, 0) != n:
             raise AssertionError(f"train: {name} launched {launches[name]} "
@@ -1052,13 +1055,16 @@ def phase_train(seed: int, tracks, cfg, rcfg, cam, size: Size = FLAGSHIP,
 
 def capture_train(state, tracks, cfg, rcfg, cam, batch):
     """Inputs of kernels E and F in one full-width backward (one step's
-    full render), of kernel I in its binning, of kernel J and of kernel K
-    (the step's Adam groups), with the step's results."""
+    full render), of kernel I in its binning, of kernels J and L (both
+    ways) and of kernel K (the step's Adam groups), with the step's
+    results."""
     jitter = draw_pixel_jitter(cam, state.generator)
     recs = [Recorder(composite, "composite_bwd"),
             Recorder(composite, "rank_rowsum"),
             Recorder(tiles, "_row_trim_counts"),
-            Recorder(sh_kernel, "sh_colors_cuda")]
+            Recorder(sh_kernel, "sh_colors_cuda"),
+            Recorder(project_kernel, "project_cuda"),
+            Recorder(project_kernel, "project_bwd")]
     for r in recs:
         r.__enter__()
     try:
@@ -1074,6 +1080,8 @@ def capture_train(state, tracks, cfg, rcfg, cam, batch):
     calls = {r.name: r.calls for r in recs}
     calls["row_trim[train]"] = calls.pop("_row_trim_counts")
     calls["sh_colors[train]"] = calls.pop("sh_colors_cuda")
+    calls["project[train]"] = calls.pop("project_cuda")
+    calls["project[bwd]"] = calls.pop("project_bwd")
     calls["adam[train]"] = adam_rec.calls
     return calls, jitter, res
 
@@ -1191,10 +1199,9 @@ def phase_stages(store, tracks, cfg, rcfg, cam, reps: int = 5):
     vm = viewmat_from_c2w(cam.c2w)
 
     def proj_fn():
-        p = project(flat["means"], scales, flat["quats"], vm, cam.fx, cam.fy,
-                    cam.cx, cam.cy, cam.width, cam.height, opacities=op)
-        return dataclasses.replace(p, num_tiles_hit=torch.where(
-            active, p.num_tiles_hit, 0), radii=torch.where(active, p.radii, 0))
+        return project(flat["means"], scales, flat["quats"], vm, cam.fx,
+                       cam.fy, cam.cx, cam.cy, cam.width, cam.height,
+                       opacities=op, active=active)
 
     proj = proj_fn()
     colors4 = torch.cat([rgbs, proj.depths[:, None]], dim=-1)
@@ -1799,7 +1806,8 @@ def phase_splatfacto(seed: int, size: Size = FLAGSHIP, dev="cuda"):
             "flat_scan": 3 * len(cams), "expand_ragged": 2 * len(cams),
             "pack_feat_cols": len(cams), "composite_fwd": len(cams),
             "composite_bwd": 0, "rank_rowsum": 0, "row_trim": len(cams),
-            "sh_colors": len(cams), "sh_colors[bwd]": 0})
+            "sh_colors": len(cams), "sh_colors[bwd]": 0,
+            "project": len(cams), "project[bwd]": 0})
     acc_max = []
     for outputs, out in outs:
         for h, v in outputs.items():
@@ -1865,7 +1873,8 @@ def phase_splatfacto(seed: int, size: Size = FLAGSHIP, dev="cuda"):
         check_launches("splatfacto_path train", train_launches, {
             "flat_scan": 9, "expand_ragged": 6, "pack_feat_cols": 3,
             "composite_fwd": 3, "composite_bwd": 3, "rank_rowsum": 3,
-            "row_trim": 3, "sh_colors": 6, "sh_colors[bwd]": 3, "adam": 3})
+            "row_trim": 3, "sh_colors": 6, "sh_colors[bwd]": 3, "adam": 3,
+            "project": 6, "project[bwd]": 3})
     moved = {}
     for k in sts.GAUSSIAN_GROUPS:
         new = getattr(state.store.params, k)
@@ -2053,7 +2062,8 @@ def phase_camopt(seed: int, tracks, cfg, rcfg, size: Size = FLAGSHIP,
             check_launches(f"camopt_path {mode}", launches, {
                 "flat_scan": 9, "expand_ragged": 6, "pack_feat_cols": 3,
                 "composite_fwd": 3, "composite_bwd": 3, "rank_rowsum": 3,
-                "row_trim": 3, "sh_colors": 6, "sh_colors[bwd]": 3})
+                "row_trim": 3, "sh_colors": 6, "sh_colors[bwd]": 3,
+                "project": 6, "project[bwd]": 3})
         cam_opt = state.opt["camera_opt"]
         acc = cam_opt.acc
         stepped = torch.zeros(8, dtype=torch.bool)
@@ -2258,7 +2268,8 @@ def phase_viewer(run: Path, dev="cuda"):
     if cuda:
         for name, per in (("flat_scan", 9), ("expand_ragged", 6),
                           ("pack_feat_cols", 3), ("composite_fwd", 3),
-                          ("row_trim", 3), ("sh_colors", 1)):
+                          ("row_trim", 3), ("sh_colors", 1),
+                          ("project", 3)):
             if launches[name] != per * n:
                 fails.append(f"{name} launched {launches[name]} times for "
                              f"{n} frames of 3 renders")
@@ -2380,10 +2391,11 @@ def phase_viewer(run: Path, dev="cuda"):
 # bf16_path and mesh_path.
 # ---------------------------------------------------------------------------
 
-# The kernels every fused render launches (A-D, the row trim, I, and the
-# SH colour, J), and with those a fused training step's (E, F).
+# The kernels every fused render launches (A-D, the row trim, I, the SH
+# colour, J, and the projection, L), and with those a fused training
+# step's (E, F).
 RENDER_KERNELS = ("flat_scan", "expand_ragged", "pack_feat_cols",
-                  "composite_fwd", "row_trim", "sh_colors")
+                  "composite_fwd", "row_trim", "sh_colors", "project")
 FUSED_KERNELS = RENDER_KERNELS + ("composite_bwd", "rank_rowsum")
 
 
@@ -3913,7 +3925,8 @@ def capture(store, tracks, cfg, rcfg, cam):
     recs = [Recorder(scan, "cumsum_flat"), Recorder(expand, "expand_ragged"),
             Recorder(composite, "pack_feat_cols"),
             Recorder(composite, "composite_fwd"),
-            Recorder(tiles, "_row_trim_counts")]
+            Recorder(tiles, "_row_trim_counts"),
+            Recorder(project_kernel, "project_cuda")]
     for r in recs:
         r.__enter__()
     try:
@@ -3924,6 +3937,7 @@ def capture(store, tracks, cfg, rcfg, cam):
             r.__exit__()
     calls = {r.name: r.calls for r in recs}
     calls["row_trim"] = calls.pop("_row_trim_counts")
+    calls["project"] = calls.pop("project_cuda")
     calls["sh_colors"] = sh_rec.calls
     return calls
 
@@ -4603,8 +4617,237 @@ def _adam_row(calls, train_launches: dict, reps: int, seed: int):
                 device_launches_per_call=per_call, shapes=shapes)
 
 
+def _project_bwd_checks(a: dict, view: bool, got):
+    """Kernel L's backward `got` (d_means, d_scales, d_quats, d_viewmat or
+    None) on one captured call's arguments `a`, held three ways:
+
+    - bit for bit to its specification, the closed form
+      ops.project._project_vjp_plain run on the card in float32 (the view
+      matrix's 12 sums, which the kernel adds in float64 over its blocks
+      and the closed form in float32 by torch.sum, within 1e-6 of their
+      largest entry);
+    - the closed form in float64 against autograd through the plain
+      version in float64, element by element: rtol 1e-9 and atol 1e-12 of
+      the gradient's largest element (both add the same float64 terms in
+      other orders; at 4.6 M slots they lie within 1e-15 of it);
+    - the kernel's float32 error from that float64 gradient no larger than
+      twice autograd's own in float32, plus 1e-9 of the largest element.
+
+    Returns (one record a gradient, the largest |kernel - closed form| over
+    the view matrix's largest entry, autograd's float32 backward as a
+    callable on its kept graph, for timing). The
+    records carry each gradient's median nonzero |g| over its largest, so
+    that the atols are read beside the typical value they sit under (most
+    slots of a step touch no pixel and get exact zeros)."""
+    from street_gaussians_ns_tpu_torch.core.projection import _project_plain
+
+    a = {k: v.detach() if isinstance(v, torch.Tensor) else v
+         for k, v in a.items()}
+    geo = ("means", "scales", "quats", "viewmat", "fx", "fy", "cx", "cy")
+    cots = ("g_xys", "g_depths", "g_conics", "g_comp")
+    frame = (a["width"], a["height"])
+    spec = project_kernel._project_vjp_plain(
+        *(a[k] for k in geo), *frame, a["clip_thresh"],
+        *(a.get(k) for k in cots))
+
+    def autograd(dtype):
+        x = {k: a[k].to(dtype) for k in geo}
+        leaves = [x[k].clone().requires_grad_(True)
+                  for k in ("means", "scales", "quats")]
+        vm = x["viewmat"].clone().requires_grad_(view)
+        pp = _project_plain(*leaves, vm, *(x[k] for k in geo[4:]), *frame,
+                            16, a["clip_thresh"], dtype=dtype)
+        outs = [(o, a[k].to(dtype)) for o, k in zip(
+            (pp.xys, pp.depths, pp.conics, pp.comp), cots)
+            if a.get(k) is not None]
+        return lambda: torch.autograd.grad(  # noqa: E731
+            [o for o, _ in outs], leaves + ([vm] if view else []),
+            [g for _, g in outs], retain_graph=True)
+
+    plain_bwd = autograd(torch.float32)
+    auto, truth = plain_bwd(), autograd(torch.float64)()
+    spec64 = project_kernel._project_vjp_plain(
+        *(a[k].double() for k in geo), *frame, a["clip_thresh"],
+        *(a[k].double() if a.get(k) is not None else None for k in cots))
+    names = ("means", "scales", "quats") + (("viewmat",) if view else ())
+    records, view_err = [], 0.0
+    for i, name in enumerate(names):
+        k, s, w, t, s64 = got[i], spec[i], auto[i], truth[i], spec64[i]
+        fin = torch.isfinite(t)
+        top = float(t[fin].abs().max()) if bool(fin.any()) else 0.0
+        live = t[fin & (t != 0)].abs()
+        med = float(live.median()) / top if live.numel() else 0.0
+        same = (k == s) | (torch.isnan(k) & torch.isnan(s))
+        differ = int((~same).sum())
+        if name == "viewmat":
+            d = float((k - s).abs().max())
+            view_err = max(view_err, d / top if top else d)
+            if d > 1e-6 * top:
+                raise AssertionError(f"project (backward): the view "
+                                     f"matrix's sums {d} from the closed "
+                                     f"form's (largest {top})")
+        elif differ:
+            raise AssertionError(f"project (backward): {differ} elements of "
+                                 f"{name} differ from the closed form's on "
+                                 f"the card")
+        d64 = (s64 - t).abs()
+        bad = fin & (d64 > 1e-9 * t.abs() + 1e-12 * top)
+        if bool(bad.any()) or not torch.equal(torch.isnan(s64),
+                                              torch.isnan(t)):
+            raise AssertionError(f"project (backward): the closed form's "
+                                 f"{name} in float64 lies "
+                                 f"{float(d64[fin].max())} from autograd's "
+                                 f"(largest {top})")
+        ok = fin & torch.isfinite(k) & torch.isfinite(w)
+        e_k = float((k.double() - t)[ok].abs().max()) if bool(
+            ok.any()) else 0.0
+        e_a = float((w.double() - t)[ok].abs().max()) if bool(
+            ok.any()) else 0.0
+        if e_k > 2 * e_a + 1e-9 * top:
+            raise AssertionError(f"project (backward): {name}'s float32 "
+                                 f"error {e_k} over twice autograd's {e_a} "
+                                 f"(largest {top})")
+        records.append(dict(
+            grad=name, largest=top, nonzero=int(live.numel()),
+            median_nonzero_over_largest=med,
+            elements_differing_from_closed_form=differ,
+            closed_form_f64_err_over_largest=(
+                float(d64[fin].max()) / top if top else 0.0),
+            kernel_f32_err_over_largest=e_k / top if top else 0.0,
+            autograd_f32_err_over_largest=e_a / top if top else 0.0))
+    return records, view_err, plain_bwd
+
+
 def _rel(path) -> str:
     return str(Path(path).resolve().relative_to(REPO))
+
+
+def _project_row(calls, launches: dict, train_launches: dict, reps: int):
+    """Kernel L on the arguments the eval frame's three renders and the
+    train step's render handed it (compose's flat set, the exponentiated
+    scales, the opacities, the mask and, in training, the centre offset),
+    and its backward on the step's own cotangents: the forward bit-equal to
+    the plain version's (core.projection._project_plain, the mask and the
+    offset applied as the CPU path applies them); the backward checked by
+    `_project_bwd_checks`; one device launch a call each way; forward and
+    backward times (also behind a busy card), the plain path's both ways,
+    and the bytes bounds (forward: centre 12, scales 12, quaternion 16, opacity 4, mask
+    1 and offset 8 where given read, 52 written; backward: the 40 of the
+    geometry and the cotangents given read, 40 written)."""
+    import dataclasses as dc
+
+    from street_gaussians_ns_tpu_torch.core.projection import _project_plain
+
+    names = ("means", "scales", "quats", "viewmat", "fx", "fy", "cx", "cy",
+             "width", "height", "tile_size", "clip_thresh", "opacities",
+             "active", "xys_offset")
+
+    def plain_fwd(a):
+        p = _project_plain(*(a[k] for k in names[:13]))
+        if a["active"] is not None:
+            p = dc.replace(p, radii=torch.where(a["active"], p.radii, 0),
+                           num_tiles_hit=torch.where(a["active"],
+                                                     p.num_tiles_hit, 0))
+        if a["xys_offset"] is not None:
+            p = dc.replace(p, xys=p.xys + a["xys_offset"])
+        return p
+
+    def same(a, b):
+        return bool(((a == b) | (torch.isnan(a.float())
+                                 & torch.isnan(b.float()))).all())
+
+    tot = dict(ms=0.0, queued_ms=0.0, plain_ms=0.0, bwd_ms=0.0,
+               bwd_queued_ms=0.0, plain_bwd_ms=0.0, fwd_bytes=0.0,
+               bwd_bytes=0.0)
+    shapes, per_call, err, bwd_checks = [], [], 0.0, []
+    for key in ("project", "project[train]"):
+        for args, kw in calls[key]:
+            a = dict(zip(names, args), **kw)
+            a = {k: (v.detach() if isinstance(v, torch.Tensor) else v)
+                 for k, v in a.items()}
+            fwd_args = tuple(a[k] for k in names)
+            fwd = lambda: project_kernel.project_fwd(*fwd_args)  # noqa: E731
+            got, want = fwd(), plain_fwd(a)
+            for f in ("xys", "depths", "radii", "conics", "comp",
+                      "num_tiles_hit", "tile_box"):
+                if not same(getattr(got, f), getattr(want, f)):
+                    raise AssertionError(f"project ({key}): {f} differs from "
+                                         f"the plain version's")
+            n = a["means"].shape[0]
+            per_call.append(_cuda.captured_launches(
+                project_kernel.PROJECT_KERNEL, fwd))
+            one = dict(ms=time_ms(fwd, reps),
+                       queued_ms=time_ms_queued(fwd, reps),
+                       plain_ms=time_ms(lambda: plain_fwd(a), reps))
+            one["fwd_bytes"] = n * (44 + 52 + (a["active"] is not None)
+                                    + 8 * (a["xys_offset"] is not None))
+            for k, v in one.items():
+                tot[k] += v
+            shapes.append(dict(path=key, n=n, width=a["width"],
+                               height=a["height"],
+                               visible=int((got.radii > 0).sum()), **one))
+    for args, kw in calls["project[bwd]"]:
+        bnames = ("means", "scales", "quats", "viewmat", "fx", "fy", "cx",
+                  "cy", "width", "height", "clip_thresh", "g_xys",
+                  "g_depths", "g_conics", "g_comp")
+        a = dict(zip(bnames, args), **kw)
+        view = bool(a.pop("view_grad", False))
+        bargs = tuple(a.get(k) for k in bnames)
+        bwd = lambda: project_kernel.project_bwd(  # noqa: E731
+            *bargs, view_grad=view)
+        checks, e, auto = _project_bwd_checks(a, view, bwd())
+        err = max(err, e)
+        bwd_checks.append(checks)
+        n = a["means"].shape[0]
+        per_call.append(_cuda.captured_launches(
+            project_kernel.PROJECT_KERNEL, bwd))
+        one = dict(bwd_ms=time_ms(bwd, reps),
+                   bwd_queued_ms=time_ms_queued(bwd, reps),
+                   plain_bwd_ms=time_ms(auto, reps))
+        one["bwd_bytes"] = n * (40 + 40 + sum(
+            4 * g.shape[1] if g.dim() == 2 else 4
+            for g in map(a.get, ("g_xys", "g_depths", "g_conics", "g_comp"))
+            if g is not None))
+        for k, v in one.items():
+            tot[k] += v
+        shapes.append(dict(path="project[bwd]", n=n, view_grad=view, **one))
+        del auto
+    if (not calls["project"] or not calls["project[train]"]
+            or not calls["project[bwd]"] or any(c != 1 for c in per_call)):
+        raise AssertionError(f"project: {len(calls['project'])} eval, "
+                             f"{len(calls['project[train]'])} train and "
+                             f"{len(calls['project[bwd]'])} backward calls "
+                             f"made {per_call} device launches, expected "
+                             f"calls of each, 1 launch each")
+    b, by = bound(tot["fwd_bytes"])
+    bb, bby = bound(tot["bwd_bytes"])
+    return dict(name="project", route="cuda",
+                source=_rel(_cuda.CSRC
+                            / project_kernel.PROJECT_KERNEL.source),
+                replaces=project_kernel.PROJECT_KERNEL.replaces,
+                launches=launches["project"],
+                launches_on_train_path=train_launches["project"],
+                backward_launches_on_train_path=train_launches.get(
+                    "project[bwd]", 0),
+                max_abs_err=err,
+                tolerance="forward bit-equal to the plain version; "
+                          "backward bit-equal to the closed form "
+                          "ops.project._project_vjp_plain on the card (the "
+                          "view matrix's block sums within 1e-6 of its "
+                          "largest entry; max_abs_err: the largest "
+                          "difference over that entry), the closed form "
+                          "within 1e-9 relative, 1e-12 of each gradient's "
+                          "largest element, of autograd's in float64, and "
+                          "the kernel's float32 error no more than twice "
+                          "autograd's plus 1e-9 of that element",
+                backward_checks=bwd_checks,
+                ms=tot["ms"], bwd_ms=tot["bwd_ms"],
+                ms_behind_a_busy_card=tot["queued_ms"],
+                bwd_ms_behind_a_busy_card=tot["bwd_queued_ms"],
+                plain_ms=tot["plain_ms"], plain_bwd_ms=tot["plain_bwd_ms"],
+                bound_ms=b, bound_by=by, bwd_bound_ms=bb, bwd_bound_by=bby,
+                library_ms=None, device_launches_per_call=per_call,
+                shapes=shapes)
 
 
 def phase_kernels(calls, launches, train_launches, scan_launches,
@@ -4949,6 +5192,7 @@ def phase_kernels(calls, launches, train_launches, scan_launches,
                           train_launches["row_trim"], reps))
     rows.append(_sh_row(calls, launches, train_launches, reps))
     rows.append(_adam_row(calls, train_launches, reps, seed=0))
+    rows.append(_project_row(calls, launches, train_launches, reps))
     return rows
 
 

@@ -11,6 +11,16 @@ integer outputs (radii, tile boxes, tile counts) agree exactly.
 `coverage_q`, `ellipse_row_xrange` and `row_tile_range` are the shared
 coverage predicate: tile binning enumerates exactly the (gaussian, tile)
 pairs it admits, and the per-pixel oracle tests pixels against it.
+
+`project` on CUDA tensors is kernel L (ops/project.py, one launch
+forward and one backward); CPU tensors run `_project_plain`, which is
+also kernel L's forward specification. The choice is made here, in core,
+because every caller reaches the projection through this one function:
+ops.render, the models' pair-count probes, parallel.sharded and the
+benchmark's Splatfacto step all import core.projection.project, so a
+dispatch anywhere above would leave some of them on the plain version.
+ops.project imports only core.projected (`Projected` and the constants),
+not this module, so the two do not import each other.
 """
 from __future__ import annotations
 
@@ -18,21 +28,9 @@ import dataclasses
 
 import torch
 
-CLIP_THRESH = 0.01  # near clip for projection validity
-BLUR_2D = 0.3       # screen-space blur added to the 2D covariance diagonal
-
-
-@dataclasses.dataclass(frozen=True)
-class Projected:
-    """Screen-space Gaussian attributes, all (N, ...)."""
-
-    xys: torch.Tensor            # (N, 2) pixel-space centers
-    depths: torch.Tensor         # (N,) view-space z
-    radii: torch.Tensor          # (N,) int32 3-sigma radius; 0 = invisible
-    conics: torch.Tensor         # (N, 3) inverse 2D covariance (a, b, c)
-    comp: torch.Tensor           # (N,) blur compensation in [0, 1]
-    num_tiles_hit: torch.Tensor  # (N,) int32 tiles in the tile box
-    tile_box: torch.Tensor       # (N, 4) int32 [x0, x1, y0, y1)
+from ..ops import _cuda
+from ..ops import project as project_kernel
+from .projected import BLUR_2D, CLIP_THRESH, Projected
 
 
 def _floor_int(x: torch.Tensor) -> torch.Tensor:
@@ -155,15 +153,44 @@ def project(
     tile_size: int = 16,
     clip_thresh: float = CLIP_THRESH,
     opacities: torch.Tensor | None = None,
+    active: torch.Tensor | None = None,
+    xys_offset: torch.Tensor | None = None,
 ) -> Projected:
     """Project N Gaussians into screen space. fx..cy are 0-d float32
-    tensors (or floats). `opacities` ((N,) in [0, 1], the values the
-    compositor receives) tightens the tile box to the opacity-aware
-    coverage contour (coverage_q)."""
-    f32 = torch.float32
-    means = means.to(f32)
-    Rwc = viewmat[:3, :3].to(f32)
-    twc = viewmat[:3, 3].to(f32)
+    tensors. `opacities` ((N,) in [0, 1], the values the compositor
+    receives) tightens the tile box to the opacity-aware coverage contour
+    (coverage_q); it is not differentiated. `active` ((N,) bool) zeroes
+    the radius and tile count of the other slots; `xys_offset` ((N, 2))
+    is added to the centres, a hook whose gradient is the centres'.
+
+    Differentiable in means, scales, quats, viewmat and xys_offset. CUDA
+    tensors launch kernel L (ops.project) or raise; CPU tensors run
+    `_project_plain`."""
+    if not _cuda.is_cpu(means, scales, quats, viewmat):
+        return project_kernel.project_cuda(
+            means, scales, quats, viewmat, fx, fy, cx, cy, width, height,
+            tile_size, clip_thresh, opacities, active, xys_offset)
+    proj = _project_plain(means, scales, quats, viewmat, fx, fy, cx, cy,
+                          width, height, tile_size, clip_thresh, opacities)
+    if active is not None:
+        proj = dataclasses.replace(
+            proj, radii=torch.where(active, proj.radii, 0),
+            num_tiles_hit=torch.where(active, proj.num_tiles_hit, 0))
+    if xys_offset is not None:
+        proj = dataclasses.replace(proj, xys=proj.xys + xys_offset)
+    return proj
+
+
+def _project_plain(means, scales, quats, viewmat, fx, fy, cx, cy,
+                   width: int, height: int, tile_size: int = 16,
+                   clip_thresh: float = CLIP_THRESH, opacities=None,
+                   dtype: torch.dtype = torch.float32) -> Projected:
+    """`project` in plain PyTorch, componentwise in the JAX package's
+    order, computed in `dtype` (float32 as `project` runs it; the tests
+    differentiate it in float64 too)."""
+    means = means.to(dtype)
+    Rwc = viewmat[:3, :3].to(dtype)
+    twc = viewmat[:3, 3].to(dtype)
 
     mx, my, mz = means[:, 0], means[:, 1], means[:, 2]
     px_v = Rwc[0, 0] * mx + Rwc[0, 1] * my + Rwc[0, 2] * mz + twc[0]
@@ -172,8 +199,8 @@ def project(
     valid = tz > clip_thresh
     tz_safe = torch.where(valid, tz, torch.ones_like(tz))
 
-    c00, c01, c02, c11, c12, c22 = _cov3d_components(scales.to(f32),
-                                                     quats.to(f32))
+    c00, c01, c02, c11, c12, c22 = _cov3d_components(scales.to(dtype),
+                                                     quats.to(dtype))
 
     tan_fovx = 0.5 * width / fx
     tan_fovy = 0.5 * height / fy
@@ -219,7 +246,7 @@ def project(
     mid = 0.5 * (a + c)
     v1 = mid + torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
     radius_f = torch.ceil(3.0 * torch.sqrt(v1))
-    qv = coverage_q(opacities.to(f32)) if opacities is not None else 9.0
+    qv = coverage_q(opacities.to(dtype)) if opacities is not None else 9.0
     rx = torch.ceil(torch.sqrt(torch.clamp(qv * a, min=1e-8)))
     ry = torch.ceil(torch.sqrt(torch.clamp(qv * c, min=1e-8)))
 

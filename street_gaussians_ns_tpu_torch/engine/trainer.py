@@ -132,10 +132,7 @@ def scene_pair_counts(store, tracks, camera, config: SceneGraphConfig,
     proj = project(flat["means"], torch.exp(flat["scales"]), flat["quats"],
                    viewmat_from_c2w(camera.c2w), camera.fx, camera.fy,
                    camera.cx, camera.cy, camera.width, camera.height,
-                   tile_size=tile_size, opacities=opac)
-    proj = dataclasses.replace(
-        proj, radii=torch.where(active, proj.radii, 0),
-        num_tiles_hit=torch.where(active, proj.num_tiles_hit, 0))
+                   tile_size=tile_size, opacities=opac, active=active)
     return count_pairs(proj, camera.width, camera.height, tile_size,
                        opacities=opac)
 

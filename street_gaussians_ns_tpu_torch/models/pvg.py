@@ -159,10 +159,8 @@ def pair_counts(store: GaussianStore, camera: Camera, pvg: PVGConfig,
     proj = project(means_t, torch.exp(store.params.scales),
                    store.params.quats, viewmat_from_c2w(camera.c2w),
                    camera.fx, camera.fy, camera.cx, camera.cy, camera.width,
-                   camera.height, tile_size=tile_size, opacities=opac)
-    proj = dataclasses.replace(
-        proj, radii=torch.where(store.active, proj.radii, 0),
-        num_tiles_hit=torch.where(store.active, proj.num_tiles_hit, 0))
+                   camera.height, tile_size=tile_size, opacities=opac,
+                   active=store.active)
     return count_pairs(proj, camera.width, camera.height, tile_size,
                        opacities=opac)
 

@@ -113,15 +113,8 @@ def render(
         proj = project(means, scales, quats, vm, camera.fx, camera.fy,
                        camera.cx, camera.cy, camera.width, camera.height,
                        tile_size=config.tile_size,
-                       opacities=opacities.detach())
-        if active is not None:
-            proj = dataclasses.replace(
-                proj,
-                radii=torch.where(active, proj.radii, 0),
-                num_tiles_hit=torch.where(active, proj.num_tiles_hit, 0),
-            )
-        if xys_offset is not None:
-            proj = dataclasses.replace(proj, xys=proj.xys + xys_offset)
+                       opacities=opacities.detach(), active=active,
+                       xys_offset=xys_offset)
     with span("render.rasterize"):
         colors4 = torch.cat([rgbs, proj.depths[:, None]], dim=-1)
         background = torch.zeros((4,), dtype=torch.float32,

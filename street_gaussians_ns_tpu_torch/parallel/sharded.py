@@ -200,13 +200,10 @@ def sharded_scene_loss(mesh: Mesh, gauss: Dict, env, bbox: Dict,
     vm = viewmat_from_c2w(camera.c2w)
 
     def project_set(means, scales_log, quats, active, xys_off, op):
-        pr = project(means, torch.exp(scales_log), quats, vm, camera.fx,
-                     camera.fy, camera.cx, camera.cy, width, height,
-                     tile_size=ts, opacities=op.detach())
-        return dataclasses.replace(
-            pr, xys=pr.xys + xys_off,
-            radii=torch.where(active, pr.radii, 0),
-            num_tiles_hit=torch.where(active, pr.num_tiles_hit, 0))
+        return project(means, torch.exp(scales_log), quats, vm, camera.fx,
+                       camera.fy, camera.cx, camera.cy, width, height,
+                       tile_size=ts, opacities=op.detach(), active=active,
+                       xys_offset=xys_off)
 
     # Background: this rank's shard, projected, then all-gathered.
     sig = torch.sigmoid(bg["opacities"][:, 0])

@@ -42,6 +42,7 @@ import torch
 
 from street_gaussians_ns_tpu_torch.core.cameras import Camera, viewmat_from_c2w
 from street_gaussians_ns_tpu_torch.core.projection import (_floor_int,
+                                                          _project_plain,
                                                           coverage_q,
                                                           project)
 from street_gaussians_ns_tpu_torch.core.sh import eval_sh
@@ -50,12 +51,14 @@ from street_gaussians_ns_tpu_torch.engine import optimizers as opt
 from street_gaussians_ns_tpu_torch.ops import (_cuda, adam, composite, expand,
                                                scan, segreduce, sh_colors,
                                                tiles)
+from street_gaussians_ns_tpu_torch.ops import project as project_kernel
 from street_gaussians_ns_tpu_torch.ops.tiles import bin_and_pack
 from test_torch_redesign_df import F_CASES, _case, ranksum_model
 from test_torch_redesign_gh import (G_CASES, g_case, h_rows, rowscan_model,
                                     segsum_model)
 from sh_cases import inputs as sh_inputs, k_order as sh_k_order
 from trim_cases import table as trim_table
+import project_cases as proj_cases
 
 
 @pytest.fixture
@@ -874,7 +877,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 def test_library_is_keyed_by_the_sources():
 
     paths = {k.library_path() for k in _cuda.KERNELS}
-    assert len(paths) == len(_cuda.KERNELS) == 11
+    assert len(paths) == len(_cuda.KERNELS) == 12
     for k in _cuda.KERNELS:
         p = k.library_path()
         assert p.parent == _cuda.BUILD_DIR and p.suffix == ".so"
@@ -1495,3 +1498,362 @@ def test_adam_wrapper_raises_on_bad_input(bad, error, match):
     with pytest.raises(error, match=match):
         adam.adam_leaves(fix[bad]())
     assert adam.ADAM_KERNEL.launches == before
+
+
+# ---------------------------------------------------------------------------
+# Kernel L: the projection in one launch forward and one backward.
+# ---------------------------------------------------------------------------
+
+PROJ_FIELDS = ("xys", "depths", "radii", "conics", "comp", "num_tiles_hit",
+               "tile_box")
+# Kernel L's backward is held to its specification, the closed form
+# ops.project._project_vjp_plain run on the card in float32, bit for bit
+# (the view matrix's 12 sums, which the kernel adds in float64 over its
+# blocks and the closed form in float32, within PROJ_VIEW_ATOL of their
+# largest entry); the closed form in float64 to autograd's float64 gradient
+# through the plain version at rtol 1e-9, atol 1e-12 of the largest element
+# (the same float64 terms in other orders: within 1e-15 of it at 4.6 M
+# slots); and the kernel's float32 error from that gradient to twice
+# autograd's own in float32, plus 1e-9 of the largest element.
+# Beside those, the kernel against autograd in float32 at rtol 1e-4 with
+# atol 2e-4 of each gradient's largest element: a coarse check, since the
+# two add the same terms in other orders and, where a slot's terms cancel
+# (scales and quaternions of slots at the frustum clamp or the near clip,
+# and at scale slots far off the frustum), either lies further from the
+# float64 gradient than the slot's own largest value.
+PROJ_VIEW_ATOL = 1e-6
+PROJ_RTOL, PROJ_ATOL = 1e-4, 2e-4
+
+
+def _proj_args(inputs, opacities=True):
+    means, scales, quats, opac, vm, fx, fy, cx, cy = inputs
+    return (means, scales, quats, vm, fx, fy, cx, cy, proj_cases.WIDTH,
+            proj_cases.HEIGHT, 16, 0.01, opac if opacities else None)
+
+
+def _proj_same(got, want):
+    for f in PROJ_FIELDS:
+        assert _same(getattr(got, f), getattr(want, f)), f
+
+
+def _proj_grads(args, keep, cotangents, view=True, kernel=True,
+                dtype=torch.float32):
+    """(means, scales, quats[, viewmat]) gradients of kernel L or of
+    autograd through the plain version (in `dtype`, the inputs cast to
+    it), for the given cotangents of (xys, depths, conics, comp) on the
+    slots `keep`."""
+    means, scales, quats, vm, fx, fy, cx, cy, w, h, ts, clip, op = args
+    up = lambda t: t.to(dtype) if t is not None else None  # noqa: E731
+    leaves = [up(t).clone().requires_grad_(True)
+              for t in (means, scales, quats)]
+    vm_leaf = up(vm).clone().requires_grad_(view)
+    fx, fy, cx, cy, op = map(up, (fx, fy, cx, cy, op))
+    if kernel:
+        p = project(*leaves, vm_leaf, fx, fy, cx, cy, w, h, ts, clip, op)
+    else:
+        p = _project_plain(*leaves, vm_leaf, fx, fy, cx, cy, w, h, ts, clip,
+                           op, dtype=dtype)
+    k = keep.to(dtype)
+    outs = [p.xys, p.depths, p.conics, p.comp]
+    g = [up(c) * k.reshape((-1,) + (1,) * (c.dim() - 1))
+         for c in cotangents]
+    return torch.autograd.grad(outs, leaves + ([vm_leaf] if view else []), g)
+
+
+def _cotangents(n, dev, seed=1):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(s, device=dev, generator=gen)
+            for s in ((n, 2), (n,), (n, 3), (n,))]
+
+
+def _proj_spec(args, keep, cotangents, dtype=torch.float32):
+    """(means, scales, quats, viewmat) gradients of the closed form
+    (ops.project._project_vjp_plain) in `dtype`, the inputs cast to it,
+    for the same cotangents on the slots `keep` as `_proj_grads`."""
+    means, scales, quats, vm, fx, fy, cx, cy, w, h, ts, clip, op = args
+    k = keep.to(dtype)
+    g = [c.to(dtype) * k.reshape((-1,) + (1,) * (c.dim() - 1))
+         for c in cotangents]
+    return project_kernel._project_vjp_plain(
+        *(t.to(dtype) for t in (means, scales, quats, vm, fx, fy, cx, cy)),
+        w, h, clip, *g)
+
+
+def _grads_close(got, spec, want, truth, spec64, keep):
+    """The kernel's gradients `got` bit-equal to the closed form's `spec`
+    (the view matrix's within PROJ_VIEW_ATOL of its largest entry); against
+    autograd's `want` at PROJ_RTOL / PROJ_ATOL, NaN where autograd's rules
+    give NaN and nowhere else (sqrt's g / 0 at a compensation of exactly 0
+    that the clamp passes: a needle of det_nonpositive whose a c rounds to
+    b^2); no further from the float64 `truth` than twice autograd's own
+    error plus 1e-9 of the largest element; and the closed form in float64
+    `spec64` (None: not compared) within rtol 1e-9, atol 1e-12 of the
+    largest element of `truth`, element by element."""
+    for name, a, s, b, t, s64 in zip(
+            ("means", "scales", "quats", "viewmat"), got, spec, want, truth,
+            spec64 if spec64 is not None else (None,) * 4):
+        rows = b if name == "viewmat" else b[keep]
+        fin = torch.isfinite(rows)
+        assert torch.equal(torch.isnan(a), torch.isnan(b)), name
+        assert bool(fin.any()), name
+        top = float(rows[fin].abs().max())
+        if name == "viewmat":
+            torch.testing.assert_close(a, s, rtol=0,
+                                       atol=PROJ_VIEW_ATOL * top,
+                                       equal_nan=True,
+                                       msg=lambda m: f"{name}: {m}")
+        else:
+            assert _same(a, s), (name, int((a != s).sum()))
+        torch.testing.assert_close(a, b, rtol=PROJ_RTOL,
+                                   atol=PROJ_ATOL * top, equal_nan=True,
+                                   msg=lambda m: f"{name}: {m}")
+        ok = torch.isfinite(b) & torch.isfinite(t)
+        if name != "viewmat":
+            ok &= keep.reshape((-1,) + (1,) * (b.dim() - 1))
+        if bool(ok.any()):
+            e_k = float((a.double() - t)[ok].abs().max())
+            e_a = float((b.double() - t)[ok].abs().max())
+            assert e_k <= 2 * e_a + 1e-9 * top, (name, e_k, e_a, top)
+        if s64 is not None:
+            torch.testing.assert_close(s64, t, rtol=1e-9, atol=1e-12 * top,
+                                       equal_nan=True,
+                                       msg=lambda m: f"{name} f64: {m}")
+
+
+def _proj_checked(args, keep, cot, float64_spec=True):
+    """`_grads_close` on kernel L's gradients for the cotangents `cot`."""
+    _grads_close(_proj_grads(args, keep, cot), _proj_spec(args, keep, cot),
+                 _proj_grads(args, keep, cot, kernel=False),
+                 _proj_grads(args, keep, cot, kernel=False,
+                             dtype=torch.float64),
+                 _proj_spec(args, keep, cot, torch.float64)
+                 if float64_spec else None, keep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opacities", [True, False],
+                         ids=["opacities", "q9"])
+@pytest.mark.parametrize("case", proj_cases.CASES)
+def test_project_kernel_forward_matches_plain(cuda, case, opacities):
+    """Every output of kernel L equals the plain version's on the card bit
+    for bit, on every branch (tests/project_cases.py), with the opacity-
+    aware box and without (q = 9); one launch a call."""
+    args = _proj_args(proj_cases.inputs(case, device=cuda), opacities)
+    k = project_kernel.PROJECT_KERNEL
+    before = k.launches
+    got = project(*args)
+    assert k.launches == before + 1
+    _proj_same(got, _project_plain(*args))
+
+
+def _scene_at_scale(which, dev, seed=7):
+    """One camera's projection arguments over a benchmark scene's every
+    slot: scene_graph_1m (2^20 + 4 x 2^15) down the corridor, or
+    scene_graph_waymo3's street (2^22 + 12 x 2^15 = 4,587,520) from its
+    first front image; inactive slots hold zeros."""
+    import json
+    from pathlib import Path
+
+    from benchmark import scene as bscene, waymo3
+    root = Path(__file__).resolve().parents[1] / "benchmark" / "configs"
+    if which == "flagship":
+        cfg = json.loads((root / "scene_graph_1m.json").read_text())
+        st = bscene.make_scene(seed, cfg, dev)
+        c2w = bscene.clip_poses(4)[3]
+    else:
+        cfg = json.loads((root / "scene_graph_waymo3.json").read_text())
+        st = waymo3.make_scene(seed, cfg, dev)
+        c2w = waymo3.c2w(cfg, 0)
+
+    def cat(k):
+        bg = st[f"bg/{k}"]
+        return torch.cat([bg, st[f"obj/{k}"].reshape((-1,) + bg.shape[1:])])
+
+    op = torch.where(cat("active"), torch.sigmoid(cat("opacities")[:, 0]),
+                     torch.zeros((), device=dev))
+    cam = Camera.make(1200.0, 1200.0, 800.0, 528.0, c2w, 1600, 1056,
+                      device=dev)
+    return (cat("means"), torch.exp(cat("scales")), cat("quats"),
+            viewmat_from_c2w(cam.c2w), cam.fx, cam.fy, cam.cx, cam.cy,
+            1600, 1056, 16, 0.01, op)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["flagship", "waymo3"])
+def test_project_kernel_at_scale(cuda, which):
+    """A whole benchmark scene: the forward bit-equal to the plain
+    version's, the backward (every cotangent on every slot) bit-equal to
+    the closed form's and within the stated tolerances of autograd's, in
+    one device launch each way."""
+    args = _scene_at_scale(which, cuda)
+    n = args[0].shape[0]
+    _proj_same(project(*args), _project_plain(*args))
+    keep = torch.ones(n, dtype=torch.bool, device=cuda)
+    cot = _cotangents(n, cuda)
+    _proj_checked(args, keep, cot)
+    k = project_kernel.PROJECT_KERNEL
+    assert _cuda.captured_launches(k, lambda: project(*args)) == 1
+    assert _cuda.captured_launches(k, lambda: project_kernel.project_bwd(
+        *args[:10], 0.01, *cot)) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", proj_cases.CASES)
+def test_project_kernel_backward_matches_autograd(cuda, case):
+    """Kernel L's backward against its closed form and autograd through
+    the plain version on the card, the view matrix and the compensation
+    included, at the stated tolerances; the slots
+    tests/project_cases.compared names."""
+    args = _proj_args(proj_cases.inputs(case, device=cuda))
+    keep = proj_cases.compared(case, _project_plain(*args))
+    cot = _cotangents(args[0].shape[0], cuda)
+    # det_nonpositive's needles have det <= 0 only in float32 (the blur is
+    # lost to the rounding of a' c'); cast to float64 their det is positive
+    # and ill-conditioned, so the closed form is held to autograd in
+    # float64 there on needles made in float64, by the CPU tests.
+    _proj_checked(args, keep, cot,
+                  float64_spec=case != "det_nonpositive")
+
+
+@pytest.mark.cuda
+def test_project_kernel_camera_opt_gradient(cuda):
+    """camera_opt_mode="SO3xR3": the pose tangent's gradient through the
+    view matrix (kernel L's two-pass sum over the blocks) against
+    autograd through the plain version, and the same bits twice."""
+    from benchmark import scene as bscene
+    from street_gaussians_ns_tpu_torch.models.camera_opt import (
+        CameraOptConfig, apply_camera_opt)
+    args = _scene_at_scale("flagship", cuda)
+    means, scales, quats, _, fx, fy, cx, cy, w, h, ts, clip, op = args
+    c2w = torch.tensor(np.asarray(bscene.clip_poses(4)[3]), device=cuda)
+    conf = CameraOptConfig(mode="SO3xR3", num_cameras=2)
+    n = means.shape[0]
+    cot = _cotangents(n, cuda)
+    got = []
+    for proj_fn in (project, project, _project_plain):
+        tangent = torch.full((2, 6), 1e-3, device=cuda, requires_grad=True)
+        vm = viewmat_from_c2w(apply_camera_opt(conf, tangent, 1, c2w))
+        p = proj_fn(means, scales, quats, vm, fx, fy, cx, cy, w, h, ts, clip,
+                    op)
+        got.append(torch.autograd.grad([p.xys, p.depths, p.conics, p.comp],
+                                       tangent, cot)[0])
+    assert _bits(got[0], got[1])
+    torch.testing.assert_close(got[0], got[2], rtol=1e-3,
+                               atol=1e-4 * float(got[2].abs().max()))
+
+
+@pytest.mark.cuda
+def test_project_kernel_launches_and_host_syncs(cuda):
+    """One launch forward and one backward by the counter (mode "bwd"),
+    one device launch each way (two backward when the view matrix is
+    differentiated: the blocks' partials, then their sum), and no host
+    synchronisation on the way (torch.cuda.set_sync_debug_mode)."""
+    args = _proj_args(proj_cases.inputs("in_view", n=3000, device=cuda))
+    means, scales, quats, vm, *rest = args
+    leaves = [t.clone().requires_grad_(True) for t in (means, scales, quats,
+                                                       vm)]
+    k = project_kernel.PROJECT_KERNEL
+    before, before_bwd = k.launches, k.mode_launches.get("bwd", 0)
+    cot = _cotangents(means.shape[0], cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        p = project(*leaves, *rest)
+        grads = torch.autograd.grad([p.xys, p.depths, p.conics], leaves,
+                                    cot[:3])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert k.launches == before + 2
+    assert k.mode_launches.get("bwd", 0) == before_bwd + 1
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    assert _cuda.captured_launches(k, lambda: project_kernel.project_bwd(
+        *args[:10], 0.01, *cot)) == 1
+    assert _cuda.captured_launches(k, lambda: project_kernel.project_bwd(
+        *args[:10], 0.01, *cot, view_grad=True)) == 2
+
+
+@pytest.mark.cuda
+def test_project_kernel_repeats_bit_for_bit(cuda):
+    """Two runs of the forward and of the backward, the view matrix's sum
+    over 4.6 M slots included, give the same bits."""
+    args = _scene_at_scale("waymo3", cuda)
+    n = args[0].shape[0]
+    keep = torch.ones(n, dtype=torch.bool, device=cuda)
+    cot = _cotangents(n, cuda)
+    a, b = project(*args), project(*args)
+    for f in PROJ_FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32)), f
+    ga, gb = _proj_grads(args, keep, cot), _proj_grads(args, keep, cot)
+    assert all(_bits(x, y) for x, y in zip(ga, gb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_from,cols", [(1, 8), (3, 11)])
+def test_project_kernel_on_views(cuda, rows_from, cols):
+    """Row views of wider tables (as compose's flat set is sliced) and
+    strided cotangents (the depth's is a column of the colours' gradient)
+    give the same bits as contiguous copies, with the mask and the offset
+    folded in as ops.render applies them."""
+    means, scales, quats, opac, vm, fx, fy, cx, cy = proj_cases.inputs(
+        "in_view", n=2000, device=cuda)
+    n = means.shape[0]
+    active = torch.arange(n, device=cuda) % 5 != 0
+    off = torch.randn((n, 2), device=cuda)
+    colors = torch.randn((n, 4), device=cuda, generator=torch.Generator(
+        device=cuda).manual_seed(3))
+
+    def wide(t):
+        tab = torch.zeros((rows_from + n, cols), device=cuda)
+        tab[rows_from:, :t.shape[1]] = t
+        tab.requires_grad_(True)
+        return tab, tab[rows_from:, :t.shape[1]]
+
+    def dense(t):
+        leaf = t.clone().requires_grad_(True)
+        return leaf, leaf
+
+    def run(make):
+        leaves, used = zip(*(make(t) for t in (means, scales, quats)))
+        p = project(*used, vm, fx, fy, cx, cy, proj_cases.WIDTH,
+                    proj_cases.HEIGHT, opacities=opac, active=active,
+                    xys_offset=off)
+        g = torch.autograd.grad(
+            [p.xys, torch.cat([p.conics, p.depths[:, None]], 1)], leaves,
+            [torch.ones_like(p.xys), colors])
+        return p, [gi[-n:, :t.shape[1]] for gi, t in zip(g, used)]
+
+    p_view, g_view = run(wide)
+    p_dense, g_dense = run(dense)
+    _proj_same(p_view, p_dense)
+    plain = _project_plain(means, scales, quats, vm, fx, fy, cx, cy,
+                           proj_cases.WIDTH, proj_cases.HEIGHT, opacities=opac)
+    assert _same(p_dense.xys, plain.xys + off)
+    assert _same(p_dense.radii, torch.where(active, plain.radii, 0))
+    assert _same(p_dense.num_tiles_hit,
+                 torch.where(active, plain.num_tiles_hit, 0))
+    assert all(_bits(a, b) for a, b in zip(g_view, g_dense))
+
+
+@pytest.mark.cuda
+def test_project_kernel_in_the_train_step(cuda):
+    """The main path: a scene-graph train step projects once through
+    kernel L and differentiates it once (span render.project_bwd, on
+    autograd's thread), with nothing of the plain version's graph."""
+    import test_torch_tracing as tt
+    from street_gaussians_ns_tpu_torch.utils import profiling
+    scene, batch = tt._scene("cuda"), tt._batch("cuda")
+    k = project_kernel.PROJECT_KERNEL
+    profiling.reset()
+    profiling.enable(True)
+    try:
+        before, before_bwd = k.launches, k.mode_launches.get("bwd", 0)
+        tt._scene_step(scene, batch)
+        snap = profiling.snapshot()
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    assert k.launches == before + 2
+    assert k.mode_launches.get("bwd", 0) == before_bwd + 1
+    assert snap["render.project_bwd"]["count"] == 1
+    assert snap["render.project_bwd"]["device_ms"] > 0
