@@ -1762,6 +1762,90 @@ def splat_reference(seed: int, devices=("cpu", "cuda")) -> dict:
     return dict(max_err=errs, refine=want["info"])
 
 
+def phase_deform4d(seed: int, slots: int = 2 ** 16, dev="cuda"):
+    """The 4DGS deformation field (models.deform4d) at the configuration's
+    widths (Deform4DConfig's defaults: 32 channels, scales 1, 2, 4, 43
+    time cells, a 96-64 decoder) over `slots` centres: its forward and
+    backward on `dev` against the CPU's plain path from the same inputs
+    (dX, ds, dr and the centres', planes' and decoder's gradients, to
+    float32 rounding and the planes' atomic adds), the times of both
+    directions, and the three spans and the samples counter read under
+    the recorder (non-null on the card)."""
+    from street_gaussians_ns_tpu_torch.models import deform4d as d4
+    from street_gaussians_ns_tpu_torch.utils import profiling
+
+    t_start = time.perf_counter()
+    cfg = d4.Deform4DConfig()
+    g = torch.Generator().manual_seed(seed + 44)
+    aabb = torch.tensor([[-20.0, -3.0, -120.0], [20.0, 12.0, 5.0]])
+    field = d4.init_field(cfg, aabb, torch.tensor([0.0, 8.4]), g, "cpu")
+    field["planes"] = field["planes"] + 0.05 * torch.randn(
+        field["planes"].shape, generator=g)
+    means = aabb[0] + torch.rand((slots, 3), generator=g) * (aabb[1] - aabb[0])
+    params = SimpleNamespace(means=means, scales=torch.zeros(slots, 3),
+                             quats=torch.zeros(slots, 4))
+    cot = [torch.randn((slots, k), generator=g) for k in (3, 3, 4)]
+
+    def run(device):
+        f = {k: v.to(device) for k, v in field.items()}
+        p = SimpleNamespace(**{k: getattr(params, k).to(device)
+                               for k in ("means", "scales", "quats")})
+        leaves = [p.means.requires_grad_(True),
+                  f["planes"].requires_grad_(True),
+                  f["decoder"].requires_grad_(True)]
+        out = d4.deform(p, f, torch.tensor(3.3, device=device), cfg)
+        outs = [out[0] - p.means, out[1], out[2]]
+        grads = torch.autograd.grad(outs, leaves,
+                                    [c.to(device) for c in cot])
+        return [o.detach().cpu() for o in outs], [x.cpu() for x in grads]
+
+    want_o, want_g = run("cpu")
+    got_o, got_g = run(dev)
+    errs = {}
+    for name, x, y in zip(("dX", "ds", "dr"), got_o, want_o):
+        errs[name] = float((x - y).abs().max()) / float(y.abs().max())
+    for name, x, y in zip(("means", "planes", "decoder"), got_g, want_g):
+        errs["grad_" + name] = float((x - y).abs().max()) / float(
+            y.abs().max())
+    ok = all(v < 1e-4 for v in errs.values())
+    spans, ms = {}, {}
+    if dev == "cuda":
+        f = {k: v.to(dev) for k, v in field.items()}
+        p = SimpleNamespace(means=params.means.to(dev).requires_grad_(True),
+                            scales=params.scales.to(dev),
+                            quats=params.quats.to(dev))
+        leaves = [p.means, f["planes"].requires_grad_(True),
+                  f["decoder"].requires_grad_(True)]
+        t = torch.tensor(3.3, device=dev)
+        c = [x.to(dev) for x in cot]
+
+        def fwd():
+            with torch.no_grad():
+                return d4.deform(p, f, t, cfg)
+
+        def both():
+            torch.autograd.grad(d4.deform(p, f, t, cfg), leaves, c)
+        ms = {"forward": time_ms(fwd, 5), "forward_backward": time_ms(both, 5)}
+        profiling.reset()
+        profiling.enable(True)
+        try:
+            both()
+            snap = profiling.snapshot()
+        finally:
+            profiling.enable(False)
+            profiling.reset()
+        spans = {k: snap.get(k, {}).get("device_ms") for k in (
+            "deform4d.field", "deform4d.decode", "deform4d.field_bwd")}
+        spans["deform4d.samples"] = snap.get("deform4d.samples",
+                                             {}).get("total")
+        ok = ok and all(v for v in spans.values())
+    emit("deform4d_path", ok=ok, slots=slots, rel_err=errs, ms=ms,
+         spans=spans, seconds=time.perf_counter() - t_start)
+    if not ok:
+        raise AssertionError(f"deform4d_path: errors {errs}, spans {spans}")
+    return errs
+
+
 def phase_splatfacto(seed: int, size: Size = FLAGSHIP, dev="cuda"):
     """The single-model pipeline at full width: the flagship's background
     alone (size.bg gaussians, SH degree 3, Fourier dim 1, the sky cubemap)
@@ -5229,6 +5313,7 @@ def main():
     splat = phase_splatfacto(args.seed)
     new_paths["splatfacto_path[eval]"] = splat["eval"]
     new_paths["splatfacto_path[train]"] = splat["train"]
+    phase_deform4d(args.seed)
     new_paths["camopt_path[SE3]"] = phase_camopt(args.seed, tracks, cfg,
                                                  rcfg, train_ms=train_ms)
     new_paths["bf16_path"] = phase_bf16(args.seed, tracks, cfg, rcfg)

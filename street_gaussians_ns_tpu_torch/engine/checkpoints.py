@@ -23,7 +23,10 @@ The single-cloud state (engine.train_step.TrainState, the PVG model's)
 saves its cloud as the background ("store/background/params/...", a
 temporal cloud's tau, s_beta and velocity among them), its sky as
 "store/env_map" and each Adam group under "opt/<group>/{mu,nu,count}";
-`restore_checkpoint` reads it back into a target of that type.
+a 4DGS state's deformation field (models.deform4d) is saved under
+"store/field/{planes,decoder,aabb,time_span}" and its two groups as
+"opt/field_planes", "opt/field_decoder". `restore_checkpoint` reads it
+back into a target of that type.
 
 The JAX package's arrays also cross on their own: `store_from_numpy` /
 `tracks_from_numpy` build a SceneGraphStore / ObjectTracks from a JAX
@@ -225,6 +228,8 @@ def _state_leaves(state) -> Iterator[Tuple[str, torch.Tensor]]:
             yield f"store/{prefix}/{name}", getattr(part, name)
     yield from walk("store/env_map",
                     state.env_map if single else store.env_map)
+    if single:
+        yield from walk("store/field", state.field)
     for name in () if single else BBOX_PARAMS:
         yield f"store/{name}", getattr(store, name)
     for name, s in state.opt.items():
@@ -315,11 +320,15 @@ def _single_train_state(arrays, target: TrainState,
         mu=_tensor(arrays, f"opt/{name}/mu", device, f32),
         nu=_tensor(arrays, f"opt/{name}/nu", device, f32),
         count=int(arrays[f"opt/{name}/count"])) for name in target.opt}
+    field = None
+    if target.field is not None:
+        field = {k: _tensor(arrays, f"store/field/{k}", device, f32)
+                 for k in target.field}
     return TrainState(
         store=_gaussian_store(_sub(arrays, "store/"), "background", device),
         env_map=(_tensor(arrays, "store/env_map", device, f32)
                  if target.env_map is not None else None),
-        opt=opt, step=int(arrays["step"]), generator=generator)
+        opt=opt, step=int(arrays["step"]), generator=generator, field=field)
 
 
 def checkpoint_extra(path: Path, prefix: str) -> Dict[str, np.ndarray]:

@@ -288,3 +288,12 @@ PVG_GROUPS: Dict[str, AdamConfig] = {
     "s_beta": AdamConfig(lr=2e-3),
     "velocity": AdamConfig(lr=1e-3),
 }
+
+# The two groups of the 4D Gaussian Splatting field (models.deform4d), one
+# flat Adam leaf each: 4DGS's grid and deformation learning rates (arXiv:
+# 2310.08528 sec. 4.1), each decaying tenfold over the port's 30,000
+# steps.
+DEFORM4D_GROUPS: Dict[str, AdamConfig] = {
+    "field_planes": AdamConfig(lr=1.6e-3, lr_final=1.6e-4, max_steps=30000),
+    "field_decoder": AdamConfig(lr=1.6e-4, lr_final=1.6e-5, max_steps=30000),
+}

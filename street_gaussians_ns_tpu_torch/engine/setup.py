@@ -6,8 +6,10 @@ datamanager configs in the JAX package's schema (the device is not part
 of it), and each package reads only the fields of its own dataclasses, so
 either package loads the other's run directory. A run of the PVG model
 (models.pvg) adds a "pvg" section, which only the port reads
-(`load_pvg_config`). `eval_setup(run_dir)` rebuilds the trainer from it
-and restores the latest (or a given) checkpoint.
+(`load_pvg_config`), and a run of 4D Gaussian Splatting (models.deform4d)
+a "deform4d" section (`load_deform4d_config`). `eval_setup(run_dir)`
+rebuilds the trainer from it and restores the latest (or a given)
+checkpoint.
 """
 from __future__ import annotations
 
@@ -53,7 +55,7 @@ def _from_jsonable(cls, data):
 
 
 def save_run_config(run_dir: Path, data_config, scene_config, trainer_config,
-                    dm_config, pvg=None) -> Path:
+                    dm_config, pvg=None, deform4d=None) -> Path:
     run_dir = Path(run_dir)
     run_dir.mkdir(parents=True, exist_ok=True)
     out = run_dir / "config.json"
@@ -65,6 +67,8 @@ def save_run_config(run_dir: Path, data_config, scene_config, trainer_config,
     }
     if pvg is not None:
         cfg["pvg"] = _to_jsonable(pvg)
+    if deform4d is not None:
+        cfg["deform4d"] = _to_jsonable(deform4d)
     with open(out, "w") as f:
         json.dump(cfg, f, indent=2)
     return out
@@ -84,13 +88,25 @@ def load_run_config(run_dir: Path):
             _from_jsonable(DataManagerConfig, cfg["dm"]))
 
 
-def load_pvg_config(run_dir: Path):
-    """The run's models.pvg.PVGConfig, None for a scene-graph run."""
-    from ..models.pvg import PVGConfig
-
+def _section(run_dir: Path, name: str, cls):
     with open(Path(run_dir) / "config.json") as f:
         cfg = json.load(f)
-    return _from_jsonable(PVGConfig, cfg["pvg"]) if "pvg" in cfg else None
+    return _from_jsonable(cls, cfg[name]) if name in cfg else None
+
+
+def load_pvg_config(run_dir: Path):
+    """The run's models.pvg.PVGConfig, None for another model's run."""
+    from ..models.pvg import PVGConfig
+
+    return _section(run_dir, "pvg", PVGConfig)
+
+
+def load_deform4d_config(run_dir: Path):
+    """The run's models.deform4d.Deform4DConfig, None for another model's
+    run."""
+    from ..models.deform4d import Deform4DConfig
+
+    return _section(run_dir, "deform4d", Deform4DConfig)
 
 
 def eval_setup(run_dir: Path, checkpoint: Optional[Path] = None,
@@ -109,7 +125,8 @@ def eval_setup(run_dir: Path, checkpoint: Optional[Path] = None,
                                          output_dir=Path(run_dir),
                                          viewer_port=None)
     trainer = Trainer(data_config, scene_config, trainer_config, dm_config,
-                      device=device, pvg=load_pvg_config(run_dir))
+                      device=device, pvg=load_pvg_config(run_dir),
+                      deform4d=load_deform4d_config(run_dir))
     ckpt = checkpoint or latest_checkpoint(Path(run_dir) / "checkpoints")
     if ckpt is not None:
         trainer.state = restore_checkpoint(ckpt, trainer.state)

@@ -11,7 +11,13 @@ refinement pass, called every refine_every steps by a host loop after
 The same pipeline trains the Periodic Vibration Gaussian model
 (models.pvg): a temporal store's three more leaves are three more Adam
 groups (10 leaves a step with the sky), and with `pvg` given the forward
-is models.pvg.forward at the camera's time.
+is models.pvg.forward at the camera's time. It also trains 4D Gaussian
+Splatting (models.deform4d): a plain store and the deformation field
+(`TrainState.field`), whose planes and decoder are two more Adam groups
+(9 leaves a step with the sky); with `deform4d` given the forward is
+models.deform4d.forward and, once the field is live, the loss adds its
+plane regularisers. A refine carries the store's leaves and leaves the
+field as it is.
 
 Both are functional, as engine.scene_train_step's: they return a new
 `TrainState` and leave the one they were given untouched (only its
@@ -26,16 +32,19 @@ from typing import Dict, Optional
 import torch
 
 from ..core.cameras import Camera, draw_pixel_jitter
+from ..models import deform4d as deform4d_model
 from ..models import pvg as pvg_model
 from ..models import refinement
+from ..models.deform4d import FIELD_GROUPS, Deform4DConfig
 from ..models.gaussians import GaussianStore
 from ..models.pvg import PVGConfig
 from ..models.splatfacto import SplatfactoConfig, forward, loss_dict
 from ..ops.render import RenderConfig
 from ..ops.ssim import psnr
 from ..utils.profiling import span
-from .optimizers import (DEFAULT_GROUPS, PVG_GROUPS, AdamGroup, AdamState,
-                         adam_step, init_adam, schedule, tree_map)
+from .optimizers import (DEFAULT_GROUPS, DEFORM4D_GROUPS, PVG_GROUPS,
+                         AdamGroup, AdamState, adam_step, init_adam,
+                         schedule, tree_map)
 
 GAUSSIAN_GROUPS = ("means", "scales", "quats", "features_dc",
                    "features_rest", "opacities")
@@ -48,9 +57,14 @@ def store_groups(store: GaussianStore) -> tuple:
 
 
 def group_config(name: str):
-    """A group's AdamConfig: the reference's registry, then PVG's."""
-    return DEFAULT_GROUPS[name] if name in DEFAULT_GROUPS else \
-        PVG_GROUPS[name]
+    """A group's AdamConfig: the reference's registry, PVG's or the 4DGS
+    field's."""
+    return {**DEFAULT_GROUPS, **PVG_GROUPS, **DEFORM4D_GROUPS}[name]
+
+
+def field_group(leaf: str) -> str:
+    """The Adam group of a field leaf ("planes" -> "field_planes")."""
+    return "field_" + leaf
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,32 +75,44 @@ class TrainState:
     step: int
     generator: torch.Generator     # on the store's device; draws the sky
     #                                jitter and the split noise
+    # The 4DGS deformation field (models.deform4d: "planes", "decoder",
+    # "aabb", "time_span"), None for the other models.
+    field: Optional[dict] = None
 
 
 def init_train_state(store: GaussianStore, env_map: Optional[torch.Tensor],
-                     generator: torch.Generator) -> TrainState:
+                     generator: torch.Generator,
+                     field: Optional[dict] = None) -> TrainState:
     opt = {name: init_adam(getattr(store.params, name))
            for name in store_groups(store)}
     if env_map is not None:
         opt["sky_sphere"] = init_adam(env_map)
+    if field is not None:
+        opt.update({field_group(k): init_adam(field[k])
+                    for k in FIELD_GROUPS})
     return TrainState(store=store, env_map=env_map, opt=opt, step=0,
-                      generator=generator)
+                      generator=generator, field=field)
 
 
 def loss_and_grads(state: TrainState, camera: Camera, batch: dict,
                    config: SplatfactoConfig, render_config: RenderConfig,
                    jitter: Optional[torch.Tensor] = None,
-                   pvg: Optional[PVGConfig] = None):
+                   pvg: Optional[PVGConfig] = None,
+                   deform4d: Optional[Deform4DConfig] = None):
     """The forward and backward of one step. Returns (total loss, losses,
     outputs, RenderOutputs, grads) with grads = {"params": {group: g},
     "env_map": g or None, "xys": (CAP, 2) the screen-space positional
-    gradients}; a parameter the loss does not reach gets zeros. `pvg`
-    (a temporal store's model, and only then) renders with
-    models.pvg.forward at the camera's time."""
+    gradients, "field": {leaf: g} or None}; a parameter the loss does not
+    reach gets zeros. `pvg` (a temporal store's model, and only then)
+    renders with models.pvg.forward at the camera's time; `deform4d` (a
+    state with a field, and only then) with models.deform4d.forward."""
     store = state.store
     if (pvg is not None) != store.params.temporal:
         raise ValueError("a temporal store trains with a PVGConfig, and "
                          "only a temporal store does")
+    if (deform4d is not None) != (state.field is not None):
+        raise ValueError("a state with a deformation field trains with a "
+                         "Deform4DConfig, and only such a state does")
     names = store_groups(store)
 
     def leaf(x):
@@ -96,6 +122,10 @@ def loss_and_grads(state: TrainState, camera: Camera, batch: dict,
         params = dataclasses.replace(store.params, **{
             name: leaf(getattr(store.params, name)) for name in names})
         env = leaf(state.env_map) if state.env_map is not None else None
+        field = None
+        if state.field is not None:
+            field = {**state.field,
+                     **{k: leaf(state.field[k]) for k in FIELD_GROUPS}}
         xys_zero = torch.zeros((store.capacity, 2), dtype=torch.float32,
                                device=store.active.device, requires_grad=True)
         if pvg is not None:
@@ -103,17 +133,27 @@ def loss_and_grads(state: TrainState, camera: Camera, batch: dict,
                 params, store.active, camera, state.step, config, pvg,
                 render_config, env_map=env, jitter=jitter, training=True,
                 xys_offset=xys_zero)
+        elif deform4d is not None:
+            outputs, rout = deform4d_model.forward(
+                params, store.active, field, camera, state.step, config,
+                deform4d, render_config, env_map=env, jitter=jitter,
+                training=True, xys_offset=xys_zero)
         else:
             outputs, rout = forward(
                 params, store.active, camera, state.step, config,
                 render_config, env_map=env, jitter=jitter, training=True,
                 time=batch.get("time"), xys_offset=xys_zero)
         losses = loss_dict(outputs, batch, config)
+        if field is not None and deform4d_model.live(deform4d, state.step):
+            losses.update(deform4d_model.regularizers(field["planes"],
+                                                      deform4d))
         total = sum(losses.values())
 
         leaves = [getattr(params, n) for n in names] + [xys_zero]
         if env is not None:
             leaves.append(env)
+        if field is not None:
+            leaves += [field[k] for k in FIELD_GROUPS]
     with span("step.backward"):
         raw = torch.autograd.grad(total, leaves, allow_unused=True)
         got = [torch.zeros_like(p) if g is None else g
@@ -122,6 +162,8 @@ def loss_and_grads(state: TrainState, camera: Camera, batch: dict,
     grads = {"params": {n: next(it) for n in names},
              "xys": next(it),
              "env_map": next(it) if env is not None else None}
+    grads["field"] = ({k: next(it) for k in FIELD_GROUPS}
+                      if field is not None else None)
     detach = lambda t: t.detach()  # noqa: E731
     return (total.detach(), tree_map(detach, losses),
             tree_map(detach, outputs), rout, grads)
@@ -130,16 +172,18 @@ def loss_and_grads(state: TrainState, camera: Camera, batch: dict,
 def train_step(state: TrainState, camera: Camera, batch: dict,
                config: SplatfactoConfig, render_config: RenderConfig,
                jitter: Optional[torch.Tensor] = None,
-               pvg: Optional[PVGConfig] = None):
+               pvg: Optional[PVGConfig] = None,
+               deform4d: Optional[Deform4DConfig] = None):
     """One optimization step. Returns (new_state, metrics).
 
     batch: {"image" (H, W, 3), optional "mask", "semantic", "time"}.
     `jitter` ((2, H, W)) is the sky rays' jitter; when None it is drawn
-    from the state's generator. `pvg`: see loss_and_grads."""
+    from the state's generator. `pvg`, `deform4d`: see loss_and_grads."""
     if jitter is None and state.env_map is not None:
         jitter = draw_pixel_jitter(camera, state.generator)
     total, losses, outputs, rout, grads = loss_and_grads(
-        state, camera, batch, config, render_config, jitter=jitter, pvg=pvg)
+        state, camera, batch, config, render_config, jitter=jitter, pvg=pvg,
+        deform4d=deform4d)
     step = state.step
     names = store_groups(state.store)
     with torch.no_grad(), span("step.adam"):
@@ -154,10 +198,19 @@ def train_step(state: TrainState, camera: Camera, batch: dict,
             groups["sky_sphere"] = AdamGroup(
                 grads["env_map"], state.opt["sky_sphere"], state.env_map,
                 schedule(cfg, step), cfg)
+        for k in FIELD_GROUPS if state.field is not None else ():
+            name = field_group(k)
+            cfg = group_config(name)
+            groups[name] = AdamGroup(grads["field"][k], state.opt[name],
+                                     state.field[k], schedule(cfg, step),
+                                     cfg)
         stepped = adam_step(groups)
         new_opt = {**state.opt, **{n: s for n, (_, s) in stepped.items()}}
         new_env = stepped["sky_sphere"][0] if "sky_sphere" in stepped \
             else state.env_map
+        new_field = state.field if state.field is None else {
+            **state.field,
+            **{k: stepped[field_group(k)][0] for k in FIELD_GROUPS}}
         store = dataclasses.replace(state.store, params=dataclasses.replace(
             state.store.params, **{name: stepped[name][0] for name in names}))
     with torch.no_grad(), span("step.stats"):
@@ -175,7 +228,8 @@ def train_step(state: TrainState, camera: Camera, batch: dict,
             **losses,
         }
     return dataclasses.replace(state, store=store, env_map=new_env,
-                               opt=new_opt, step=step + 1), metrics
+                               opt=new_opt, field=new_field,
+                               step=step + 1), metrics
 
 
 def refine_step(state: TrainState, config: SplatfactoConfig,

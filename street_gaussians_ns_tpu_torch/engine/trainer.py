@@ -32,6 +32,13 @@ position-aware gamma of the train cameras' extent. Everything around the
 step is the scene graph's: the datamanager, the sampler, the refine
 cadence, the pair presize and capacity checks, checkpoints and eval.
 
+With `deform4d` (a models.deform4d.Deform4DConfig) it trains 4D Gaussian
+Splatting the same way: the zero-object scene graph's background as the
+canonical cloud, the sky, and a fresh deformation field (`TrainState.
+field`: its box the seed cloud's bounds, its time span the clip's),
+stepped by `engine.train_step.train_step` at each image's time (9 Adam
+leaves) and refined with `config.background`, the field left as it is.
+
 With `camera_opt_mode != "off"` each train camera has a (6,) pose delta
 (models.camera_opt), trained with gradient accumulation over 100 steps.
 With `viewer_port` set, the live viewer (utils.viewer) serves its render
@@ -56,8 +63,10 @@ from ..core.cameras import Camera, viewmat_from_c2w
 from ..core.projection import project
 from ..data.datamanager import DataManagerConfig, FullImageDatamanager
 from ..data.dataparser import DataParserConfig, ParsedScene, parse_scene
+from ..models import deform4d as deform4d_model
 from ..models import pvg as pvg_model
 from ..models.camera_opt import CameraOptConfig, init_camera_opt
+from ..models.deform4d import Deform4DConfig
 from ..models.gaussians import GaussianStore, draw_init_noise, init_gaussians
 from ..models.pvg import PVGConfig
 from ..models.scene_graph import (SceneGraphConfig, compose, empty_tracks,
@@ -250,11 +259,16 @@ class Trainer:
         dm_config: DataManagerConfig = DataManagerConfig(),
         device="cuda",
         pvg: Optional[PVGConfig] = None,
+        deform4d: Optional[Deform4DConfig] = None,
     ):
         self.device = resolve_device(device)
-        # The PVG model's config, None for the scene graph.
+        # The PVG model's or the 4DGS model's config, None for the scene
+        # graph; either trains one cloud (`single_cloud`).
         self.pvg = pvg
-        if pvg is not None and scene_config.camera_opt_mode != "off":
+        self.deform4d = deform4d
+        if pvg is not None and deform4d is not None:
+            raise ValueError("one model at a time: pvg or deform4d")
+        if self.single_cloud and scene_config.camera_opt_mode != "off":
             raise ValueError("the camera optimizer trains with the scene "
                              "graph only")
         precision = trainer_config.render_precision
@@ -270,7 +284,7 @@ class Trainer:
                                     else out / self.log_dir_name)
         if self.primary:
             save_run_config(out, data_config, scene_config, trainer_config,
-                            dm_config, pvg=pvg)
+                            dm_config, pvg=pvg, deform4d=deform4d)
 
         self.writer.log(f"parsing scene {data_config.data}")
         with self._timed("parse"):
@@ -278,7 +292,7 @@ class Trainer:
         with self._timed("frame_cache"):
             self.dm = FullImageDatamanager(self.scene, dm_config,
                                            device=self.device)
-        n_obj = (0 if self.scene.annotations is None or self.pvg is not None
+        n_obj = (0 if self.scene.annotations is None or self.single_cloud
                  else self.scene.annotations.num_objects)
         self.writer.log(f"{self.dm.num_train} train / {self.dm.num_eval} "
                         f"eval frames, {n_obj} objects")
@@ -289,6 +303,8 @@ class Trainer:
             self._cam_row = {}
             if self.pvg is not None:
                 self.state, self.tracks = self._build_pvg(generator)
+            elif self.deform4d is not None:
+                self.state, self.tracks = self._build_deform4d(generator)
             else:
                 self.state, self.tracks = self._build_scene_graph(generator)
         self.start_step = 0
@@ -363,6 +379,37 @@ class Trainer:
         self._extent = (torch.as_tensor(centre, device=self.device), radius)
         return single_step.init_train_state(bg, env, generator), tracks
 
+    def _build_deform4d(self, generator: torch.Generator):
+        """4DGS's train state: the zero-object scene graph's background as
+        the canonical cloud, the sky, and a fresh deformation field whose
+        box is the seed cloud's bounds and whose time span is the clip's
+        (models.deform4d.init_field, drawn after the cloud's noise)."""
+        scene = dataclasses.replace(self.scene, annotations=None, tracks=None)
+        cfg, tc = self.config, self.tc
+        noise = draw_store_noise(scene, cfg, tc, generator, self.device)
+        bg, _, tracks = build_stores(scene, cfg, tc, noise, self.device)
+        env = (init_env_map(cfg.base, self.device)
+               if cfg.base.use_sky_sphere else None)
+        seeds = bg.params.means[bg.active]
+        lo, hi = ((seeds.amin(0), seeds.amax(0)) if len(seeds) else
+                  (-torch.ones(3, device=self.device),
+                   torch.ones(3, device=self.device)))
+        aabb = torch.stack([lo, torch.maximum(hi, lo + 1e-3)])
+        times = np.asarray(scene.times, np.float32)
+        t0 = float(times.min()) if len(times) else 0.0
+        t1 = float(times.max()) if len(times) else t0
+        t1 = t1 if t1 > t0 else t0 + 1.0     # one time: any span maps it
+        field = deform4d_model.init_field(self.deform4d, aabb, [t0, t1],
+                                          generator, self.device)
+        return single_step.init_train_state(bg, env, generator,
+                                            field=field), tracks
+
+    @property
+    def single_cloud(self) -> bool:
+        """Whether the trainer trains one cloud (PVG, 4DGS) through
+        engine.train_step rather than the scene graph."""
+        return self.pvg is not None or self.deform4d is not None
+
     @contextlib.contextmanager
     def _timed(self, name: str):
         """Host seconds of a construction stage, the device's work
@@ -406,6 +453,10 @@ class Trainer:
         if self.pvg is not None:
             return pvg_model.pair_counts(self.state.store, camera, self.pvg,
                                          tile)
+        if self.deform4d is not None:
+            return deform4d_model.pair_counts(
+                self.state.store, self.state.field, camera, self.state.step,
+                self.deform4d, tile)
         return scene_pair_counts(self.state.store, self.tracks, camera,
                                  self.config, tile)
 
@@ -469,10 +520,10 @@ class Trainer:
             camera, batch = self.dm.next_train(step)
         target = self._device_batch(batch)
         self._last_hw = (camera.height, camera.width)
-        if self.pvg is not None:
+        if self.single_cloud:
             self.state, metrics = single_step.train_step(
                 self.state, camera, target, self.config.base,
-                self.render_config, pvg=self.pvg)
+                self.render_config, pvg=self.pvg, deform4d=self.deform4d)
             return metrics
         fn = self._step_fn(step)
         kw = {}
@@ -552,9 +603,10 @@ class Trainer:
         return self.state
 
     def _refine(self, max_hw: int):
-        if self.pvg is not None:
-            scale = pvg_model.densify_scale(self.state.store.params.means,
-                                            *self._extent)
+        if self.single_cloud:
+            scale = (pvg_model.densify_scale(self.state.store.params.means,
+                                             *self._extent)
+                     if self.pvg is not None else None)
             return single_step.refine_step(
                 self.state, self.config.background, self.dm.num_train,
                 max_hw, densify_scale=scale)
@@ -599,14 +651,20 @@ class Trainer:
         """The eval render of `state` (the whole state when None) at
         camera, at the trainer's render config: forward_scene(training=
         False, eval_extras) for the scene graph, models.pvg.forward for
-        PVG (its heads: rgb, accumulation, depth, sky). Returns the
-        outputs dict."""
+        PVG and models.deform4d.forward for 4DGS (their heads: rgb,
+        accumulation, depth, sky). Returns the outputs dict."""
         state = self.full_state() if state is None else state
         if self.pvg is not None:
             store = state.store
             return pvg_model.forward(
                 store.params, store.active, camera, state.step,
                 self.config.base, self.pvg, self.render_config,
+                env_map=state.env_map, training=False)[0]
+        if self.deform4d is not None:
+            store = state.store
+            return deform4d_model.forward(
+                store.params, store.active, state.field, camera, state.step,
+                self.config.base, self.deform4d, self.render_config,
                 env_map=state.env_map, training=False)[0]
         return forward_scene(state.store, self.tracks, camera, state.step,
                              self.config, self.render_config, training=False,

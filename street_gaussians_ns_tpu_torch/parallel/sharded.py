@@ -32,7 +32,10 @@ each column the cotangents of what it sent, and the gradients are then
 summed over the mesh axes a leaf is replicated on: over the data rows
 for the background shard, over every rank for the objects, the sky, the
 box deltas. This is the JAX shard_map transpose, so a replicated
-parameter's gradient is counted once, however many columns use it.
+parameter's gradient is counted once, however many columns use it. The
+span `parallel.grad_reduce` (utils.profiling) holds those sums: on a
+mesh whose data axis is longer than one, the gradients' all-reduce over
+the data rows.
 """
 from __future__ import annotations
 
@@ -61,6 +64,7 @@ from ..ops.composite import (_check_tile_size, _tiles_to_image,
 from ..ops.packing import round_bf16
 from ..ops.render import RenderConfig
 from ..ops.ssim import ssim_band_mean
+from ..utils.profiling import span
 from .collectives import (all_gather_tiled, all_reduce, allreduce_form,
                           gather_tiled, group_size, pmax, pmean, psum,
                           reduce_scatter_tiled)
@@ -394,9 +398,10 @@ def make_sharded_train_step(mesh: Mesh, config: SceneGraphConfig,
                for p, g in zip(leaves, raw)]
         with torch.no_grad():
             # Sum over the axes a leaf is replicated on.
-            got = ([all_reduce(g, dg) for g in got[:len(bg_leaves)]]
-                   + [all_reduce(all_reduce(g, dg), mg)
-                      for g in got[len(bg_leaves):]])
+            with span("parallel.grad_reduce"):
+                got = ([all_reduce(g, dg) for g in got[:len(bg_leaves)]]
+                       + [all_reduce(all_reduce(g, dg), mg)
+                          for g in got[len(bg_leaves):]])
             it = iter(got)
             g_gauss = {n: {"bg": next(it)} for n in GAUSSIAN_GROUPS}
             g_off_bg = next(it)

@@ -7,13 +7,20 @@ Usage:
 
 ExportGaussianSplat (exporter.py:44-135): point_cloud_background.ply and
 point_cloud_object_<gid>.ply, the active gaussians in the Inria field
-layout with NaN/Inf rows dropped (data.ply_io.write_gaussian_ply).
+layout with NaN/Inf rows dropped (data.ply_io.write_gaussian_ply). A
+4D Gaussian Splatting run (models.deform4d) writes its canonical cloud as
+the background and its deformation field as deformation_field.npz: the
+flat planes and decoder, the box and the time span, and the field's
+config as JSON ("config").
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ..data.ply_io import write_gaussian_ply
@@ -43,6 +50,17 @@ def export_store(path: Path, params, active, name: str) -> int:
     return n
 
 
+def export_field(path: Path, field: dict, config) -> int:
+    """Write a deformation field's tensors and config; returns the trained
+    floats written (planes and decoder)."""
+    arrays = {k: v.detach().cpu().numpy() for k, v in field.items()}
+    np.savez(path, config=np.asarray(json.dumps(dataclasses.asdict(config))),
+             **arrays)
+    n = int(arrays["planes"].size + arrays["decoder"].size)
+    print(f"wrote a deformation field of {n} floats -> {path}")
+    return n
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--load-dir", type=Path, required=True)
@@ -61,7 +79,11 @@ def main(argv=None):
         args.output_dir / "point_cloud_background.ply", bg.params, bg.active,
         "background")}
     db = trainer.scene.annotations
-    if db is not None and trainer.pvg is None:
+    if trainer.deform4d is not None:
+        counts["field"] = export_field(
+            args.output_dir / "deformation_field.npz", trainer.state.field,
+            trainer.deform4d)
+    if db is not None and not trainer.single_cloud:
         for i, gid in enumerate(db.track_ids):
             params_i = type(store.objects.params)(**{
                 k: v[i] for k, v in store.objects.params.as_dict().items()})

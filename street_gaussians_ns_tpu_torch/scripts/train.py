@@ -9,7 +9,9 @@ Usage:
 Every config field is a dotted flag (utils.cli): the data parser's at the
 top level, then --trainer.*, --dm.*, --model.*. `--method pvg` trains
 the Periodic Vibration Gaussian model (models.pvg; its own fields are
---pvg.*) on one device instead of the scene graph. Any of --mesh-data,
+--pvg.*) on one device instead of the scene graph, `--method deform4d`
+4D Gaussian Splatting (models.deform4d; its fields are --deform4d.*).
+Any of --mesh-data,
 --mesh-model or --coordinator trains with the multi-device trainer
 (parallel.trainer.ShardedTrainer) instead: one process per rank, each
 started with the same flags and its own --process-id, all pointing at one
@@ -34,6 +36,7 @@ import torch
 from ..data.datamanager import DataManagerConfig
 from ..data.dataparser import DataParserConfig
 from ..engine.trainer import Trainer, TrainerConfig
+from ..models.deform4d import Deform4DConfig
 from ..models.pvg import PVGConfig
 from ..models.scene_graph import SceneGraphConfig
 from ..utils.cli import add_dataclass_args, dataclass_from_args
@@ -44,11 +47,13 @@ def build_parser() -> argparse.ArgumentParser:
     add_dataclass_args(p, TrainerConfig, prefix="trainer.")
     add_dataclass_args(p, DataManagerConfig, prefix="dm.")
     add_dataclass_args(p, SceneGraphConfig, prefix="model.")
-    p.add_argument("--method", choices=("scene_graph", "pvg"),
+    p.add_argument("--method", choices=("scene_graph", "pvg", "deform4d"),
                    default="scene_graph",
                    help="the model to train (default the scene graph; pvg: "
-                        "Periodic Vibration Gaussians, models.pvg)")
+                        "Periodic Vibration Gaussians, models.pvg; "
+                        "deform4d: 4D Gaussian Splatting, models.deform4d)")
     add_dataclass_args(p, PVGConfig, prefix="pvg.")
+    add_dataclass_args(p, Deform4DConfig, prefix="deform4d.")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default cuda; cpu runs "
                         "the kernels' plain versions)")
@@ -73,9 +78,11 @@ def main(argv=None):
                or args.coordinator is not None)
     pvg = (dataclass_from_args(PVGConfig, args, "pvg.")
            if args.method == "pvg" else None)
-    if sharded and pvg is not None:
-        raise SystemExit("--method pvg trains on one device: the "
-                         "multi-device trainer trains the scene graph")
+    deform4d = (dataclass_from_args(Deform4DConfig, args, "deform4d.")
+                if args.method == "deform4d" else None)
+    if sharded and args.method != "scene_graph":
+        raise SystemExit(f"--method {args.method} trains on one device: the "
+                         f"multi-device trainer trains the scene graph")
     if sharded:
         from ..parallel.trainer import ShardedTrainer
 
@@ -84,7 +91,8 @@ def main(argv=None):
             coordinator=args.coordinator, num_processes=args.num_processes,
             process_id=args.process_id, device=args.device)
     else:
-        trainer = Trainer(*configs, device=args.device, pvg=pvg)
+        trainer = Trainer(*configs, device=args.device, pvg=pvg,
+                          deform4d=deform4d)
     trainer.train()
     if sharded:
         torch.distributed.destroy_process_group()

@@ -1443,6 +1443,60 @@ def test_pvg_step_on_the_card_matches_the_cpu(cuda):
 
 
 @pytest.mark.cuda
+def test_deform4d_step_on_the_card_matches_the_cpu(cuda):
+    """The 4DGS model's train step (models.deform4d: the planes sampled
+    by grid_sample and their gradient scattered back, the decoder's GEMMs
+    with TF32 off, kernels A-F, I, J and L, then K over its nine leaves in
+    one launch) on the card against its CPU path from the same tiny
+    cloud, field, camera time, target and sky jitter: the loss and every
+    leaf's gradient, the planes, the decoder and the centres among them;
+    the three spans read device time and the counter its samples."""
+    import test_torch_deform4d as td
+    from benchmark import deform4d3
+    from street_gaussians_ns_tpu_torch.engine import train_step as ts
+    from street_gaussians_ns_tpu_torch.utils import profiling
+    assert not torch.backends.cuda.matmul.allow_tf32
+    sc = deform4d3.make_scene(td.SEED, td.CFG, "cpu")
+    g = 2 * 6 + 3                      # camera 3, frame 3 of td.CFG's 6
+    got = {}
+    for dev in ("cpu", cuda):
+        state = td._state({k: v.to(dev) for k, v in sc.items()})
+        cam, _ = td._cameras(g, dev)
+        total, _, _, _, grads = ts.loss_and_grads(
+            state, cam, td._batch(g, dev), td.SPLAT, td.RCFG,
+            jitter=td._jitter().to(dev), deform4d=td.D4)
+        got[str(dev)] = (float(total), {
+            k: v.cpu() for k, v in {**grads["params"],
+                                    "env_map": grads["env_map"],
+                                    **grads["field"]}.items()})
+    (lc, gc), (lg, gg) = got["cpu"], got[str(cuda)]
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for k, b in gc.items():
+        top = float(b.abs().max())
+        assert top > 0, k
+        torch.testing.assert_close(gg[k], b, rtol=1e-4, atol=1e-5 * top,
+                                   msg=lambda m: f"{k}: {m}")
+    state = td._state({k: v.to(cuda) for k, v in sc.items()})
+    cam, _ = td._cameras(g, cuda)
+    batch = td._batch(g, cuda)
+    profiling.reset()
+    profiling.enable(True)
+    try:
+        before = adam.ADAM_KERNEL.launches
+        ts.train_step(state, cam, batch, td.SPLAT, td.RCFG,
+                      jitter=td._jitter().to(cuda), deform4d=td.D4)
+        assert adam.ADAM_KERNEL.launches == before + 1
+        snap = profiling.snapshot()
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    assert snap["step.adam_leaves"]["total"] == 9
+    for k in ("deform4d.field", "deform4d.decode", "deform4d.field_bwd"):
+        assert snap[k]["device_ms"] > 0, k
+    assert snap["deform4d.samples"]["total"] == 2048 * 6 * 3
+
+
+@pytest.mark.cuda
 def test_adam_helper_on_the_card_raises_rather_than_falls_back(cuda):
     """On CUDA tensors the helper launches K or raises: 33 leaves, a
     non-contiguous or a float64 leaf are refused with no launch."""

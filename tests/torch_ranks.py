@@ -30,9 +30,13 @@ keep the merged frames}); optionally "build" = (module, function,
 kwargs), which makes the state and inputs on every rank instead of the
 pickle (the full-width scene is too large to pickle), and "state_keys",
 the prefixes of the state's keys to write (all when absent).
+
+`run_bench_cell` runs a benchmark cell whose driver starts its own ranks
+(sg_train_mesh4's) at tiny sizes on the CPU.
 """
 from __future__ import annotations
 
+import json
 import os
 import pickle
 import subprocess
@@ -86,6 +90,34 @@ def run_ranks(job: dict, world: int, workdir: Path,
         with open(workdir / f"rank{r}.pkl", "rb") as f:
             results.append({**pickle.load(f), "stdout": outs[r][0]})
     return results
+
+
+def run_bench_cell(workload: str, seed: int, seconds: float = 1.0,
+                   trace: bool = False, fault=None, control=None,
+                   timeout: float = 600.0) -> dict:
+    """One run of a benchmark cell whose driver starts its own ranks
+    (benchmark/drivers/train_mesh4: rank 0 is the run's process, the others
+    its children), at the CPU tests' tiny sizes (benchmark/tests/tiny.py),
+    in a fresh interpreter: the run's result and the forbidden top-level
+    modules loaded once it is done. Raises with the run's stderr."""
+    code = (
+        "import json, sys; sys.path.insert(0, %r)\n"
+        "from benchmark import run as R\n"
+        "from benchmark.tests import tiny\n"
+        "spec, f = tiny.found(%r)\n"
+        "r = R.run(%r, %d, %r, %r, device='cpu', spec=spec, found=f,"
+        " trace_units=2, log=lambda *a: None, fault=%r, control=%r)\n"
+        "print(json.dumps({'result': r,"
+        " 'forbidden': R.forbidden_modules()}))\n") % (
+            str(ROOT), workload, workload, seed, seconds, trace, fault,
+            control)
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    p = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=ROOT, env=env, timeout=timeout)
+    if p.returncode != 0:
+        raise RuntimeError(f"{workload} exited {p.returncode}:\n"
+                           f"{p.stderr[-4000:]}")
+    return json.loads(p.stdout.strip().splitlines()[-1])
 
 
 def _host(v):
